@@ -1,0 +1,428 @@
+"""RAGEngine — the core retrieval engine on a PyTorch device.
+
+Ingest: chunk -> encode on the device (the bulk path keeps embeddings on
+the device) -> document store upsert + index append.  Query: tokenize
+on the host, then the dense forward, the hybrid concat and the index
+search run on the device in one function (``_device_query``), and the
+document store resolves the rows.  Behaviour follows the JAX package's
+``RAGEngine``: recent-context deque, rolling retrieval-time stats,
+overfetch-and-refill under filters, positional restore with tombstones.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from collections import deque
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from modular_rag_system_tpu_torch.chunker import TextChunker
+from modular_rag_system_tpu_torch.config import RAGConfig
+from modular_rag_system_tpu_torch.index import DeviceIndex, snapshot_embeddings
+from modular_rag_system_tpu_torch.models import build_encoder
+from modular_rag_system_tpu_torch.models.encoder import MiniLMEncoder
+from modular_rag_system_tpu_torch.models.lexical import HybridEncoder
+from modular_rag_system_tpu_torch.ops import exact as exact_ops
+from modular_rag_system_tpu_torch.store import DocumentStore
+from modular_rag_system_tpu_torch.types import Document, Query, RetrievalResult, as_matrix
+from modular_rag_system_tpu_torch.utils.device import resolve_device
+from modular_rag_system_tpu_torch.utils.resilience import retry_transient
+
+
+class RAGEngine:
+    def __init__(self, config: Optional[RAGConfig] = None, device="cuda") -> None:
+        self.config = config or RAGConfig()
+        mesh = self.config.mesh
+        if mesh.multihost or mesh.index_shards > 1 or mesh.dcn_slices > 1:
+            raise NotImplementedError(
+                "sharded and multihost index layouts are not ported yet "
+                "(ROADMAP: sharded index over torch.distributed, multihost)")
+        self.device = resolve_device(device)
+        self.encoder = build_encoder(self.config, device=self.device)
+        # the index is sized from the ENCODER's dim (a hybrid encoder is
+        # wider than embedding.dim); the config is not written back
+        self.embed_dim = int(getattr(self.encoder, "dim", 0) or self.config.embedding.dim)
+        self.chunker = TextChunker(
+            chunk_size_tokens=self.config.embedding.chunk_size_tokens,
+            overlap_tokens=self.config.embedding.chunk_overlap_tokens,
+            token_counter=getattr(self.encoder, "token_count", None),
+        )
+        self.store = DocumentStore(self.config.store.storage_path)
+        ic = self.config.index
+        self.index = DeviceIndex(
+            dim=self.embed_dim, capacity=ic.initial_capacity, tier=ic.tier,
+            fused_bin_width=ic.fused_bin_width, store_dtype=ic.store_dtype,
+            device=self.device)
+        self.recent_context: deque = deque(
+            maxlen=self.config.retrieval.recent_context_size)
+        self.query_stats: Dict[str, float] = {
+            "total_queries": 0,
+            "avg_retrieval_time": 0.0,
+            "total_documents_added": 0,
+        }
+        self._snapshot_path = Path(self.config.store.storage_path) / "index.npz"
+        # store.upsert + index.add must be atomic together: interleaved
+        # writers would desynchronize store rows from index rows
+        self._write_lock = threading.RLock()
+        self._restore()
+
+    # ------------------------------------------------------------------
+    # persistence
+    def _restore(self) -> None:
+        """Reload the index from its snapshot; re-embed any store rows the
+        snapshot is missing, positionally (tombstones become zero rows)."""
+        n_store = self.store.max_row() + 1
+        if self._snapshot_path.exists():
+            data = np.load(self._snapshot_path)
+            if int(data["dim"]) == self.index.dim and int(data["count"]) <= max(n_store, 0):
+                emb = snapshot_embeddings(data)[: int(data["count"])]
+                if emb.shape[0]:
+                    self.index.add(np.asarray(emb, dtype=np.float32))
+        if self.index.count < n_store:
+            missing: List[Optional[Document]] = [
+                doc for row, doc in self.store.iter_all(include_deleted=True)
+                if row >= self.index.count]
+            if missing:
+                live_mat = self._encode([d.content for d in missing if d is not None])
+                mat = np.zeros((len(missing), self.index.dim), np.float32)
+                li = 0
+                for i, d in enumerate(missing):
+                    if d is not None:
+                        mat[i] = live_mat[li]
+                        li += 1
+                self.index.add(mat)
+        deleted = self.store.deleted_rows()
+        if deleted.size:
+            self.index.delete_rows(deleted[deleted < self.index.count])
+
+    def save(self) -> None:
+        self.index.snapshot(str(self._snapshot_path))
+
+    # ------------------------------------------------------------------
+    # ingest
+    def _encode(self, texts: Sequence[str]) -> np.ndarray:
+        if not texts:
+            return np.zeros((0, self.index.dim), np.float32)
+        return retry_transient(
+            lambda: np.asarray(self.encoder.encode(list(texts))),
+            what="encoder forward")
+
+    def add_documents(self, docs: Sequence[Document]) -> List[str]:
+        """Batch add (pre-embedded or not). Returns ids. Idempotent."""
+        docs = list(docs)
+        if not docs:
+            return []
+        emb_dev = None
+        if all(d.embedding is None for d in docs) and hasattr(self.encoder, "encode_device"):
+            # device-resident bulk path: embeddings never touch the host
+            emb_dev = retry_transient(
+                lambda: self.encoder.encode_device([d.content for d in docs]),
+                what="encoder forward")
+        else:
+            need = [d for d in docs if d.embedding is None]
+            if need:
+                mat = self._encode([d.content for d in need])
+                for d, e in zip(need, mat):
+                    d.embedding = e
+        with self._write_lock:
+            return self._place_documents(docs, emb_dev)
+
+    def _place_documents(self, docs: Sequence[Document], emb_dev=None) -> List[str]:
+        placements = self.store.upsert_batch(docs)
+        new_pos = [i for i, (_r, status) in enumerate(placements) if status == "new"]
+        if new_pos:
+            first_new = min(placements[i][0] for i in new_pos)
+            if first_new != self.index.count:
+                raise RuntimeError(
+                    f"store/index row drift: store row {first_new}, "
+                    f"index count {self.index.count}")
+            if emb_dev is not None:
+                new_mat = emb_dev if len(new_pos) == len(docs) else emb_dev[new_pos]
+            else:
+                new_mat = as_matrix(
+                    [np.asarray(docs[i].embedding, dtype=np.float32) for i in new_pos],
+                    self.index.dim)
+            self.index.add(new_mat)
+        # re-ingest of previously deleted docs: their index rows were
+        # zeroed by delete_rows, so write the fresh embeddings back
+        res_pos = [i for i, (_r, status) in enumerate(placements) if status == "resurrected"]
+        if res_pos:
+            res_rows = np.asarray([placements[i][0] for i in res_pos], dtype=np.int64)
+            if emb_dev is not None:
+                res_mat = emb_dev[res_pos]
+            else:
+                res_mat = as_matrix(
+                    [np.asarray(docs[i].embedding, dtype=np.float32) for i in res_pos],
+                    self.index.dim)
+            self.index.set_rows(res_rows, res_mat)
+        self.query_stats["total_documents_added"] += len(new_pos)
+        return [d.id for d in docs]
+
+    def add_document(
+        self,
+        content: str,
+        metadata: Optional[Dict[str, Any]] = None,
+        source: str = "unknown",
+        content_type: str = "document",
+        importance: float = 1.0,
+    ) -> str:
+        doc = Document(content=content, metadata=metadata or {}, source=source,
+                       content_type=content_type, importance=importance)
+        return self.add_documents([doc])[0]
+
+    def add_text(
+        self,
+        text: str,
+        content_type: str = "document",
+        source: str = "unknown",
+        metadata: Optional[Dict[str, Any]] = None,
+    ) -> List[str]:
+        """Chunk + embed + add: the convenience ingest path."""
+        docs = [
+            Document(
+                content=c.text,
+                content_type=content_type,
+                source=source,
+                metadata={**(metadata or {}), "chunk_index": c.index,
+                          "chunk_total": c.total},
+            )
+            for c in self.chunker.chunk_text(text, content_type)
+        ]
+        return self.add_documents(docs)
+
+    # ------------------------------------------------------------------
+    # query
+    def query(
+        self,
+        query_text: str,
+        context: Optional[Dict[str, Any]] = None,
+        max_results: Optional[int] = None,
+        source_filters: Optional[List[str]] = None,
+        similarity_threshold: Optional[float] = None,
+        time_weight: Optional[float] = None,
+    ) -> RetrievalResult:
+        r = self.config.retrieval
+        q = Query(
+            text=query_text,
+            context=dict(context or {}),
+            max_results=max_results if max_results is not None else r.max_results,
+            similarity_threshold=(similarity_threshold if similarity_threshold is not None
+                                  else r.similarity_threshold),
+            time_weight=time_weight if time_weight is not None else r.time_weight,
+            source_filters=source_filters,
+        )
+        q.context["recent_context"] = list(self.recent_context)[-10:]
+        t0 = time.perf_counter()
+        result = self._retrieve(q)
+        result.retrieval_time = time.perf_counter() - t0
+        self._update_query_stats(result.retrieval_time)
+        self.recent_context.append(
+            {"query": query_text, "timestamp": time.time(), "n_results": len(result.documents)})
+        return result
+
+    def embed_queries(self, texts: List[str]) -> Optional[torch.Tensor]:
+        """Query embeddings (Q, dim) f32 on the device: host tokenize, the
+        dense forward on a pow-2 padded batch, then the hybrid concat with
+        the host lexical half.  None when the encoder has no device
+        forward (the fake encoder)."""
+        hybrid = isinstance(self.encoder, HybridEncoder)
+        dense = self.encoder.dense if hybrid else self.encoder
+        if not isinstance(dense, MiniLMEncoder):
+            return None
+        ids, mask = dense.tokenizer.encode_batch(texts)
+        ids, mask = dense._crop_seq(ids, mask)
+        Q = len(texts)
+        Qp = 1
+        while Qp < Q:
+            Qp <<= 1
+        if Qp != Q:
+            ids = np.pad(ids, ((0, Qp - Q), (0, 0)))
+            mask = np.pad(mask, ((0, Qp - Q), (0, 0)))
+        q = dense.forward_tokens(ids, mask)[:Q]  # unit rows
+        if not hybrid:
+            return q
+        lex = torch.from_numpy(self.encoder.lexical.encode(texts)).to(q.device)
+        wd = math.sqrt(1.0 - self.encoder.weight)
+        wl = math.sqrt(self.encoder.weight)
+        return torch.cat([wd * q, wl * lex], dim=1)
+
+    def _device_query(self, texts: List[str], k: int):
+        """Encode and search on the device -> (scores, rows) numpy (Q, k),
+        or None when the encoder has no device forward."""
+        q = self.embed_queries(texts)
+        if q is None:
+            return None
+        with self.index._lock:
+            vals, rows = self.index.search_core(k)(
+                self.index.search_ops(), self.index.count, q)
+        return vals.cpu().numpy(), rows.cpu().numpy()
+
+    # kernel-path refills stop at _REFILL_KERNEL_MAX; one final deep pass
+    # runs through the exact path (any k) up to _REFILL_EXACT_MAX
+    _REFILL_KERNEL_MAX = 1024
+    _REFILL_EXACT_MAX = 16384
+
+    def _next_refill_k(self, k: int) -> Optional[int]:
+        if k < min(self._REFILL_KERNEL_MAX, self.index.count):
+            return min(k * 4, self._REFILL_KERNEL_MAX, self.index.count)
+        if k < min(self._REFILL_EXACT_MAX, self.index.count):
+            return min(self._REFILL_EXACT_MAX, self.index.count)
+        return None
+
+    def _search_batch(self, texts: List[str], k: int):
+        """(scores (Q,k), rows (Q,k), q_emb (Q,d) or None)."""
+        if k > self._REFILL_KERNEL_MAX:
+            # deep filtered refill: exact path, any k
+            q_emb = np.asarray(self.encoder.encode_queries(texts))
+            with self.index._lock:
+                scores, rows = exact_ops.exact_topk_raw(
+                    self.index.E, self.index.count,
+                    torch.as_tensor(q_emb, device=self.index.device),
+                    min(k, self.index.count))
+            return scores.cpu().numpy(), rows.cpu().numpy(), q_emb
+        fused = retry_transient(lambda: self._device_query(texts, k), what="device query")
+        if fused is not None:
+            scores, rows = fused
+            return scores, rows, None
+        q_emb = np.asarray(self.encoder.encode_queries(texts))
+        scores, rows = self.index.search(q_emb, k)
+        return scores, rows, q_emb
+
+    def _postprocess_rows(self, q: Query, scores, rows, by_row, now: float):
+        """Filter + rank one query's candidate rows."""
+        docs: List[Document] = []
+        sims: List[float] = []
+        for score, r in zip(scores, rows):
+            doc = by_row.get(int(r)) if r >= 0 else None
+            if doc is None or not np.isfinite(score):
+                continue  # deleted / padded slot
+            sim = float(np.clip(score, 0.0, 1.0))
+            if sim < q.similarity_threshold:
+                continue
+            if q.source_filters and doc.source not in q.source_filters:
+                continue
+            if q.metadata_filters and any(
+                doc.metadata.get(mk) != mv for mk, mv in q.metadata_filters.items()
+            ):
+                continue
+            docs.append(doc)
+            age_days = max(now - doc.timestamp, 0.0) / 86400.0
+            recency = float(np.exp(-age_days / 7.0))
+            sims.append((1.0 - q.time_weight) * sim + q.time_weight * recency)
+        order = np.argsort(sims)[::-1][: q.max_results]
+        return [docs[i] for i in order], [sims[i] for i in order]
+
+    def _fetch_by_row(self, rows) -> Dict[int, Document]:
+        flat = sorted({int(r) for r in np.asarray(rows).ravel() if r >= 0})
+        return {r: d for r, d in zip(flat, self.store.get_by_rows(flat))}
+
+    def _initial_k(self, max_results: int, filters_active: bool) -> int:
+        overfetch = self.config.index.overfetch if filters_active else 2
+        return min(max(max_results * overfetch, max_results), self.index.count)
+
+    def _retrieve(self, q: Query) -> RetrievalResult:
+        if self.index.count == 0:
+            return RetrievalResult([], [], None, 0.0, 0)
+        filters_active = bool(q.source_filters or q.metadata_filters)
+        k = self._initial_k(q.max_results, filters_active)
+        while True:
+            scores, rows, q_emb = self._search_batch([q.text], k)
+            by_row = self._fetch_by_row(rows)
+            docs, sims = self._postprocess_rows(q, scores[0], rows[0], by_row, time.time())
+            # a selective filter can consume the whole candidate set:
+            # rescan deeper; threshold misses never refill
+            if len(docs) >= q.max_results or not filters_active:
+                break
+            nk = self._next_refill_k(k)
+            if nk is None or nk <= k:
+                break
+            k = nk
+        return RetrievalResult(
+            documents=docs,
+            similarities=sims,
+            query_embedding=q_emb[0] if q_emb is not None else None,
+            retrieval_time=0.0,
+            total_documents_searched=self.index.count,
+        )
+
+    def _update_query_stats(self, dt: float) -> None:
+        s = self.query_stats
+        n = s["total_queries"]
+        s["avg_retrieval_time"] = (s["avg_retrieval_time"] * n + dt) / (n + 1)
+        s["total_queries"] = n + 1
+
+    def query_batch(
+        self,
+        texts: Sequence[str],
+        max_results: int = 5,
+        source_filters: Optional[List[str]] = None,
+        similarity_threshold: Optional[float] = None,
+        time_weight: Optional[float] = None,
+        metadata_filters: Optional[Dict[str, Any]] = None,
+    ) -> List[RetrievalResult]:
+        """Many queries, one forward and one search; the semantics of
+        ``query`` (threshold, filters, time_weight, refill)."""
+        if self.index.count == 0 or not texts:
+            return [RetrievalResult([], [], None, 0.0, 0) for _ in texts]
+        r = self.config.retrieval
+        queries = [
+            Query(
+                text=t,
+                max_results=max_results,
+                similarity_threshold=(similarity_threshold if similarity_threshold is not None
+                                      else r.similarity_threshold),
+                time_weight=time_weight if time_weight is not None else r.time_weight,
+                source_filters=source_filters,
+                metadata_filters=metadata_filters,
+            )
+            for t in texts
+        ]
+        filters_active = bool(source_filters or metadata_filters)
+        k = self._initial_k(max_results, filters_active)
+        t0 = time.perf_counter()
+        while True:
+            scores, rows, q_emb = self._search_batch(list(texts), k)
+            by_row = self._fetch_by_row(rows)
+            now = time.time()
+            per_q = [self._postprocess_rows(q, scores[qi], rows[qi], by_row, now)
+                     for qi, q in enumerate(queries)]
+            if all(len(docs) >= max_results for docs, _ in per_q) or not filters_active:
+                break
+            nk = self._next_refill_k(k)
+            if nk is None or nk <= k:
+                break
+            k = nk
+        dt = time.perf_counter() - t0
+        return [
+            RetrievalResult(docs, sims, q_emb[qi] if q_emb is not None else None,
+                            dt, self.index.count)
+            for qi, (docs, sims) in enumerate(per_q)
+        ]
+
+    # ------------------------------------------------------------------
+    def get_system_stats(self) -> Dict[str, Any]:
+        return {
+            "query_stats": dict(self.query_stats),
+            "store": self.store.stats(),
+            "index": {
+                "tier": self.index.tier,
+                "effective_tier": self.index.effective_tier(),
+                "count": self.index.count,
+                "capacity": self.index.capacity,
+                "dim": self.index.dim,
+                "memory_bytes": self.index.memory_bytes(),
+                "device": str(self.device),
+            },
+            "encoder": getattr(self.encoder, "name", "unknown"),
+            "recent_context_size": len(self.recent_context),
+        }
+
+    def shutdown(self) -> None:
+        if self.config.store.snapshot_on_shutdown:
+            self.save()
+        self.store.close()

@@ -1,0 +1,118 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``*.cu`` file here is one kernel with a plain C entry point.  At
+first use every source is compiled by its own ``nvcc`` process, all
+started together, for ``sm_90a`` into a shared library under
+``_build/`` (named by the source's content hash, so an edited source
+rebuilds), and loaded with ``ctypes``.  A build or load failure raises:
+there is no fallback to the plain PyTorch versions.
+
+``launches`` counts kernel launches per kernel name: each wrapper in
+``ops/`` adds one where it launches its kernel and nowhere else.
+
+Build by hand (what ``build_all`` runs for each source):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so <name>.cu
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+KERNEL_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNEL_DIR / "_build"
+SOURCES = ("binmax_int8", "fused_topk_int8")
+
+launches: Dict[str, int] = {name: 0 for name in SOURCES}
+build_logs: Dict[str, str] = {}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures: every entry point returns a cudaError_t as int
+_ARGTYPES = {
+    # E_q, q_i8, scales, q_scale, cap, Q, d, bin_width, out, stream
+    "binmax_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # E_q, scales, q_bf16, Q, cap, d, count, k, bin_width, vals, ids, stream
+    "fused_topk_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha1((KERNEL_DIR / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every kernel source that has no current build, one
+    ``nvcc`` per source in parallel; raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in SOURCES:
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", str(tmp), str(KERNEL_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        build_logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return {name: _target(name) for name in SOURCES}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (building all at first use)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            paths = build_all()
+            for n, path in paths.items():
+                loaded = ctypes.CDLL(str(path))
+                fn = getattr(loaded, n)
+                fn.argtypes = _ARGTYPES[n]
+                fn.restype = ctypes.c_int
+                _libs[n] = loaded
+            lib = _libs[name]
+        return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C entry point; raises on a CUDA error."""
+    err = getattr(library(name), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+    launches[name] += 1
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0

@@ -1,0 +1,40 @@
+"""Encoder model family.
+
+* ``fake.FeatureHashEncoder`` — deterministic, dependency-free encoder
+  for hermetic tests.
+* ``encoder.MiniLMEncoder`` with the bundled checkpoint, wrapped with the
+  lexical half in a ``lexical.HybridEncoder`` — the default encoder.
+"""
+
+from modular_rag_system_tpu_torch.models.fake import FeatureHashEncoder
+
+
+def build_encoder(config, device="cuda"):
+    """Encoder factory honoring ``EmbeddingConfig.model``.
+
+    ``"auto"`` and ``"minilm"`` build the bundled checkpoint (wrapped in
+    the hybrid encoder when ``lexical_dim > 0``) on ``device``; any
+    failure to do so raises, so a broken checkpoint cannot pass for a
+    working encoder.  ``"fake"`` builds the host feature-hash encoder."""
+    model = config.embedding.model
+    if model == "fake":
+        return FeatureHashEncoder(dim=config.embedding.dim)
+    if model not in ("minilm", "auto"):
+        raise ValueError(f"unknown or unported encoder model {model!r}")
+    emb = config.embedding
+    if emb.lexical_dim > 0 and not 0.0 < emb.lexical_weight < 1.0:
+        raise ValueError(
+            f"embedding.lexical_weight must be in (0,1), got "
+            f"{emb.lexical_weight} (use lexical_dim=0 for pure dense)")
+    from modular_rag_system_tpu_torch.models.default_ckpt import build_default_encoder
+
+    dense = build_default_encoder(config, device)
+    if emb.lexical_dim <= 0:
+        return dense
+    from modular_rag_system_tpu_torch.models.lexical import (
+        HybridEncoder,
+        LexicalHashEncoder,
+    )
+
+    return HybridEncoder(dense, LexicalHashEncoder(dim=emb.lexical_dim),
+                         weight=emb.lexical_weight)

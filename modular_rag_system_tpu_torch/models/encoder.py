@@ -1,0 +1,232 @@
+"""MiniLM-class sentence encoder in PyTorch — the ingest and query model.
+
+``SentenceEncoderModule`` is the JAX package's flax module of the same
+name, rewritten as ``nn.Module``s with the same numerics:
+
+* post-LN BERT blocks: residual add, then LayerNorm;
+* LayerNorm computes in f32 (eps 1e-12, variance as E[x^2] - E[x]^2) and
+  casts back to the compute dtype;
+* Dense layers compute in the compute dtype: input, weight and bias are
+  all in it, and the bias is added after the product is rounded;
+* attention divides the query by sqrt(head_dim) in the compute dtype
+  before the QK product, masks padded positions with ``finfo(dtype).min``
+  and runs the softmax in the compute dtype; plain tensor ops, since
+  the numerics must follow the flax dense path;
+* erf GELU; masked mean-pool in f32, then L2 normalisation with a 1e-12
+  floor.
+
+``MiniLMEncoder`` is the host wrapper: tokenize, crop to the pow-2
+sequence bucket (min 32), pad the batch to a power of two, forward.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from modular_rag_system_tpu_torch.models.tokenizer import HashingTokenizer
+from modular_rag_system_tpu_torch.utils.device import resolve_device
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class LayerNormF32(nn.Module):
+    """flax ``LayerNorm(dtype=float32, epsilon=1e-12)``: f32 in and out."""
+
+    def __init__(self, dim: int, eps: float = 1e-12) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    # product rounded to the compute dtype first, bias added after (flax)
+    return F.linear(x, layer.weight) + layer.bias
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, hidden: int, heads: int, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.heads = heads
+        self.query = nn.Linear(hidden, hidden, dtype=dtype)
+        self.key = nn.Linear(hidden, hidden, dtype=dtype)
+        self.value = nn.Linear(hidden, hidden, dtype=dtype)
+        self.out = nn.Linear(hidden, hidden, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
+        B, L, H = x.shape
+        dh = H // self.heads
+        q = _dense(self.query, x).view(B, L, self.heads, dh)
+        k = _dense(self.key, x).view(B, L, self.heads, dh)
+        v = _dense(self.value, x).view(B, L, self.heads, dh)
+        q = q / torch.tensor(math.sqrt(dh), dtype=torch.float32).to(x.dtype)
+        w = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        # nn.make_attention_mask: query mask x key mask
+        mask = pad[:, None, :, None] & pad[:, None, None, :]
+        w = torch.where(mask, w, torch.finfo(x.dtype).min)
+        # jax.nn.softmax in the compute dtype (the sum accumulates in f32)
+        u = torch.exp(w - w.amax(-1, keepdim=True))
+        w = u / u.sum(-1, keepdim=True, dtype=torch.float32).to(x.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, H)
+        return _dense(self.out, o)
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, hidden: int, heads: int, mlp_dim: int,
+                 dtype: torch.dtype) -> None:
+        super().__init__()
+        self.attn = SelfAttention(hidden, heads, dtype)
+        self.ln0 = LayerNormF32(hidden)
+        self.ffn_in = nn.Linear(hidden, mlp_dim, dtype=dtype)
+        self.ffn_out = nn.Linear(mlp_dim, hidden, dtype=dtype)
+        self.ln1 = LayerNormF32(hidden)
+
+    def forward(self, x: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
+        dtype = x.dtype
+        x = self.ln0(x + self.attn(x, pad)).to(dtype)
+        h = _dense(self.ffn_out, F.gelu(_dense(self.ffn_in, x)))
+        return self.ln1(x + h).to(dtype)
+
+
+class SentenceEncoderModule(nn.Module):
+    """(ids, mask) (B, L) int -> (B, hidden) f32 unit rows."""
+
+    def __init__(self, vocab_size: int = 30522, hidden: int = 384,
+                 layers: int = 6, heads: int = 12, mlp_dim: int = 1536,
+                 max_len: int = 256, dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.tok_embed = nn.Embedding(vocab_size, hidden, dtype=dtype)
+        self.pos_embed = nn.Embedding(max_len, hidden, dtype=dtype)
+        self.embed_ln = LayerNormF32(hidden)
+        self.blocks = nn.ModuleList(
+            TransformerBlock(hidden, heads, mlp_dim, dtype) for _ in range(layers))
+        self.dtype = dtype
+
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        L = ids.shape[1]
+        pos = torch.arange(L, device=ids.device)[None, :]
+        x = self.tok_embed(ids) + self.pos_embed(pos)
+        x = self.embed_ln(x).to(self.dtype)
+        pad = mask.bool()
+        for block in self.blocks:
+            x = block(x, pad)
+        m = mask.float()[..., None]
+        pooled = (x.float() * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+        norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+        return pooled / torch.clamp(norm, min=1e-12)
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+# shortest sequence bucket: seq buckets are {32, 64, ..., max_seq_len}
+_MIN_SEQ_BUCKET = 32
+
+
+class MiniLMEncoder:
+    """Host-facing wrapper: tokenize -> bucket-pad -> forward on ``device``."""
+
+    def __init__(
+        self,
+        state_dict: Dict[str, torch.Tensor],
+        dim: int = 384,
+        max_seq_len: int = 256,
+        batch_size: int = 256,
+        dtype: str = "bfloat16",
+        num_layers: int = 6,
+        num_heads: int = 12,
+        mlp_dim: int = 1536,
+        vocab_size: int = 30522,
+        tokenizer=None,
+        attention_impl: str = "dense",
+        device="cuda",
+    ) -> None:
+        if attention_impl == "flash":
+            raise NotImplementedError(
+                "attention_impl='flash' needs the flash-attention kernel, "
+                "which is not ported yet (ROADMAP: TPU kernels still to port)")
+        if attention_impl != "dense":
+            raise ValueError(
+                f"attention_impl must be 'dense' or 'flash', got {attention_impl!r}")
+        self.device = resolve_device(device)
+        self.dim = dim
+        self.max_seq_len = max_seq_len
+        self.batch_size = batch_size
+        self.tokenizer = tokenizer or HashingTokenizer(vocab_size, max_seq_len)
+        self.module = SentenceEncoderModule(
+            vocab_size=vocab_size, hidden=dim, layers=num_layers,
+            heads=num_heads, mlp_dim=mlp_dim, max_len=max_seq_len,
+            dtype=_DTYPES[dtype])
+        self.module.load_state_dict(state_dict)
+        self.module.to(self.device).eval()
+        self.name = f"minilm-l{num_layers}-h{dim}"
+
+    # ------------------------------------------------------------------
+    def _crop_seq(self, ids: np.ndarray, mask: np.ndarray):
+        """Crop a (B, max_seq_len) token batch to its pow-2 seq bucket.
+
+        Tokens are left-packed, so cropping to the longest row's bucket
+        drops only all-PAD columns, which attention and pooling mask out:
+        the embedding is unchanged."""
+        n_tok = int(mask.sum(axis=1).max()) if mask.size else 1
+        bucket = _MIN_SEQ_BUCKET
+        while bucket < n_tok:
+            bucket <<= 1
+        bucket = min(bucket, self.max_seq_len)
+        if bucket < ids.shape[1]:
+            ids = ids[:, :bucket]
+            mask = mask[:, :bucket]
+        return ids, mask
+
+    @torch.inference_mode()
+    def forward_tokens(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        """Forward one tokenized (B, L) batch on the device -> (B, dim) f32."""
+        return self.module(torch.from_numpy(ids).to(self.device, torch.long),
+                           torch.from_numpy(mask).to(self.device))
+
+    def encode_device(self, texts: Sequence[str]) -> torch.Tensor:
+        """Encode into a device tensor (N, dim) f32 (the bulk-ingest path:
+        the rows go straight into the device index)."""
+        if not texts:
+            return torch.zeros((0, self.dim), dtype=torch.float32, device=self.device)
+        bs = self.batch_size
+        parts = []
+        for i in range(0, len(texts), bs):
+            chunk = list(texts[i : i + bs])
+            ids, mask = self.tokenizer.encode_batch(chunk)
+            ids, mask = self._crop_seq(ids, mask)
+            n = len(chunk)
+            padded = min(_next_pow2(n), bs)
+            if padded > n:
+                ids = np.pad(ids, ((0, padded - n), (0, 0)))
+                mask = np.pad(mask, ((0, padded - n), (0, 0)))
+            parts.append(self.forward_tokens(ids, mask)[:n])
+        return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+    def encode(self, texts: Sequence[str]) -> np.ndarray:
+        if not texts:
+            return np.zeros((0, self.dim), np.float32)
+        return self.encode_device(texts).cpu().numpy()
+
+    def encode_queries(self, texts: Sequence[str]) -> np.ndarray:
+        return self.encode(texts)
+
+    def token_count(self, text: str) -> int:
+        return self.tokenizer.token_count(text)

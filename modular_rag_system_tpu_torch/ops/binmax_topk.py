@@ -1,0 +1,190 @@
+"""int8 two-pass top-k: the ``binmax_int8`` CUDA kernel (pass 1), its
+plain PyTorch version, and the glue of the mixed two-pass search.
+
+Pass 1 (``binmax_int8_call``) scores int8 rows against int8-quantized
+queries and keeps one maximum per bin of ``bin_width`` rows.  The glue
+masks dead bins, picks the best ``k + 4`` bins per query, gathers those
+bins' rows from the MASTER matrix (sorted ascending) and rescores them
+there, so returned scores are master-exact, and takes a positional top-k
+whose lowest-position ties are lowest-row-id ties.
+
+``refine_against_master`` is the master rescore of the single-pass
+route (kf over-selection, ``int8_refine_kf``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from modular_rag_system_tpu_torch import kernels
+from modular_rag_system_tpu_torch.ops.exact import stable_topk
+from modular_rag_system_tpu_torch.ops.fused_topk import _select_topk
+from modular_rag_system_tpu_torch.ops.quantize import INV_127
+
+_NEG_INF = float("-inf")
+_BIG_I32 = 2**31 - 1
+
+# bins scanned beyond the k + 1 the exactness argument needs: one margin
+# bin for summation-order flips at the boundary, and two for the
+# query-quantization error of the int8 pass 1
+_MARGIN_BINS = 1
+_INT8_MIXED_EXTRA_BINS = 2
+
+# dead bins (entirely past ``count``) get a strictly decreasing finite
+# ramp, so every selection sees distinct values and returns distinct bins
+# even when fewer than kb live bins exist
+_DEAD_TOP = -1.0e38
+_DEAD_STEP = 2.0e32
+
+# below this capacity the single-pass kernel is used
+_MIN_TWOPASS_CAP = 8192
+
+# rows per CTA of the binmax_int8 kernel: bins must tile it
+_BINMAX_ROWS = 128
+
+# single-pass over-selection for the master rescore; skipped past k=128
+_REFINE_EXTRA_MAX = 32
+_REFINE_K_MAX = 128
+
+
+def int8_refine_kf(k: int, count: int) -> int:
+    if k > _REFINE_K_MAX:
+        return k
+    return min(k + min(k, _REFINE_EXTRA_MAX), max(count, 1))
+
+
+def auto_bin_width(cap: int) -> int:
+    """Bin width of pass 1: 32 up to 4,194,304 rows, 64 above."""
+    return 32 if cap <= 4_194_304 else 64
+
+
+def binmax_int8_reference(E_q, scales, q_i8, q_scale, bin_width: int):
+    """Plain PyTorch version of the kernel: (Q, cap / bin_width) f32.
+
+    The int8 products are summed as f32 integers: every partial sum is
+    an integer below 2^24 while d * 127 * 127 < 2^24, so the sum is
+    exact in any order and the result is bit-exact with the kernel."""
+    cap, d = E_q.shape
+    if d * 127 * 127 >= 2**24:
+        raise ValueError(f"d={d} too wide for exact f32 int8 sums")
+    acc = E_q.float() @ q_i8.float().T  # (cap, Q), exact integers
+    s = acc * scales.reshape(cap, 1) * q_scale.reshape(1, -1)
+    return s.view(cap // bin_width, bin_width, -1).amax(dim=1).T.contiguous()
+
+
+def binmax_int8_call(E_q, scales, q_i8, q_scale, bin_width: int):
+    """(cap, d) int8 rows x (Q, d) int8 queries -> (Q, nb) per-bin maxima
+    of ``float(E_q . q_i8) * scales[r] * q_scale[q]``.
+
+    On a CUDA device this launches the hand-written kernel; on the CPU
+    it runs the plain version."""
+    if E_q.device.type == "cpu":
+        return binmax_int8_reference(E_q, scales, q_i8, q_scale, bin_width)
+    cap, d = E_q.shape
+    if E_q.device.type != "cuda" or E_q.dtype != torch.int8 or not E_q.is_contiguous():
+        raise ValueError("E_q must be a contiguous int8 tensor on a CUDA device")
+    if d % 4 or _BINMAX_ROWS % bin_width or cap % bin_width:
+        raise ValueError(f"binmax_int8 needs d % 4 == 0 and bin_width dividing "
+                         f"{_BINMAX_ROWS} and cap; got d={d}, cap={cap}, "
+                         f"bin_width={bin_width}")
+    q_i8 = q_i8.to(torch.int8).contiguous()
+    scales = scales.reshape(cap).float().contiguous()
+    q_scale = q_scale.reshape(-1).float().contiguous()
+    Q = q_i8.shape[0]
+    out = torch.empty((Q, cap // bin_width), dtype=torch.float32, device=E_q.device)
+    if Q == 0:
+        return out
+    kernels.launch(
+        "binmax_int8", E_q.data_ptr(), q_i8.data_ptr(), scales.data_ptr(),
+        q_scale.data_ptr(), cap, Q, d, bin_width, out.data_ptr(),
+        torch.cuda.current_stream(E_q.device).cuda_stream)
+    return out
+
+
+def quantize_queries(q: torch.Tensor):
+    """Per-row int8 query quantization of pass 1, in the TPU glue's order:
+    ``round(q / qmax * 127)``, then clip; the scale is qmax / 127 as XLA
+    computes it (times the f32 reciprocal, see ``quantize_rows``)."""
+    qmax = torch.clamp(q.abs().amax(dim=1, keepdim=True), min=1e-12)
+    q_i8 = torch.clamp(torch.round(q / qmax * 127.0), -127, 127).to(torch.int8)
+    return q_i8, (qmax * INV_127).reshape(-1)
+
+
+def _mask_bins(binmax, count: int, nb: int, bin_width: int):
+    """The straddle bin (holding the live/dead boundary) is forced to +inf
+    so it is always rescanned; dead bins get the decreasing ramp."""
+    dev = binmax.device
+    bin_base = torch.arange(nb, device=dev) * bin_width
+    dead = bin_base >= count
+    straddle = (bin_base < count) & (bin_base + bin_width > count)
+    ramp = (torch.tensor(_DEAD_TOP, dtype=torch.float32, device=dev)
+            - torch.arange(nb, dtype=torch.float32, device=dev)
+            * torch.tensor(_DEAD_STEP, dtype=torch.float32, device=dev))
+    bm = torch.where(dead[None, :], ramp[None, :], binmax)
+    return torch.where(straddle[None, :], float("inf"), bm)
+
+
+def select_bins(bm, kb: int):
+    """The top-``kb`` bins of ``bm`` (Q, nb) per row, ties by lowest bin
+    id, returned sorted ascending: every bin above the kb-th value, then
+    the lowest-id bins equal to it."""
+    v = torch.topk(bm, kb, dim=1).values[:, -1:]
+    gt = bm > v
+    eq = bm == v
+    need = kb - gt.sum(dim=1, keepdim=True)
+    take = gt | (eq & (torch.cumsum(eq, dim=1) <= need))
+    return take.nonzero()[:, 1].view(bm.shape[0], kb)
+
+
+def _round_to_dtype_f32(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """f32 -> nearest value representable in ``dtype``, as f32."""
+    if dtype != torch.bfloat16:
+        return x
+    return x.to(torch.bfloat16).float()
+
+
+def _rescore(q_r: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(Q, d) x (Q, n, d) -> (Q, n) in true f32 (TF32 is off on the card):
+    exact products for bf16-valued operands, f32 accumulation."""
+    return torch.bmm(rows, q_r.unsqueeze(2)).squeeze(2)
+
+
+def twopass_topk_int8_master_raw(E_q, scales, E_master, count: int, q, k: int,
+                                 bin_width: int,
+                                 extra_bins: int = _INT8_MIXED_EXTRA_BINS):
+    """Mixed two-pass: int8 pass 1 selects bins, pass 2 rescans the
+    master (f32 or bf16) rows of those bins.  Returns (vals (Q, k) f32,
+    ids (Q, k) int32), ties by lowest row id; scores are master-exact,
+    the top-k set is bounded by pass-1 bin coverage."""
+    cap, d = E_q.shape
+    nb = cap // bin_width
+    q = q.float()
+    q_i8, q_scale = quantize_queries(q)
+    binmax = binmax_int8_call(E_q, scales, q_i8, q_scale, bin_width)  # (Q, nb)
+    bm = _mask_bins(binmax, count, nb, bin_width)
+    kb = min(k + 1 + _MARGIN_BINS + extra_bins, nb)
+    bins = select_bins(bm, kb)  # (Q, kb) ascending
+    offs = torch.arange(bin_width, device=bins.device)
+    rid_flat = (bins[:, :, None] * bin_width + offs).reshape(q.shape[0], -1)
+    slabs = E_master.view(nb, bin_width, d)[bins].float()
+    q_r = _round_to_dtype_f32(q, E_master.dtype)
+    scores = _rescore(q_r, slabs.reshape(q.shape[0], kb * bin_width, d))
+    scores = torch.where(rid_flat < count, scores, _NEG_INF)
+    vals, pos = stable_topk(scores, k)
+    return vals, torch.gather(rid_flat, 1, pos).to(torch.int32)
+
+
+def refine_against_master(E, q, rows, k: int, cand_vals: Optional[torch.Tensor] = None):
+    """Rescore candidate ``rows`` (Q, kf) against the master matrix and
+    return the top-k among them by (score desc, id asc); slots with a
+    non-finite candidate score are masked out first."""
+    if cand_vals is not None:
+        rows = torch.where(torch.isfinite(cand_vals), rows, -1)
+    cand = E[rows.clamp(min=0).long()].float()  # (Q, kf, d)
+    q_r = _round_to_dtype_f32(q.float(), E.dtype)
+    scores = torch.where(rows >= 0, _rescore(q_r, cand), _NEG_INF)
+    ids = torch.where(rows >= 0, rows, _BIG_I32)
+    vals, out = _select_topk(scores, ids, k)
+    return vals, torch.where(torch.isfinite(vals), out, -1).to(torch.int32)

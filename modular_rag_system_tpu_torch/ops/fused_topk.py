@@ -1,0 +1,96 @@
+"""Single-pass int8 top-k: the ``fused_topk_int8`` CUDA kernel, its plain
+PyTorch version, and the selection helpers of the int8 tier.
+
+``fused_topk_int8_raw`` launches the hand-written kernel
+(``kernels/fused_topk_int8.cu``) for tensors on a CUDA device and runs
+``fused_topk_int8_reference`` for tensors on the CPU.  Both compute, per
+query, the top-k of ``(bf16(q) . float(E_q[r])) * scale[r]`` over rows
+``r < count`` by (score desc, row id asc), with the optional per-bin
+candidate reduction of the TPU kernel (``_bin_reduce``).  Scores agree
+up to f32 summation order; slots left at -inf carry arbitrary ids.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from modular_rag_system_tpu_torch import kernels
+from modular_rag_system_tpu_torch.ops.exact import stable_topk
+
+_NEG_INF = float("-inf")
+_BIG_I32 = 2**31 - 1
+_KERNEL_MAX_K = 8192
+
+
+def _select_topk(scores: torch.Tensor, ids: torch.Tensor, k: int):
+    """Top-k of (Q, n) candidates by (value desc, id asc) -> (vals, ids)."""
+    order = torch.argsort(ids, dim=1, stable=True)
+    s = torch.gather(scores, 1, order)
+    vals, pos = stable_topk(s, k)
+    return vals, torch.gather(torch.gather(ids, 1, order), 1, pos).to(torch.int32)
+
+
+def _bin_reduce(scores: torch.Tensor, gids: torch.Tensor, bin_width: Optional[int]):
+    """Per-bin candidate reduction: the max of each ``bin_width`` run of
+    scores, with the lowest id among the tied maxima.  None = identity."""
+    if bin_width is None:
+        return scores, gids
+    Q, B = scores.shape
+    s3 = scores.view(Q, B // bin_width, bin_width)
+    cand = s3.amax(dim=2)
+    g3 = gids.view(Q, B // bin_width, bin_width)
+    cand_ids = torch.where(s3 == cand[:, :, None], g3, _BIG_I32).amin(dim=2)
+    return cand, cand_ids
+
+
+def fused_topk_int8_reference(E_q, scales, count: int, q, k: int,
+                              bin_width: Optional[int] = None):
+    """Plain PyTorch version of the kernel: the whole (Q, cap) score
+    matrix, masked, bin-reduced, then a stable selection."""
+    cap = E_q.shape[0]
+    qb = q.to(torch.bfloat16).float()
+    scores = (qb @ E_q.float().T) * scales.reshape(1, cap)
+    gids = torch.arange(cap, device=E_q.device, dtype=torch.int32)
+    gids = gids[None, :].expand(q.shape[0], cap)
+    scores = torch.where(gids < count, scores, _NEG_INF)
+    scores, gids = _bin_reduce(scores, gids.contiguous(), bin_width)
+    if scores.shape[1] < k:  # fewer candidates than k: empty slots
+        pad = k - scores.shape[1]
+        scores = torch.nn.functional.pad(scores, (0, pad), value=_NEG_INF)
+        gids = torch.nn.functional.pad(gids, (0, pad), value=_BIG_I32)
+    return _select_topk(scores, gids, k)
+
+
+def fused_topk_int8_raw(E_q, scales, count: int, q, k: int,
+                        bin_width: Optional[int] = None):
+    """int8 single-pass top-k: E_q (cap, d) int8, scales (cap,) or
+    (cap, 1) f32, q (Q, d) f32 -> (vals (Q, k) f32, ids (Q, k) int32).
+
+    On a CUDA device this launches the hand-written kernel; on the CPU
+    it runs the plain version."""
+    if E_q.device.type == "cpu":
+        return fused_topk_int8_reference(E_q, scales, count, q, k, bin_width)
+    cap, d = E_q.shape
+    bw = 1 if bin_width is None else int(bin_width)
+    if E_q.dtype != torch.int8 or not E_q.is_contiguous():
+        raise ValueError("E_q must be a contiguous int8 tensor")
+    if d % 4 or d > 1024 or cap % bw:
+        raise ValueError(f"fused_topk_int8 needs d % 4 == 0, d <= 1024 and cap % "
+                         f"bin_width == 0; got d={d}, cap={cap}, bin_width={bw}")
+    if not 1 <= k <= _KERNEL_MAX_K:
+        raise ValueError(f"fused_topk_int8 kernel supports 1 <= k <= "
+                         f"{_KERNEL_MAX_K}; got k={k}")
+    scales = scales.reshape(cap).float().contiguous()
+    qb = q.to(torch.bfloat16).contiguous()
+    Q = qb.shape[0]
+    vals = torch.empty((Q, k), dtype=torch.float32, device=E_q.device)
+    ids = torch.empty((Q, k), dtype=torch.int32, device=E_q.device)
+    if Q == 0:
+        return vals, ids
+    kernels.launch(
+        "fused_topk_int8", E_q.data_ptr(), scales.data_ptr(), qb.data_ptr(),
+        Q, cap, d, int(count), k, bw, vals.data_ptr(), ids.data_ptr(),
+        torch.cuda.current_stream(E_q.device).cuda_stream)
+    return vals, ids

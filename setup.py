@@ -20,6 +20,9 @@ setup(
         # ship the C++ source: the native text engine builds itself with
         # g++ on first use (no prebuilt binaries in the wheel)
         "modular_rag_system_tpu.native": ["*.cpp"],
+        # the PyTorch port's CUDA kernels build from source with nvcc at
+        # first use (modular_rag_system_tpu_torch/kernels/__init__.py)
+        "modular_rag_system_tpu_torch.kernels": ["*.cu"],
         # bundled assets must ship in the wheel too, or an installed
         # package loses the default encoder and the external eval set
         # (works-only-from-source-checkout bug, ADVICE r4)
@@ -40,6 +43,8 @@ setup(
     extras_require={
         "dev": ["pytest"],
         "full": ["orbax-checkpoint", "chex", "einops"],
+        # the PyTorch/CUDA port (modular_rag_system_tpu_torch)
+        "torch": ["torch"],
         # optional capture adapters (reference requirements.txt parity)
         "capture": ["pynput"],
     },

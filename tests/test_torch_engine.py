@@ -1,0 +1,153 @@
+"""The port's RAGEngine against the JAX package's, on the CPU.
+
+Both engines get the same config (bundled hybrid encoder at float32,
+``tier="auto"``, no recency weight, no threshold), the same knowledge
+texts and the same queries.  Below 8192 rows of capacity the int8 tier
+takes the single-pass route (``fused_topk_int8`` + master rescore);
+padded with pre-embedded rows to capacity 8192 it takes the two-pass
+route (``binmax_int8`` + master slab rescore).  Returned doc ids must be
+equal and similarities within 1e-5 (the encoders agree to ~1e-7, the
+master rescores to f32 summation order).
+"""
+
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from modular_rag_system_tpu.config import RAGConfig as JaxConfig
+from modular_rag_system_tpu.engine import RAGEngine as JaxEngine
+from modular_rag_system_tpu.types import Document as JaxDocument
+from modular_rag_system_tpu_torch import RAGConfig, create_engine
+from modular_rag_system_tpu_torch.types import Document
+
+_TRAIN = Path(__file__).resolve().parents[1] / "modular_rag_system_tpu" / "assets" / "train"
+KNOWLEDGE = json.loads((_TRAIN / "knowledge.json").read_text())["sentences"][:200]
+QUERIES = [it["query"] for it in json.loads((_TRAIN / "qa_pairs.json").read_text())["items"][:6]]
+
+
+def _overrides(path):
+    return {"index.tier": "auto", "embedding.dtype": "float32",
+            "retrieval.time_weight": 0.0, "retrieval.similarity_threshold": 0.0,
+            "store.storage_path": str(path)}
+
+
+def _port(path, **extra):
+    return create_engine(RAGConfig.load(overrides={**_overrides(path), **extra}),
+                         device="cpu")
+
+
+def _assert_same(jres, pres):
+    for j, p in zip(jres, pres):
+        assert [d.id for d in j.documents] == [d.id for d in p.documents]
+        np.testing.assert_allclose(j.similarities, p.similarities, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("route", ["single", "twopass"])
+def test_engine_parity_with_jax(tmp_path, monkeypatch, route):
+    jeng = JaxEngine(JaxConfig.load(overrides=_overrides(tmp_path / "jax")))
+    peng = _port(tmp_path / "port")
+    jeng.add_documents([JaxDocument(content=t) for t in KNOWLEDGE])
+    peng.add_documents([Document(content=t) for t in KNOWLEDGE])
+    if route == "twopass":
+        # near-duplicates of the corpus rows, so the extra rows compete
+        rng = np.random.default_rng(7)
+        emb = np.asarray(jeng.index.E[: len(KNOWLEDGE)], np.float32)
+        fill = emb[rng.integers(0, len(KNOWLEDGE), 4000)]
+        fill = fill + 0.3 * rng.standard_normal(fill.shape).astype(np.float32) / np.sqrt(768)
+        fill /= np.linalg.norm(fill, axis=1, keepdims=True)
+        jeng.add_documents([JaxDocument(content=f"filler {i}", embedding=e)
+                            for i, e in enumerate(fill)])
+        peng.add_documents([Document(content=f"filler {i}", embedding=e)
+                            for i, e in enumerate(fill)])
+    assert peng.index.capacity == jeng.index.capacity == (8192 if route == "twopass" else 4096)
+    assert peng.index.count == jeng.index.count
+    from modular_rag_system_tpu_torch import index as pindex
+
+    called = []
+    for name in ("twopass_topk_int8_master_raw", "fused_topk_int8_raw"):
+        fn = getattr(pindex, name)
+        monkeypatch.setattr(pindex, name,
+                            lambda *a, _fn=fn, _n=name, **kw: called.append(_n) or _fn(*a, **kw))
+    _assert_same(jeng.query_batch(QUERIES, max_results=5),
+                 peng.query_batch(QUERIES, max_results=5))
+    _assert_same([jeng.query(QUERIES[0])], [peng.query(QUERIES[0])])
+    assert set(called) == {"twopass_topk_int8_master_raw" if route == "twopass"
+                           else "fused_topk_int8_raw"}
+
+
+def test_delete_readd_and_restart(tmp_path):
+    eng = _port(tmp_path)
+    eng.add_documents([Document(content=t) for t in KNOWLEDGE[:50]])
+    ids = eng.add_text("Volcanoes form where magma rises through the crust.\n\n"
+                       "Glaciers carve U-shaped valleys as they move.", source="geo")
+    assert len(ids) == 1 and eng.index.count == 51
+    target = Document(content="Glaciers and volcanoes shape unusual landscapes.")
+    eng.add_documents([target])
+    row = eng.store.row_of(target.id)
+    eng.store.delete_ids([target.id])
+    eng.index.delete_rows(np.array([row]))
+    res = eng.query("glaciers volcanoes landscapes", max_results=3)
+    assert target.id not in [d.id for d in res.documents]
+    eng.add_document(target.content)  # resurrected in place
+    res = eng.query("glaciers volcanoes landscapes", max_results=1)
+    assert res.documents[0].id == target.id and eng.index.count == 52
+    before = eng.query_batch(QUERIES, max_results=3)
+    stats = eng.get_system_stats()
+    assert stats["index"]["effective_tier"] == "int8" and stats["index"]["count"] == 52
+    eng.shutdown()
+    eng2 = _port(tmp_path)
+    assert eng2.index.count == 52
+    _assert_same(before, eng2.query_batch(QUERIES, max_results=3))
+
+
+@pytest.mark.parametrize("extra", [
+    {"index.tier": "ivf"}, {"index.tier": "fused"}, {"index.tier": "bf16"},
+    {"mesh.index_shards": 2}, {"mesh.multihost": True},
+])
+def test_unported_configurations_raise(tmp_path, extra):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        _port(tmp_path, **extra)
+
+
+def test_auto_tier_at_ivf_scale_raises():
+    from modular_rag_system_tpu_torch.index import DeviceIndex
+
+    idx = DeviceIndex(dim=8, tier="auto", device="cpu")
+    idx.count = DeviceIndex._AUTO_IVF_ROWS
+    with pytest.raises(NotImplementedError, match="ivf"):
+        idx.search_ops()
+
+
+def test_default_device_engine_raises_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default device is valid")
+    cfg = RAGConfig.load(overrides={"embedding.model": "fake",
+                                    "store.storage_path": str(tmp_path)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_engine(cfg)
+
+
+@pytest.mark.parametrize("store_dtype", ["float32", "bfloat16"])
+def test_snapshot_format_shared_with_jax(tmp_path, store_dtype):
+    from modular_rag_system_tpu.index import DeviceIndex as JaxIndex
+    from modular_rag_system_tpu_torch.index import DeviceIndex
+
+    rng = np.random.default_rng(3)
+    mat = rng.standard_normal((37, 16)).astype(np.float32)
+    pidx = DeviceIndex(dim=16, tier="int8", store_dtype=store_dtype, device="cpu")
+    pidx.add(mat)
+    pidx.delete_rows(np.array([4]))
+    pidx.snapshot(str(tmp_path / "port.npz"))
+    jidx = JaxIndex.load(str(tmp_path / "port.npz"), tier="exact")
+    assert jidx.store_dtype == store_dtype and jidx.count == 37
+    np.testing.assert_array_equal(np.asarray(jidx.E[:37], np.float32),
+                                  pidx.E[:37].float().numpy())
+    jidx.snapshot(str(tmp_path / "jax.npz"))
+    back = DeviceIndex.load(str(tmp_path / "jax.npz"), tier="int8", device="cpu")
+    assert back.store_dtype == store_dtype and back.count == 37
+    assert torch.equal(back.E[:37], pidx.E[:37])
+    q = rng.standard_normal((2, 16)).astype(np.float32)
+    np.testing.assert_array_equal(back.search(q, 5)[1], pidx.search(q, 5)[1])

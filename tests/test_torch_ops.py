@@ -1,0 +1,225 @@
+"""Port ops vs the JAX package's ops, on the CPU.
+
+The same numpy inputs (``np.random.default_rng``) go through the JAX
+function (Pallas kernels in interpret mode, as the JAX tests run them)
+and its counterpart in ``modular_rag_system_tpu_torch.ops``; on the CPU
+the port's kernel wrappers run their plain PyTorch versions
+(``tests/test_torch_kernels.py`` holds the kernels against those on
+the card).
+
+Tolerances: int8 products summed as f32 integers are exact in any order,
+so pass 1 and quantization are bit-exact; f32 sums of real-valued
+products differ by summation order only, hence 1e-6 on unit-scale
+scores (or bit-exact where the crafted inputs make every sum exact).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from modular_rag_system_tpu.index import stream_search_core as jax_stream
+from modular_rag_system_tpu.ops import binmax_topk as jb
+from modular_rag_system_tpu.ops import exact as jexact
+from modular_rag_system_tpu.ops import fused_topk as jf
+from modular_rag_system_tpu.ops.quantize import quantize_rows as jquant
+from modular_rag_system_tpu_torch import index as pindex
+from modular_rag_system_tpu_torch.ops import binmax_topk as pb
+from modular_rag_system_tpu_torch.ops import exact as pexact
+from modular_rag_system_tpu_torch.ops import fused_topk as pf
+from modular_rag_system_tpu_torch.ops.quantize import quantize_rows as pquant
+
+
+def _unit(rng, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _quantized(rng, cap, d, count):
+    """(E f32 with zero rows past count, E_q int8, scales (cap,) f32)."""
+    E = _unit(rng, cap, d)
+    E[count:] = 0
+    qv, sc = jquant(jnp.asarray(E))
+    return E, np.asarray(qv), np.asarray(sc).reshape(-1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_rows_bit_exact(rng, dtype):
+    x = rng.standard_normal((64, 96)).astype(np.float32) * 3.0
+    x[5] = 0.0  # zero row -> scale 0
+    x = np.asarray(jnp.asarray(x).astype(dtype).astype(jnp.float32))
+    qj, sj = jquant(jnp.asarray(x))
+    qp, sp = pquant(_t(x))
+    np.testing.assert_array_equal(np.asarray(qj), qp.numpy())
+    np.testing.assert_array_equal(np.asarray(sj), sp.numpy())
+    assert sp[5].item() == 0.0
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_exact_topk_matches_jax(rng, ties):
+    cap, d, count, k = 512, 64, 300, 10
+    if ties:  # small integers: exact sums, many equal scores
+        E = rng.integers(-2, 3, (cap, d)).astype(np.float32)
+        q = rng.integers(-2, 3, (5, d)).astype(np.float32)
+    else:
+        E, q = _unit(rng, cap, d), _unit(rng, 5, d)
+    vj, ij = jexact.exact_topk(jnp.asarray(E), jnp.int32(count), jnp.asarray(q), k)
+    vp, ip = pexact.exact_topk_raw(_t(E), count, _t(q), k)
+    np.testing.assert_array_equal(np.asarray(ij), ip.numpy())
+    np.testing.assert_allclose(np.asarray(vj), vp.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("bw,Q", [(32, 7), (8, 1), (64, 16)])
+def test_binmax_int8_bit_exact(rng, bw, Q):
+    cap, d, count = 1024, 768, 1000
+    _, E_q, sc = _quantized(rng, cap, d, count)
+    q_i8, q_scale = pb.quantize_queries(_t(_unit(rng, Q, d)))
+    nb = cap // bw
+    ref = jb.binmax_int8_call(
+        jnp.asarray(E_q), jnp.asarray(sc).reshape(nb, bw), jnp.asarray(q_i8.numpy()),
+        jnp.asarray(q_scale.numpy()).reshape(1, Q), 512, bw, True)
+    out = pb.binmax_int8_call(_t(E_q), _t(sc), q_i8, q_scale, bw)
+    np.testing.assert_array_equal(np.asarray(ref).T, out.numpy())
+
+
+@jax.jit
+def _jax_quantize_queries(q):
+    # the two-pass glue's lines, compiled as the serving path compiles them
+    qmax = jnp.maximum(jnp.max(jnp.abs(q), axis=1, keepdims=True), 1e-12)
+    q_i8 = jnp.clip(jnp.round(q / qmax * 127.0), -127, 127).astype(jnp.int8)
+    return q_i8, (qmax / 127.0).reshape(-1)
+
+
+def test_query_quantization_bit_exact(rng):
+    q = _unit(rng, 64, 768)
+    ref_i8, ref_scale = _jax_quantize_queries(jnp.asarray(q))
+    q_i8, q_scale = pb.quantize_queries(_t(q))
+    np.testing.assert_array_equal(np.asarray(ref_i8), q_i8.numpy())
+    np.testing.assert_array_equal(np.asarray(ref_scale), q_scale.numpy())
+
+
+def _fused_case(rng, case):
+    cap, d = 1024, 64
+    if case == "ties":
+        # small integer rows, unit scales, integer queries: exact sums,
+        # many tied scores -> the (score desc, id asc) order decides
+        E_q = rng.integers(-2, 3, (cap, d)).astype(np.int8)
+        sc = np.ones(cap, np.float32)
+        q = rng.integers(-1, 2, (6, d)).astype(np.float32)
+        return E_q, sc, q, 700
+    _, E_q, sc = _quantized(rng, cap, d, 1000)
+    return E_q, sc, _unit(rng, 6, d), (5 if case == "count<k" else 1000)
+
+
+@pytest.mark.parametrize("case,k,bw", [
+    ("random", 10, None), ("random", 20, 128), ("ties", 16, None),
+    ("ties", 5, 128), ("count<k", 10, None), ("random", 40, None),
+])
+def test_fused_topk_int8_matches_jax(rng, case, k, bw):
+    E_q, sc, q, count = _fused_case(rng, case)
+    cap = E_q.shape[0]
+    vj, ij = jf.fused_topk_int8_raw(
+        jnp.asarray(E_q), jnp.asarray(sc).reshape(1, cap), jnp.int32(count),
+        jnp.asarray(q), k, 256, True, bin_width=bw)
+    vp, ip = pf.fused_topk_int8_raw(_t(E_q), _t(sc), count, _t(q), k, bw)
+    vj, ij = np.asarray(vj), np.asarray(ij)
+    fin = np.isfinite(vj)
+    np.testing.assert_array_equal(fin, np.isfinite(vp.numpy()))
+    np.testing.assert_allclose(vj[fin], vp.numpy()[fin], rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(ij[fin], ip.numpy()[fin])
+    if case == "count<k":
+        assert fin.sum(axis=1).tolist() == [count] * q.shape[0]
+
+
+@pytest.mark.parametrize("master_dtype,crafted", [
+    ("float32", False), ("bfloat16", False), ("bfloat16", True)])
+def test_twopass_int8_master_matches_jax(rng, master_dtype, crafted):
+    cap, d, count, k, bw = 8192, 64, 8000, 10, 32
+    if crafted:
+        # integer/16 rows and queries: bf16-exact values whose products
+        # and sums are exact in f32, so scores must agree bit for bit
+        E = rng.integers(-8, 9, (cap, d)).astype(np.float32) / 16
+        q = rng.integers(-8, 9, (5, d)).astype(np.float32) / 16
+        E[count:] = 0
+    else:
+        E, q = _unit(rng, cap, d), _unit(rng, 5, d)
+        E[count:] = 0
+    Em = np.asarray(jnp.asarray(E).astype(master_dtype).astype(jnp.float32))
+    qv, sc = jquant(jnp.asarray(Em))
+    sc = np.asarray(sc).reshape(-1)
+    vj, ij = jax.jit(jb.twopass_topk_int8_master_raw, static_argnums=(5, 6, 7, 8))(
+        qv, jnp.asarray(sc), jnp.asarray(E).astype(master_dtype), jnp.int32(count),
+        jnp.asarray(q), k, 4096, bw, True)
+    vp, ip = pb.twopass_topk_int8_master_raw(
+        _t(np.asarray(qv)), _t(sc), _t(E).to(getattr(torch, master_dtype)), count,
+        _t(q), k, bw)
+    np.testing.assert_array_equal(np.asarray(ij), ip.numpy())
+    if crafted:
+        np.testing.assert_array_equal(np.asarray(vj), vp.numpy())
+    else:
+        np.testing.assert_allclose(np.asarray(vj), vp.numpy(), rtol=0, atol=1e-6)
+
+
+def test_select_bins_same_set_as_jax(rng):
+    # crafted ties across bins and groups: the set must match exactly
+    bm = rng.integers(0, 5, (4, 512)).astype(np.float32)
+    ref = np.sort(np.asarray(jb.select_bins(jnp.asarray(bm), 14)), axis=1)
+    np.testing.assert_array_equal(ref, pb.select_bins(_t(bm), 14).numpy())
+
+
+@pytest.mark.parametrize("master_dtype", ["float32", "bfloat16"])
+def test_refine_against_master_matches_jax(rng, master_dtype):
+    cap, d, k = 256, 64, 8
+    E = _unit(rng, cap, d)
+    q = _unit(rng, 4, d)
+    rows = np.stack([rng.choice(cap, 16, replace=False) for _ in range(4)]).astype(np.int32)
+    cand = rng.standard_normal((4, 16)).astype(np.float32)
+    cand[0, 3] = cand[2, :5] = -np.inf  # masked candidates
+    vj, ij = jb.refine_against_master(
+        jnp.asarray(E).astype(master_dtype), jnp.asarray(q), jnp.asarray(rows), k,
+        cand_vals=jnp.asarray(cand))
+    vp, ip = pb.refine_against_master(
+        _t(E).to(getattr(torch, master_dtype)), _t(q), _t(rows), k, cand_vals=_t(cand))
+    np.testing.assert_array_equal(np.asarray(ij), ip.numpy())
+    np.testing.assert_allclose(np.asarray(vj), vp.numpy(), rtol=0, atol=1e-6)
+
+
+def test_int8_helpers_match_jax():
+    for k, c in [(1, 1), (10, 4096), (10, 12), (100, 4096), (200, 4096)]:
+        assert pb.int8_refine_kf(k, c) == jb.int8_refine_kf(k, c)
+    for cap in (8192, 4_194_304, 8_388_608):
+        assert pb.auto_bin_width(cap) == jb.auto_bin_width(cap)
+    assert pb._MIN_TWOPASS_CAP == jb._MIN_TWOPASS_CAP
+
+
+@pytest.mark.parametrize("cap,count,k,route", [
+    (4096, 3000, 10, "single"),   # below _MIN_TWOPASS_CAP
+    (8192, 7000, 10, "twopass"),
+    (8192, 7000, 300, "single"),  # k >= cap / bw: the two-pass gate fails
+])
+def test_stream_search_core_routing(rng, monkeypatch, cap, count, k, route):
+    d = 64
+    E, E_q, sc = _quantized(rng, cap, d, count)
+    q = _unit(rng, 3, d)
+    calls = []
+    for name in ("twopass_topk_int8_master_raw", "fused_topk_int8_raw"):
+        fn = getattr(pindex, name)
+        monkeypatch.setattr(pindex, name,
+                            lambda *a, _fn=fn, _n=name, **kw: calls.append(_n) or _fn(*a, **kw))
+    vp, ip = pindex.stream_search_core(_t(E_q), _t(sc), _t(E), count, _t(q), k, None)
+    assert calls == (["twopass_topk_int8_master_raw"] if route == "twopass"
+                     else ["fused_topk_int8_raw"])
+    vj, ij = jax.jit(
+        lambda e, c, qq, s, m: jax_stream(e, c, qq, k, 1024, None, scales=s, master=m))(
+        jnp.asarray(E_q), jnp.int32(count), jnp.asarray(q),
+        jnp.asarray(sc).reshape(cap, 1), jnp.asarray(E))
+    vj, ij = np.asarray(vj), np.asarray(ij)
+    fin = np.isfinite(vj)
+    np.testing.assert_array_equal(fin, np.isfinite(vp.numpy()))
+    np.testing.assert_array_equal(ij[fin], ip.numpy()[fin])
+    np.testing.assert_allclose(vj[fin], vp.numpy()[fin], rtol=0, atol=1e-6)

@@ -1,0 +1,48 @@
+"""Boundaries of the PyTorch port: it imports neither JAX, flax nor the
+JAX package (not even its host-only modules), and neither does the
+chip smoke script."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "modular_rag_system_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "modular_rag_system_tpu")
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, modular_rag_system_tpu_torch.engine, "
+            "modular_rag_system_tpu_torch.ops.binmax_topk; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; print(bad); sys.exit(bool(bad))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_every_kernel_has_its_source():
+    from modular_rag_system_tpu_torch import kernels
+
+    for name in kernels.SOURCES:
+        assert (kernels.KERNEL_DIR / f"{name}.cu").is_file()
