@@ -3,10 +3,10 @@
 One typed config tree with layered overlay semantics: dataclass
 defaults -> optional JSON file -> explicit overrides (e.g. CLI flags).
 Field names and defaults match ``modular_rag_system_tpu.config``, so one
-config file drives either package.  Knobs of tiers and layouts the port
-does not serve yet (ivf, sharding, multihost) are kept so such a config
-loads; the engine and the index raise ``NotImplementedError`` when asked
-to use them.
+config file drives either package.  Knobs of what the port does not
+serve yet (the int4 ivf fine copy, sharding, multihost, flash attention)
+are kept so such a config loads; the engine and the index raise
+``NotImplementedError`` when asked to use them.
 """
 
 from __future__ import annotations
@@ -54,10 +54,13 @@ class EmbeddingConfig:
 class IndexConfig:
     """Device index knobs.
 
-    ``tier``: "exact" (f32 matmul + top-k), "int8" (quantized index +
-    the int8 kernels, master-exact scores) or "auto" (int8 below
-    4,194,304 rows).  "fused", "bf16", "ivf" and "auto" at or above
-    4,194,304 rows are not ported yet and raise.
+    ``tier``: "exact" (f32 matmul + top-k), "fused" (the f32/bf16
+    kernels over the master), "bf16" (the same over a bf16 copy), "int8"
+    (quantized index + the int8 kernels, master-exact scores), "ivf"
+    (clustered ANN with an exact tail, ``ops/ivf2.py``) or "auto" (int8
+    below 4,194,304 rows, ivf at and above; the write path promotes).
+    ``ivf_fine_dtype``: "auto" (bf16, int8 past 4,194,304 rows), "bf16"
+    or "int8"; "int4" is not ported yet and raises.
     """
 
     tier: str = "exact"

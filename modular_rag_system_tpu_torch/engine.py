@@ -33,6 +33,19 @@ from modular_rag_system_tpu_torch.types import Document, Query, RetrievalResult,
 from modular_rag_system_tpu_torch.utils.device import resolve_device
 from modular_rag_system_tpu_torch.utils.resilience import retry_transient
 
+# every index knob the engine passes through (attribute names match the
+# IndexConfig fields 1:1, as in the JAX package)
+_INDEX_TIER_KEYS = (
+    "tier", "block_rows", "fused_bin_width", "store_dtype",
+    "ivf_clusters", "ivf_nprobe", "ivf_iters", "ivf_fine_dtype",
+    "ivf_tail_frac", "ivf_rebuild_min", "ivf_refine_extra", "ivf_balance",
+)
+
+
+def _index_tier_kwargs(src) -> Dict[str, Any]:
+    """Constructor kwargs of the index, from a config or an index."""
+    return {key: getattr(src, key) for key in _INDEX_TIER_KEYS}
+
 
 class RAGEngine:
     def __init__(self, config: Optional[RAGConfig] = None, device="cuda") -> None:
@@ -54,10 +67,8 @@ class RAGEngine:
         )
         self.store = DocumentStore(self.config.store.storage_path)
         ic = self.config.index
-        self.index = DeviceIndex(
-            dim=self.embed_dim, capacity=ic.initial_capacity, tier=ic.tier,
-            fused_bin_width=ic.fused_bin_width, store_dtype=ic.store_dtype,
-            device=self.device)
+        self.index = DeviceIndex(dim=self.embed_dim, capacity=ic.initial_capacity,
+                                 device=self.device, **_index_tier_kwargs(ic))
         self.recent_context: deque = deque(
             maxlen=self.config.retrieval.recent_context_size)
         self.query_stats: Dict[str, float] = {
@@ -74,15 +85,25 @@ class RAGEngine:
     # ------------------------------------------------------------------
     # persistence
     def _restore(self) -> None:
-        """Reload the index from its snapshot; re-embed any store rows the
-        snapshot is missing, positionally (tombstones become zero rows)."""
+        """Reload the index from its snapshot (saved ivf centroids + labels
+        warm-start the rebuild the append triggers); re-embed any store
+        rows the snapshot is missing, positionally (tombstones become
+        zero rows)."""
         n_store = self.store.max_row() + 1
         if self._snapshot_path.exists():
             data = np.load(self._snapshot_path)
             if int(data["dim"]) == self.index.dim and int(data["count"]) <= max(n_store, 0):
                 emb = snapshot_embeddings(data)[: int(data["count"])]
-                if emb.shape[0]:
-                    self.index.add(np.asarray(emb, dtype=np.float32))
+                if "ivf_centroids" in data:
+                    self.index.ivf_warmstart = (data["ivf_centroids"],
+                                                data["ivf_labels"])
+                try:
+                    if emb.shape[0]:
+                        self.index.add(np.asarray(emb, dtype=np.float32))
+                finally:
+                    # a warm start left over from a failed add could be
+                    # consumed by a later rebuild over another corpus
+                    self.index.ivf_warmstart = None
         if self.index.count < n_store:
             missing: List[Optional[Document]] = [
                 doc for row, doc in self.store.iter_all(include_deleted=True)
@@ -417,10 +438,28 @@ class RAGEngine:
                 "dim": self.index.dim,
                 "memory_bytes": self.index.memory_bytes(),
                 "device": str(self.device),
+                "ivf": self._ivf_stats(),
             },
             "encoder": getattr(self.encoder, "name", "unknown"),
             "recent_context_size": len(self.recent_context),
         }
+
+    def _ivf_stats(self) -> Optional[Dict[str, Any]]:
+        """The ivf structure's state (None before a build): clustered vs
+        exact-tail rows, drift since the build, rebuilds, fine-copy bytes."""
+        with self.index._lock:
+            iv = self.index._ivf2
+            if iv is None:
+                return None
+            return {
+                "fine_dtype": iv.fine_dtype,
+                "clusters": iv.n_clusters,
+                "built": iv.built,
+                "tail_rows": max(self.index.count - iv.built, 0),
+                "stale_rows": iv.stale_rows,
+                "rebuilds": self.index.ivf_rebuilds,
+                "fine_bytes": iv.fine_bytes(),
+            }
 
     def shutdown(self) -> None:
         if self.config.store.snapshot_on_shutdown:

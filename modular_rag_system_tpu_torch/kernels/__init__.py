@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``*.cu`` file here is one kernel with a plain C entry point.  At
+Each ``*.cu`` file here is one kernel with a plain C entry point; the
+``*.cuh`` headers hold device code that several of them share.  At
 first use every source is compiled by its own ``nvcc`` process, all
 started together, for ``sm_90a`` into a shared library under
-``_build/`` (named by the source's content hash, so an edited source
-rebuilds), and loaded with ``ctypes``.  A build or load failure raises:
+``_build/`` (named by the hash of the source and the headers, so an
+edited source or header rebuilds), and loaded with ``ctypes``.  A build or load failure raises:
 there is no fallback to the plain PyTorch versions.
 
 ``launches`` counts kernel launches per kernel name: each wrapper in
@@ -29,7 +30,8 @@ from typing import Dict
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
-SOURCES = ("binmax_int8", "fused_topk_int8")
+SOURCES = ("binmax_int8", "fused_topk_int8", "binmax", "fused_topk", "fine_scores",
+           "fine_topk")
 
 launches: Dict[str, int] = {name: 0 for name in SOURCES}
 build_logs: Dict[str, str] = {}
@@ -45,6 +47,15 @@ _ARGTYPES = {
     "binmax_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # E_q, scales, q_bf16, Q, cap, d, count, k, bin_width, vals, ids, stream
     "fused_topk_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # E, is_bf16, q_bf16, cap, Q, d, bin_width, out, stream
+    "binmax": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
+    # E, is_bf16, q_bf16, Q, cap, d, count, k, bin_width, vals, ids, stream
+    "fused_topk": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # E_c3, is_int8, scales3, q_bf16, blk, vcnt, Q, L, d, out, stream
+    "fine_scores": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # E_c3, is_int8, scales3, q_bf16, blk, vcnt, Q, L, d, k, G, part, vals,
+    # slots, stream
+    "fine_topk": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 
@@ -56,8 +67,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((KERNEL_DIR / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha1((KERNEL_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(KERNEL_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> Dict[str, Path]:

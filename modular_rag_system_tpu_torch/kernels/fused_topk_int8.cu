@@ -11,8 +11,9 @@
 // Design.  One CTA per query streams the live prefix in chunks of
 // candidates.  A (score, id) pair is packed into one 64-bit key whose
 // ascending order is (score desc, id asc), so selection is a plain sort of
-// unique keys.  Shared memory holds T keys: the running best KP (KP = next
-// power of two >= k) in [0, KP) and the chunk's candidates in [KP, T).  A
+// unique keys (topk_common.cuh, shared with fused_topk.cu and
+// fine_topk.cu).  Shared memory holds T keys: the running best KP (KP =
+// next power of two >= k) in [0, KP) and the chunk's candidates in [KP, T).  A
 // candidate that does not beat the current k-th key stays the empty key,
 // and when no candidate of a chunk survives the chunk is not sorted;
 // otherwise a bitonic sort of all T keys makes [0, KP) the new running
@@ -28,57 +29,19 @@
 // the rows once per query from L2.  Several queries per CTA and mma tiles
 // are the way to the bound.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "topk_common.cuh"
 
 namespace {
+
+using topk::EMPTY;
+using topk::int8_to_float;
+using topk::key_score;
+using topk::make_key;
 
 constexpr int NT = 512;
 constexpr int NWARPS = NT / 32;
 constexpr int ROWS = 4;  // rows in flight per warp
 constexpr int WPL = 8;   // int32 words of a row per lane: d <= 1024
-constexpr unsigned long long EMPTY = ~0ull;
-
-__device__ __forceinline__ unsigned long long make_key(float s, int id) {
-    if (s == 0.0f) s = 0.0f;  // -0 ties +0, as in the TPU kernel's compare
-    uint32_t u = __float_as_uint(s);
-    // ascending-orderable bits of s, inverted so larger scores sort first
-    uint32_t asc = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-    return ((unsigned long long)(~asc) << 32) | (uint32_t)id;
-}
-
-__device__ __forceinline__ float key_score(unsigned long long key) {
-    uint32_t asc = ~(uint32_t)(key >> 32);
-    uint32_t u = (asc & 0x80000000u) ? (asc & 0x7FFFFFFFu) : ~asc;
-    return __uint_as_float(u);
-}
-
-// byte b of v as a float, exactly: the byte biased to unsigned (x = b + 128)
-// becomes the low mantissa bits of 2^23 + x (one byte permute), and
-// subtracting 2^23 + 128 leaves b.  Cheaper than the I2F conversion, whose
-// quarter-rate throughput bounded the scoring loop.
-__device__ __forceinline__ float int8_to_float(int32_t v, int b) {
-    const uint32_t x = (uint32_t)v ^ 0x80808080u;
-    return __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540 + b)) - 8388736.0f;
-}
-
-__device__ void bitonic_sort(unsigned long long* keys, int T) {
-    for (int size = 2; size <= T; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-            for (int i = threadIdx.x; i < T / 2; i += NT) {
-                const int lo = (i / stride) * 2 * stride + (i % stride);
-                const int hi = lo + stride;
-                const bool up = (lo & size) == 0;
-                const unsigned long long a = keys[lo], b = keys[hi];
-                if ((a > b) == up) {
-                    keys[lo] = b;
-                    keys[hi] = a;
-                }
-            }
-            __syncthreads();
-        }
-    }
-}
 
 __global__ void __launch_bounds__(NT)
 fused_topk_int8_kernel(const int8_t* __restrict__ E_q, const float* __restrict__ scales,
@@ -152,7 +115,7 @@ fused_topk_int8_kernel(const int8_t* __restrict__ E_q, const float* __restrict__
             }
         }
         // the barrier also orders every atomicMin before the sort
-        if (__syncthreads_or(any)) bitonic_sort(keys, T);
+        if (__syncthreads_or(any)) topk::bitonic_sort<NT>(keys, T);
     }
 
     for (int j = threadIdx.x; j < k; j += NT) {

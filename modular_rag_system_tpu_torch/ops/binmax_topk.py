@@ -1,12 +1,15 @@
-"""int8 two-pass top-k: the ``binmax_int8`` CUDA kernel (pass 1), its
-plain PyTorch version, and the glue of the mixed two-pass search.
+"""Two-pass top-k: the ``binmax_int8`` and ``binmax`` CUDA kernels (pass
+1), their plain PyTorch versions, and the glue of the two-pass searches.
 
-Pass 1 (``binmax_int8_call``) scores int8 rows against int8-quantized
-queries and keeps one maximum per bin of ``bin_width`` rows.  The glue
-masks dead bins, picks the best ``k + 4`` bins per query, gathers those
-bins' rows from the MASTER matrix (sorted ascending) and rescores them
-there, so returned scores are master-exact, and takes a positional top-k
-whose lowest-position ties are lowest-row-id ties.
+Pass 1 keeps one score maximum per bin of ``bin_width`` rows:
+``binmax_int8_call`` scores int8 rows against int8-quantized queries,
+``binmax_call`` f32 or bf16 rows against bf16-rounded queries.  The glue
+masks dead bins, picks the best bins per query, gathers those bins' rows
+(sorted ascending) and rescores them, and takes a positional top-k whose
+lowest-position ties are lowest-row-id ties.  The int8 route
+(``twopass_topk_int8_master_raw``) rescans the MASTER matrix, so its
+scores are master-exact; the f32/bf16 route (``twopass_topk_raw``)
+rescores in pass 1's own space, bf16 products summed in f32.
 
 ``refine_against_master`` is the master rescore of the single-pass
 route (kf over-selection, ``int8_refine_kf``).
@@ -103,6 +106,58 @@ def binmax_int8_call(E_q, scales, q_i8, q_scale, bin_width: int):
     return out
 
 
+# rows per chunk of the plain binmax version: bounds its f32 transient
+_REF_CHUNK_ROWS = 1 << 18
+
+# queries per chunk of the f32/bf16 pass-2 rescore: bounds the slab gather
+_RESCORE_CHUNK_Q = 32
+
+
+def binmax_reference(E, q, bin_width: int):
+    """Plain PyTorch version of ``binmax``: (Q, cap / bin_width) f32 per-bin
+    maxima of bf16(q) . bf16(row), exact products summed in f32, in row
+    chunks so the f32 copy of the rows stays small."""
+    cap, _ = E.shape
+    qb = q.to(torch.bfloat16).float()
+    out = torch.empty((q.shape[0], cap // bin_width), dtype=torch.float32,
+                      device=E.device)
+    step = max(_REF_CHUNK_ROWS // bin_width, 1) * bin_width
+    for s in range(0, cap, step):
+        rows = E[s:s + step].to(torch.bfloat16).float()
+        sc = rows @ qb.T  # (n, Q)
+        n = rows.shape[0]
+        out[:, s // bin_width:(s + n) // bin_width] = (
+            sc.view(n // bin_width, bin_width, -1).amax(dim=1).T)
+    return out
+
+
+def binmax_call(E, q, bin_width: int):
+    """(cap, d) f32 or bf16 rows x (Q, d) queries -> (Q, nb) per-bin maxima
+    of bf16(q) . bf16(row), summed in f32.
+
+    On a CUDA device this launches the hand-written kernel; on the CPU
+    it runs the plain version."""
+    if E.device.type == "cpu":
+        return binmax_reference(E, q, bin_width)
+    cap, d = E.shape
+    if E.dtype not in (torch.float32, torch.bfloat16) or not E.is_contiguous():
+        raise ValueError("E must be a contiguous float32 or bfloat16 tensor")
+    if d % 8 or _BINMAX_ROWS % bin_width or cap % _BINMAX_ROWS:
+        raise ValueError(f"binmax needs d % 8 == 0, bin_width dividing "
+                         f"{_BINMAX_ROWS} and cap a multiple of {_BINMAX_ROWS}; "
+                         f"got d={d}, cap={cap}, bin_width={bin_width}")
+    qb = q.to(torch.bfloat16).contiguous()
+    Q = qb.shape[0]
+    out = torch.empty((Q, cap // bin_width), dtype=torch.float32, device=E.device)
+    if Q == 0:
+        return out
+    kernels.launch(
+        "binmax", E.data_ptr(), int(E.dtype == torch.bfloat16), qb.data_ptr(),
+        cap, Q, d, bin_width, out.data_ptr(),
+        torch.cuda.current_stream(E.device).cuda_stream)
+    return out
+
+
 def quantize_queries(q: torch.Tensor):
     """Per-row int8 query quantization of pass 1, in the TPU glue's order:
     ``round(q / qmax * 127)``, then clip; the scale is qmax / 127 as XLA
@@ -174,6 +229,39 @@ def twopass_topk_int8_master_raw(E_q, scales, E_master, count: int, q, k: int,
     scores = torch.where(rid_flat < count, scores, _NEG_INF)
     vals, pos = stable_topk(scores, k)
     return vals, torch.gather(rid_flat, 1, pos).to(torch.int32)
+
+
+def twopass_topk_raw(E, count: int, q, k: int, bin_width: int):
+    """Two-pass top-k over f32 or bf16 rows (the fused/bf16 tiers at
+    capacity >= ``_MIN_TWOPASS_CAP``): ``binmax`` pass 1 selects
+    ``k + 1 + _MARGIN_BINS`` bins, pass 2 rescores their rows in the same
+    space, bf16(q) . bf16(row) summed in f32 (the TPU tiers' similarity
+    contract: default-precision products in every store dtype).
+    Returns (vals (Q, k) f32, ids (Q, k) int32), ties by lowest row id;
+    exact within that space up to the margin bin."""
+    cap, d = E.shape
+    nb = cap // bin_width
+    Q = q.shape[0]
+    q = q.float()
+    binmax = binmax_call(E, q, bin_width)  # (Q, nb)
+    bm = _mask_bins(binmax, count, nb, bin_width)
+    kb = min(k + 1 + _MARGIN_BINS, nb)
+    bins = select_bins(bm, kb)  # (Q, kb) ascending
+    offs = torch.arange(bin_width, device=bins.device)
+    rid_flat = (bins[:, :, None] * bin_width + offs).reshape(Q, -1)
+    q_r = _round_to_dtype_f32(q, torch.bfloat16)
+    E3 = E.view(nb, bin_width, d)
+    vals = torch.empty((Q, k), dtype=torch.float32, device=E.device)
+    ids = torch.empty((Q, k), dtype=torch.int32, device=E.device)
+    for s in range(0, Q, _RESCORE_CHUNK_Q):
+        sl = slice(s, s + _RESCORE_CHUNK_Q)
+        slabs = E3[bins[sl]].to(torch.bfloat16).float()  # (c, kb, bw, d)
+        scores = _rescore(q_r[sl], slabs.reshape(slabs.shape[0], kb * bin_width, d))
+        scores = torch.where(rid_flat[sl] < count, scores, _NEG_INF)
+        v, pos = stable_topk(scores, k)
+        vals[sl] = v
+        ids[sl] = torch.gather(rid_flat[sl], 1, pos).to(torch.int32)
+    return vals, ids
 
 
 def refine_against_master(E, q, rows, k: int, cand_vals: Optional[torch.Tensor] = None):

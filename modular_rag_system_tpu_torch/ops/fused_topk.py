@@ -1,12 +1,15 @@
-"""Single-pass int8 top-k: the ``fused_topk_int8`` CUDA kernel, its plain
-PyTorch version, and the selection helpers of the int8 tier.
+"""Single-pass top-k: the ``fused_topk_int8`` and ``fused_topk`` CUDA
+kernels, their plain PyTorch versions, and the selection helpers.
 
-``fused_topk_int8_raw`` launches the hand-written kernel
-(``kernels/fused_topk_int8.cu``) for tensors on a CUDA device and runs
-``fused_topk_int8_reference`` for tensors on the CPU.  Both compute, per
+``fused_topk_int8_raw`` (``kernels/fused_topk_int8.cu``) computes, per
 query, the top-k of ``(bf16(q) . float(E_q[r])) * scale[r]`` over rows
-``r < count`` by (score desc, row id asc), with the optional per-bin
-candidate reduction of the TPU kernel (``_bin_reduce``).  Scores agree
+``r < count``; ``fused_topk_raw`` (``kernels/fused_topk.cu``) the top-k
+of ``bf16(q) . bf16(E[r])`` over f32 or bf16 rows, summed in f32 (the
+TPU kernel's default-precision products, the fused/bf16 tiers'
+similarity contract).  Both order by (score desc, row id asc), with the
+optional per-bin candidate reduction of the TPU kernels
+(``_bin_reduce``).  A wrapper launches its kernel for tensors on a CUDA
+device and runs its plain version for tensors on the CPU.  Scores agree
 up to f32 summation order; slots left at -inf carry arbitrary ids.
 """
 
@@ -45,15 +48,23 @@ def _bin_reduce(scores: torch.Tensor, gids: torch.Tensor, bin_width: Optional[in
     return cand, cand_ids
 
 
-def fused_topk_int8_reference(E_q, scales, count: int, q, k: int,
-                              bin_width: Optional[int] = None):
-    """Plain PyTorch version of the kernel: the whole (Q, cap) score
-    matrix, masked, bin-reduced, then a stable selection."""
-    cap = E_q.shape[0]
-    qb = q.to(torch.bfloat16).float()
-    scores = (qb @ E_q.float().T) * scales.reshape(1, cap)
-    gids = torch.arange(cap, device=E_q.device, dtype=torch.int32)
-    gids = gids[None, :].expand(q.shape[0], cap)
+def _check_bin_width(bin_width: Optional[int], block_rows: int) -> None:
+    """The TPU kernels' bin reduction needs bins that are a multiple of
+    128 lanes and tile ``block_rows``; the port keeps the same rule."""
+    if bin_width is None:
+        return
+    if bin_width % 128 or block_rows % bin_width:
+        raise ValueError(
+            f"bin_width must be a multiple of 128 dividing block_rows "
+            f"({block_rows}); got {bin_width}")
+
+
+def _topk_of_scores(scores, count: int, k: int, bin_width: Optional[int]):
+    """The plain versions' tail: mask rows >= count, bin-reduce, pad to
+    k candidates, stable selection by (score desc, id asc)."""
+    Q, cap = scores.shape
+    gids = torch.arange(cap, device=scores.device, dtype=torch.int32)
+    gids = gids[None, :].expand(Q, cap)
     scores = torch.where(gids < count, scores, _NEG_INF)
     scores, gids = _bin_reduce(scores, gids.contiguous(), bin_width)
     if scores.shape[1] < k:  # fewer candidates than k: empty slots
@@ -61,6 +72,54 @@ def fused_topk_int8_reference(E_q, scales, count: int, q, k: int,
         scores = torch.nn.functional.pad(scores, (0, pad), value=_NEG_INF)
         gids = torch.nn.functional.pad(gids, (0, pad), value=_BIG_I32)
     return _select_topk(scores, gids, k)
+
+
+def fused_topk_int8_reference(E_q, scales, count: int, q, k: int,
+                              bin_width: Optional[int] = None):
+    """Plain PyTorch version of the kernel: the whole (Q, cap) score
+    matrix, masked, bin-reduced, then a stable selection."""
+    qb = q.to(torch.bfloat16).float()
+    scores = (qb @ E_q.float().T) * scales.reshape(1, -1)
+    return _topk_of_scores(scores, count, k, bin_width)
+
+
+def fused_topk_reference(E, count: int, q, k: int, bin_width: Optional[int] = None):
+    """Plain PyTorch version of ``fused_topk``: q and the rows rounded
+    to bf16, exact products summed in f32 (TF32 is off on the card)."""
+    qb = q.to(torch.bfloat16).float()
+    scores = qb @ E.to(torch.bfloat16).float().T
+    return _topk_of_scores(scores, count, k, bin_width)
+
+
+def fused_topk_raw(E, count: int, q, k: int, bin_width: Optional[int] = None):
+    """Single-pass top-k over f32 or bf16 rows: E (cap, d), q (Q, d) f32
+    -> (vals (Q, k) f32, ids (Q, k) int32), scores bf16(q) . bf16(row)
+    summed in f32.
+
+    On a CUDA device this launches the hand-written kernel; on the CPU
+    it runs the plain version."""
+    if E.device.type == "cpu":
+        return fused_topk_reference(E, count, q, k, bin_width)
+    cap, d = E.shape
+    bw = 1 if bin_width is None else int(bin_width)
+    if E.dtype not in (torch.float32, torch.bfloat16) or not E.is_contiguous():
+        raise ValueError("E must be a contiguous float32 or bfloat16 tensor")
+    if d % 8 or d > 1024 or cap % bw:
+        raise ValueError(f"fused_topk needs d % 8 == 0, d <= 1024 and cap % "
+                         f"bin_width == 0; got d={d}, cap={cap}, bin_width={bw}")
+    if not 1 <= k <= _KERNEL_MAX_K:
+        raise ValueError(f"fused_topk kernel supports 1 <= k <= {_KERNEL_MAX_K}; got k={k}")
+    qb = q.to(torch.bfloat16).contiguous()
+    Q = qb.shape[0]
+    vals = torch.empty((Q, k), dtype=torch.float32, device=E.device)
+    ids = torch.empty((Q, k), dtype=torch.int32, device=E.device)
+    if Q == 0:
+        return vals, ids
+    kernels.launch(
+        "fused_topk", E.data_ptr(), int(E.dtype == torch.bfloat16), qb.data_ptr(),
+        Q, cap, d, int(count), k, bw, vals.data_ptr(), ids.data_ptr(),
+        torch.cuda.current_stream(E.device).cuda_stream)
+    return vals, ids
 
 
 def fused_topk_int8_raw(E_q, scales, count: int, q, k: int,

@@ -1,0 +1,638 @@
+"""IVF2 — the cluster-contiguous ANN tier with an exact streamed tail.
+
+The port of the JAX package's ``ops/ivf2.py`` (bf16 and int8 fine copies):
+
+* **Build.**  Spherical k-means (``ops/kmeans.py``, optionally LBG-split
+  so no cluster passes ``balance`` x the average), then the rows are laid
+  out cluster by cluster in a (nblocks, SLAB, d) fine copy: cluster ``c``
+  owns blocks ``[blk_start[c], blk_start[c] + nblk[c])``.  ``perm`` maps a
+  slot to its global row (-1 = padding), ``inv_perm`` a row to its slot
+  (its last entry is a trash row that absorbs the writes of padding
+  slots).
+* **Search** (``ivf2_search_core``).  Coarse probe of the ``nprobe`` best
+  centroids, per-query block lists (``block_lists``), the fine stage over
+  those slabs, an exact scan of the rows written since the build (the
+  tail window of the master matrix), and a rescore of every candidate on
+  the master, so returned scores are master-exact.
+* **Fine stage.**  ``fine_call_auto`` keeps the JAX dispatch: the
+  score-dump path (``fine_scores`` kernel, ``kernels/fine_scores.cu``,
+  then one positional selection) while its score buffer is affordable,
+  the selecting kernel (``fine_topk``, ``kernels/fine_topk.cu``) past
+  ``_DUMP_MAX_BYTES`` in total or ``_DUMP_VMEM_BYTES`` per query.  The
+  limits were set for the TPU's memories; they are kept because they
+  choose the kernel, so the dispatch stays the JAX package's.
+
+Both fine kernels score ``bf16(q) . row`` in f32 (int8 rows times their
+scale after the dot); slots past a block's valid count score -inf.  A
+wrapper launches its kernel for tensors on a CUDA device and runs its
+plain version for tensors on the CPU.  The int4 fine copy is not ported
+yet and raises.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from modular_rag_system_tpu_torch import kernels
+from modular_rag_system_tpu_torch.ops.binmax_topk import _rescore, _round_to_dtype_f32
+from modular_rag_system_tpu_torch.ops.exact import stable_topk
+from modular_rag_system_tpu_torch.ops.fused_topk import _select_topk
+from modular_rag_system_tpu_torch.ops.kmeans import init_centroids_from_rows, kmeans_fit
+from modular_rag_system_tpu_torch.ops.quantize import quantize_rows
+
+logger = logging.getLogger(__name__)
+
+SLAB = 256  # rows per fine-copy block
+_NEG_INF = float("-inf")
+_BIG_I32 = 2**31 - 1
+
+# dump-path limits of the JAX package (they pick the fine kernel)
+_DUMP_MAX_BYTES = 1 << 31
+_DUMP_VMEM_BYTES = 4 << 20
+
+# the selecting kernel's largest running top-k
+_FINE_TOPK_MAX_K = 8192
+# candidate keys a query's partial lists may hold in the merge pass
+_FINE_MERGE_KEYS = 4096
+# f32 bytes of one chunk of the plain fine versions' slab gather
+_REF_CHUNK_BYTES = 1 << 28
+# rows per chunk of the tail scan over a bf16 master
+_TAIL_CHUNK_ROWS = 1 << 16
+
+INT4_NOT_PORTED = ("ivf_fine_dtype='int4' is not ported yet (ROADMAP: TPU "
+                   "kernels still to port, the int4 fine copy)")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return (a + b - 1) // b
+
+
+def check_fine_dtype(fine_dtype: str) -> None:
+    if fine_dtype == "int4":
+        raise NotImplementedError(INT4_NOT_PORTED)
+    if fine_dtype not in ("auto", "bf16", "int8"):
+        raise ValueError(f"ivf_fine_dtype must be auto|bf16|int8|int4, got {fine_dtype}")
+
+
+# ---------------------------------------------------------------------------
+# build: cluster-sorted order + contiguous slab fill
+def order_counts_core(labels: torch.Tensor, count: int, C: int):
+    """Stable cluster sort of the row ids -> (order (cap,), counts (C,))."""
+    cap = labels.shape[0]
+    i = torch.arange(cap, device=labels.device)
+    valid = (i < count) & (labels >= 0)
+    lab = torch.where(valid, labels.long(), C)
+    order = torch.argsort(lab, stable=True)
+    counts = torch.bincount(lab, minlength=C + 1)[:C]
+    return order.to(torch.int32), counts.to(torch.int32)
+
+
+def _fill_chunk_core(E_c3, scales3, perm, inv_perm, E, order, counts, blk_start,
+                     row_start, block_cluster, lo: int, nb: int, fine_dtype: str):
+    """Fill destination blocks [lo, lo + nb) in place."""
+    d = E.shape[1]
+    dev = E.device
+    b = lo + torch.arange(nb, device=dev)
+    c = block_cluster[torch.clamp(b, max=block_cluster.shape[0] - 1)].long()
+    pos = (b - blk_start[c])[:, None] * SLAB + torch.arange(SLAB, device=dev)
+    valid = pos < counts[c][:, None]
+    src_sorted = row_start[c][:, None] + torch.clamp(pos, min=0)
+    src = order[torch.clamp(src_sorted, 0, order.shape[0] - 1)].long()
+    pm = torch.where(valid, src, -1).reshape(-1)
+    rows = E[src.reshape(-1)].float()
+    rows = torch.where(valid.reshape(-1)[:, None], rows, 0.0)
+    if fine_dtype == "int8":
+        qv, sc = quantize_rows(rows)
+        E_c3[lo:lo + nb] = qv.view(nb, SLAB, d)
+        scales3[lo:lo + nb] = sc.view(nb, SLAB)
+    else:
+        E_c3[lo:lo + nb] = rows.to(E_c3.dtype).view(nb, SLAB, d)
+    perm[lo * SLAB:(lo + nb) * SLAB] = pm.to(torch.int32)
+    slot_ids = lo * SLAB + torch.arange(nb * SLAB, device=dev)
+    # padding slots write -1 into the trash row (the last entry): aiming
+    # them at a real row would race that row's own write
+    tgt = torch.where(pm >= 0, pm, inv_perm.shape[0] - 1)
+    inv_perm[tgt] = torch.where(pm >= 0, slot_ids, -1).to(torch.int32)
+
+
+def lbg_split_seeds(centroids_h: np.ndarray, cnts: np.ndarray, cap_rows: int,
+                    rng: np.random.Generator):
+    """Jittered centroid copies for clusters past ``cap_rows`` rows, or
+    None when every cluster fits (the LBG split move)."""
+    extra = np.maximum(np.ceil(cnts / cap_rows).astype(np.int64) - 1, 0)
+    if int(extra.sum()) == 0:
+        return None
+    src = np.repeat(np.arange(len(cnts)), extra)
+    base = np.asarray(centroids_h, np.float32)[src]
+    d = base.shape[1]
+    seeds = base + rng.standard_normal(base.shape).astype(np.float32) * (
+        0.05 / np.sqrt(d))
+    seeds /= np.maximum(np.linalg.norm(seeds, axis=1, keepdims=True), 1e-12)
+    return seeds
+
+
+def _split_oversized(E, count: int, centroids, labels, balance: float,
+                     seed_batch: int, rounds: int = 2):
+    """Split clusters larger than ``balance * count / C0`` rows by seeding
+    jittered copies of their centroid and re-running a short Lloyd's.
+    0 = off."""
+    if not balance or count == 0:
+        return centroids, labels
+    C0 = centroids.shape[0]
+    cap_rows = max(int(np.ceil(balance * count / C0)), SLAB)
+    rng = np.random.default_rng(0)
+    for _ in range(rounds):
+        Ccur = centroids.shape[0]
+        lab = torch.where(labels >= 0, labels.long(), Ccur)
+        cnts = torch.bincount(lab, minlength=Ccur + 1)[:Ccur].cpu().numpy()
+        seeds = lbg_split_seeds(centroids.cpu().numpy(), cnts, cap_rows, rng)
+        if seeds is None:
+            break
+        cents = torch.cat([centroids, torch.from_numpy(seeds).to(centroids.device)])
+        centroids, labels = kmeans_fit(E, count, cents, iters=3, batch=seed_batch)
+    return centroids, labels
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """numpy -> tensor; a bfloat16 array (ml_dtypes) travels as its bits."""
+    a = np.array(a)  # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+class IVF2:
+    """Built cluster-contiguous structure.
+
+    ``E_c3`` (nblocks, SLAB, d) bf16 or int8 fine copy; ``scales3``
+    (nblocks, SLAB) f32 row scales (int8 only, else None); ``perm``
+    (nblocks * SLAB,) int32 slot -> global row (-1 padding); ``inv_perm``
+    (capacity + 1,) int32 global row -> slot (-1 if unbuilt; the last
+    entry is the trash row); cluster tables ``blk_start``/``nblk``/
+    ``counts`` (C,) int32 on the device, ``nblk_h`` on the host.  Rows
+    [0, built) are clustered; later rows are the exact tail."""
+
+    def __init__(self, centroids, E_c3, scales3, perm, inv_perm, blk_start, nblk,
+                 counts, built: int, fine_dtype: str) -> None:
+        check_fine_dtype(fine_dtype)
+        self.centroids = centroids
+        self.E_c3 = E_c3
+        self.scales3 = scales3
+        self.perm = perm
+        self.inv_perm = inv_perm
+        self.blk_start = blk_start
+        self.nblk = nblk
+        self.counts = counts
+        self.nblk_h = nblk.cpu().numpy()
+        self.built = int(built)
+        self.fine_dtype = fine_dtype
+        self.version = 0
+        # True when build() took a (centroids, labels) warm start
+        self.warm_started = False
+        # rows rewritten since the build (drift): a rebuild folds them in
+        self.stale_rows = 0
+
+    @property
+    def n_clusters(self) -> int:
+        return int(self.nblk_h.shape[0])
+
+    @property
+    def nblocks(self) -> int:
+        return int(self.E_c3.shape[0])
+
+    def fine_bytes(self) -> int:
+        return self.E_c3.numel() * self.E_c3.element_size()
+
+    def memory_bytes(self) -> int:
+        """Device bytes: fine copy, scales, slot maps, centroids."""
+        b = self.fine_bytes() + 4 * (self.perm.numel() + self.inv_perm.numel()
+                                     + self.centroids.numel())
+        return b + (0 if self.scales3 is None else 4 * self.scales3.numel())
+
+    def slots_for_nprobe(self, nprobe: int) -> int:
+        """Per-query slot budget: the block counts of the nprobe largest
+        clusters (the worst case over any probe set)."""
+        nprobe = min(nprobe, self.n_clusters)
+        top = np.sort(self.nblk_h)[::-1][:nprobe]
+        return max(int(top.sum()), 1)
+
+    def labels_host(self) -> np.ndarray:
+        """Per-row cluster labels of rows [0, built), from the slot
+        permutation (saved beside the centroids for a warm start)."""
+        perm_h = self.perm.cpu().numpy()
+        bc = np.repeat(np.arange(self.n_clusters, dtype=np.int32),
+                       self.nblk_h.astype(np.int64))
+        labels = np.full(self.built, -1, np.int32)
+        slots = np.nonzero(perm_h >= 0)[0]
+        rows = perm_h[slots]
+        keep = rows < self.built
+        labels[rows[keep]] = bc[slots[keep] // SLAB]
+        return labels
+
+    @classmethod
+    def from_numpy(cls, arrays, built: int, fine_dtype: str, device="cuda") -> "IVF2":
+        """An IVF2 from another build's arrays given as numpy (e.g. a JAX
+        ``IVF2``'s ``centroids``, ``E_c3``, ``scales3``, ``perm``,
+        ``inv_perm``, ``blk_start``, ``nblk`` and ``counts``), placed on
+        ``device``."""
+        dev = torch.device(device)
+        t = {name: (None if a is None else _from_numpy(a).to(dev))
+             for name, a in arrays.items()}
+        return cls(t["centroids"], t["E_c3"],
+                   t["scales3"] if fine_dtype == "int8" else None, t["perm"],
+                   t["inv_perm"], t["blk_start"], t["nblk"], t["counts"], built,
+                   fine_dtype)
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def build(cls, E, count: int, n_clusters: Optional[int] = None, iters: int = 10,
+              fine_dtype: str = "bf16", seed_batch: int = 65536, balance: float = 0.0,
+              warm_start: Optional[Tuple[np.ndarray, np.ndarray]] = None) -> "IVF2":
+        """Cluster rows [0, count) of the master matrix ``E`` and lay the
+        fine copy out cluster-contiguously on E's device.
+
+        ``warm_start`` = (centroids (C, d) f32, labels (count,) int32)
+        skips the k-means and the splits and goes straight to the fill;
+        labels outside [0, C) fall back to a cold build."""
+        count = int(count)
+        check_fine_dtype(fine_dtype)
+        if fine_dtype == "auto":
+            raise ValueError("IVF2.build needs a resolved fine_dtype (bf16|int8)")
+        cap, d = E.shape
+        dev = E.device
+        if warm_start is not None:
+            cents_h, labels_h = warm_start
+            if len(labels_h) != count:
+                raise ValueError(f"warm_start labels cover {len(labels_h)} rows, "
+                                 f"build count is {count}")
+            labels_arr = np.asarray(labels_h, np.int32)
+            if count and (labels_arr.min() < 0 or labels_arr.max() >= cents_h.shape[0]):
+                logger.warning("warm_start labels out of range [0, %d); ignoring "
+                               "snapshot clustering and re-running k-means",
+                               cents_h.shape[0])
+                warm_start = None
+        if warm_start is not None:
+            centroids = torch.tensor(np.asarray(cents_h, np.float32), device=dev)
+            labels = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+            labels[:count] = torch.from_numpy(labels_arr).to(dev)
+        else:
+            if n_clusters is None:
+                n_clusters = int(max(8, min(count, round(count ** 0.5))))
+            C = min(max(n_clusters, 1), max(count, 1))
+            if count:
+                seed_idx = torch.from_numpy(
+                    np.linspace(0, count - 1, C).astype(np.int64)).to(dev)
+                seed_rows = E[seed_idx].float().cpu().numpy()
+            else:
+                seed_rows = np.zeros((1, d), np.float32)
+            init = init_centroids_from_rows(seed_rows, len(seed_rows), C)
+            centroids, labels = kmeans_fit(E, count, init, iters=iters, batch=seed_batch)
+            centroids, labels = _split_oversized(E, count, centroids, labels, balance,
+                                                 seed_batch)
+        C = int(centroids.shape[0])
+        order, counts = order_counts_core(labels, count, C)
+        counts_h = counts.cpu().numpy().astype(np.int64)
+        nblk_h = np.maximum((counts_h + SLAB - 1) // SLAB, 0)
+        blk_start_h = np.cumsum(nblk_h) - nblk_h
+        row_start_h = np.cumsum(counts_h) - counts_h
+        nblocks = max(int(nblk_h.sum()), 1)
+        # the fill runs in chunks of CHUNK_BLOCKS blocks (bounds the f32
+        # gather); the layout is padded to a chunk multiple as in JAX
+        CHUNK_BLOCKS = min(1024, 1 << max(nblocks - 1, 1).bit_length())
+        nblocks_pad = _cdiv(nblocks, CHUNK_BLOCKS) * CHUNK_BLOCKS
+        block_cluster_h = np.full(nblocks_pad, C - 1, np.int32)
+        block_cluster_h[:nblocks] = np.repeat(np.arange(C, dtype=np.int32),
+                                              nblk_h.astype(np.int64))
+
+        def dev_i32(a):
+            return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+
+        blk_start, nblk, counts_d = dev_i32(blk_start_h), dev_i32(nblk_h), dev_i32(counts_h)
+        row_start, block_cluster = dev_i32(row_start_h), dev_i32(block_cluster_h)
+        fdt = torch.bfloat16 if fine_dtype == "bf16" else torch.int8
+        E_c3 = torch.zeros((nblocks_pad, SLAB, d), dtype=fdt, device=dev)
+        scales3 = (torch.zeros((nblocks_pad, SLAB), dtype=torch.float32, device=dev)
+                   if fine_dtype == "int8" else None)
+        perm = torch.full((nblocks_pad * SLAB,), -1, dtype=torch.int32, device=dev)
+        inv_perm = torch.full((cap + 1,), -1, dtype=torch.int32, device=dev)
+        for lo in range(0, nblocks_pad, CHUNK_BLOCKS):
+            _fill_chunk_core(E_c3, scales3, perm, inv_perm, E, order, counts_d,
+                             blk_start, row_start, block_cluster, lo, CHUNK_BLOCKS,
+                             fine_dtype)
+        iv = cls(centroids, E_c3, scales3, perm, inv_perm, blk_start, nblk, counts_d,
+                 count, fine_dtype)
+        iv.warm_started = warm_start is not None
+        return iv
+
+    # ------------------------------------------------------------------
+    def update_rows(self, rows: np.ndarray, mat) -> None:
+        """Write rewritten (``mat``) or deleted (``mat`` None: zero) built
+        rows into the fine copy in place; tail rows are untouched (the
+        tail reads the master).  A row keeps its old cluster until the
+        next rebuild (counted as drift)."""
+        r0 = np.asarray(rows, dtype=np.int64)
+        mask = r0 < self.built
+        r = r0[mask]
+        if r.size == 0:
+            return
+        dev = self.E_c3.device
+        if mat is None:
+            vals = torch.zeros((len(r), self.E_c3.shape[2]), dtype=torch.float32, device=dev)
+        else:
+            m = torch.as_tensor(mat).to(dev, torch.float32)
+            vals = m[torch.from_numpy(np.nonzero(mask)[0]).to(dev)]
+        slots = self.inv_perm[torch.from_numpy(r).to(dev)]
+        _scatter_slots(self.E_c3, self.scales3, slots, vals, self.fine_dtype)
+        self.stale_rows += len(r)
+
+
+def _scatter_slots(E_c3, scales3, slots, vals, fine_dtype: str) -> None:
+    """Scatter rows into the fine copy in place; slots < 0 (rows not in
+    the build) are dropped, never written back."""
+    ok = slots >= 0
+    s = slots[ok].long()
+    v = vals[ok]
+    b, rr = s // SLAB, s % SLAB
+    if fine_dtype == "int8":
+        qv, sc = quantize_rows(v)
+        E_c3[b, rr] = qv
+        scales3[b, rr] = sc[:, 0]
+    else:
+        E_c3[b, rr] = v.to(E_c3.dtype)
+
+
+# ---------------------------------------------------------------------------
+# fine stage: the two kernels and their plain versions
+def _check_fine_operands(E_c3, scales3, blk, vcnt, what: str) -> None:
+    nblocks, S, d = E_c3.shape
+    if E_c3.dtype not in (torch.bfloat16, torch.int8) or not E_c3.is_contiguous():
+        raise ValueError(f"{what}: E_c3 must be a contiguous bf16 or int8 tensor")
+    if S != SLAB or d % 16 or d > 1024:
+        raise ValueError(f"{what} needs (nblocks, {SLAB}, d) slabs with d % 16 == 0 "
+                         f"and d <= 1024; got {tuple(E_c3.shape)}")
+    if E_c3.dtype == torch.int8 and scales3 is None:
+        raise ValueError(f"{what}: an int8 fine copy needs scales3")
+    if blk.shape != vcnt.shape or blk.shape[0] > 65535:
+        raise ValueError(f"{what}: blk {tuple(blk.shape)} and vcnt "
+                         f"{tuple(vcnt.shape)} must match, with at most 65535 queries")
+
+
+def _slab_scores_reference(E_c3, scales3, q, blk, vcnt):
+    """(Q, L, SLAB) f32 scores of bf16(q) . row (int8 rows x their
+    scale), -inf at positions >= vcnt, in query chunks."""
+    Q, L = blk.shape
+    d = E_c3.shape[2]
+    qb = q.to(torch.bfloat16).float()
+    out = torch.empty((Q, L, SLAB), dtype=torch.float32, device=E_c3.device)
+    iota = torch.arange(SLAB, device=E_c3.device)
+    step = max(_REF_CHUNK_BYTES // max(L * SLAB * d * 4, 1), 1)
+    for s in range(0, Q, step):
+        sl = slice(s, s + step)
+        b = blk[sl].long()
+        tiles = E_c3[b].float()  # (c, L, SLAB, d)
+        sc = (tiles.reshape(tiles.shape[0], L * SLAB, d) @ qb[sl, :, None])[..., 0]
+        sc = sc.view(-1, L, SLAB)
+        if scales3 is not None:
+            sc = sc * scales3[b]
+        out[sl] = torch.where(iota < vcnt[sl, :, None], sc, _NEG_INF)
+    return out
+
+
+def fine_scores_reference(E_c3, scales3, q, blk, vcnt):
+    """Plain PyTorch version of ``fine_scores``: (Q, L * SLAB) f32."""
+    Q, L = blk.shape
+    return _slab_scores_reference(E_c3, scales3, q, blk, vcnt).reshape(Q, L * SLAB)
+
+
+def fine_scores_call(E_c3, scales3, q, blk, vcnt):
+    """Every candidate row's score, streamed: E_c3 (nblocks, SLAB, d) bf16
+    or int8 (+ scales3 (nblocks, SLAB) f32), q (Q, d) f32, per-query block
+    lists blk/vcnt (Q, L) int32 -> (Q, L * SLAB) f32, -inf at positions
+    >= vcnt.
+
+    On a CUDA device this launches the hand-written kernel; on the CPU
+    it runs the plain version."""
+    if E_c3.device.type == "cpu":
+        return fine_scores_reference(E_c3, scales3, q, blk, vcnt)
+    _check_fine_operands(E_c3, scales3, blk, vcnt, "fine_scores")
+    d = E_c3.shape[2]
+    Q, L = blk.shape
+    int8 = E_c3.dtype == torch.int8
+    qb = q.to(torch.bfloat16).contiguous()
+    blk = blk.to(torch.int32).contiguous()
+    vcnt = vcnt.to(torch.int32).contiguous()
+    sc = scales3.contiguous() if int8 else qb  # any pointer when unused
+    out = torch.empty((Q, L * SLAB), dtype=torch.float32, device=E_c3.device)
+    if Q == 0 or L == 0:
+        return out
+    kernels.launch(
+        "fine_scores", E_c3.data_ptr(), int(int8), sc.data_ptr(), qb.data_ptr(),
+        blk.data_ptr(), vcnt.data_ptr(), Q, L, d, out.data_ptr(),
+        torch.cuda.current_stream(E_c3.device).cuda_stream)
+    return out
+
+
+def fine_topk_reference(E_c3, scales3, q, blk, vcnt, k: int):
+    """Plain PyTorch version of ``fine_topk``: the top-k candidate slots
+    by (score desc, slot asc) -> (vals (Q, k) f32, slots (Q, k) int32,
+    -1 where -inf)."""
+    Q, L = blk.shape
+    flat = fine_scores_reference(E_c3, scales3, q, blk, vcnt)
+    sid = (blk.long()[:, :, None] * SLAB
+           + torch.arange(SLAB, device=blk.device)).reshape(Q, L * SLAB)
+    n = L * SLAB
+    if n < k:
+        flat = torch.nn.functional.pad(flat, (0, k - n), value=_NEG_INF)
+        sid = torch.nn.functional.pad(sid, (0, k - n), value=-1)
+    vals, slots = _select_topk(flat, sid.to(torch.int32), k)
+    return vals, torch.where(torch.isfinite(vals), slots, -1)
+
+
+def fine_split(Q: int, L: int, k: int, sms: int) -> int:
+    """CTAs per query of the selecting kernel: enough to fill the card
+    (two per SM), at least 8 slabs each, and at most
+    ``_FINE_MERGE_KEYS`` partial keys per query for the merge."""
+    kp = 1 << max(k - 1, 0).bit_length()
+    g = min(_cdiv(2 * sms, max(Q, 1)), _cdiv(L, 8), max(_FINE_MERGE_KEYS // kp, 1))
+    return max(g, 1)
+
+
+def fine_call(E_c3, scales3, q, blk, vcnt, k: int):
+    """The selecting fine stage: per query, the running top-k over its L
+    slabs -> (vals (Q, k) f32, slots (Q, k) int32, -1 where -inf), ties
+    to the lowest slot id.
+
+    On a CUDA device this launches the hand-written kernel; on the CPU
+    it runs the plain version."""
+    if E_c3.device.type == "cpu":
+        return fine_topk_reference(E_c3, scales3, q, blk, vcnt, k)
+    _check_fine_operands(E_c3, scales3, blk, vcnt, "fine_topk")
+    if not 1 <= k <= _FINE_TOPK_MAX_K:
+        raise ValueError(f"fine_topk supports 1 <= k <= {_FINE_TOPK_MAX_K}; got k={k}")
+    d = E_c3.shape[2]
+    Q, L = blk.shape
+    dev = E_c3.device
+    int8 = E_c3.dtype == torch.int8
+    qb = q.to(torch.bfloat16).contiguous()
+    blk = blk.to(torch.int32).contiguous()
+    vcnt = vcnt.to(torch.int32).contiguous()
+    sc = scales3.contiguous() if int8 else qb
+    G = fine_split(Q, L, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = torch.empty((Q, G, k), dtype=torch.int64, device=dev)  # partial keys
+    vals = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    slots = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    if Q == 0:
+        return vals, slots
+    kernels.launch(
+        "fine_topk", E_c3.data_ptr(), int(int8), sc.data_ptr(), qb.data_ptr(),
+        blk.data_ptr(), vcnt.data_ptr(), Q, L, d, k, G, part.data_ptr(),
+        vals.data_ptr(), slots.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return vals, slots
+
+
+def auto_u(L: int) -> int:
+    """Slabs per grid step of the TPU fine kernels: 8 when that adds no
+    padding over 4.  Kept because L is rounded up to a multiple of it,
+    which sets the dump decision and the positional tie order."""
+    if -(-L // 8) * 8 == -(-L // 4) * 4:
+        return 8
+    return 4
+
+
+def _use_dump(Q: int, L: int) -> bool:
+    """The score-dump path while its (Q, L * SLAB) f32 buffer is under
+    ``_DUMP_MAX_BYTES`` and one query's row under ``_DUMP_VMEM_BYTES``."""
+    return (Q * L * SLAB * 4 <= _DUMP_MAX_BYTES
+            and L * SLAB * 4 <= _DUMP_VMEM_BYTES)
+
+
+def fine_call_xla(E_c3, scales3, q, blk, vcnt, k: int):
+    """Fine stage with the selection outside the kernel: blocks sorted
+    ascending (dead slots last), every candidate's score dumped by
+    ``fine_scores``, one positional top-k, so the lowest position is the
+    lowest slot id (the selecting kernel's tie order)."""
+    Q, L = blk.shape
+    key = torch.where(vcnt > 0, blk, 2**30)
+    order = torch.argsort(key, dim=1, stable=True)
+    blk2 = torch.gather(blk, 1, order)
+    vc2 = torch.gather(vcnt, 1, order)
+    flat = fine_scores_call(E_c3, scales3, q, blk2, vc2)
+    kk = min(k, L * SLAB)
+    vals, pos = stable_topk(flat, kk)
+    slots = torch.gather(blk2.long(), 1, pos // SLAB) * SLAB + pos % SLAB
+    slots = torch.where(torch.isfinite(vals), slots, -1).to(torch.int32)
+    if kk < k:
+        vals = torch.nn.functional.pad(vals, (0, k - kk), value=_NEG_INF)
+        slots = torch.nn.functional.pad(slots, (0, k - kk), value=-1)
+    return vals, slots
+
+
+def fine_call_auto(E_c3, scales3, q, blk, vcnt, k: int):
+    """The JAX package's fine-stage dispatch: the score dump while
+    ``_use_dump`` holds, else the selecting kernel.  Candidate ids are the
+    same on both paths; values differ by summation order."""
+    Q, L = blk.shape
+    if _use_dump(Q, L):
+        return fine_call_xla(E_c3, scales3, q, blk, vcnt, k)
+    return fine_call(E_c3, scales3, q, blk, vcnt, k)
+
+
+# ---------------------------------------------------------------------------
+# search core
+def block_lists(probes, blk_start, nblk, counts, L: int):
+    """Per-query candidate block lists: probes (Q, P) cluster ids ->
+    (blk (Q, L) block ids, vcnt (Q, L) valid rows per block); slots past
+    the probed clusters' blocks point at block 0 with vcnt 0."""
+    Q, P = probes.shape
+    probes = probes.long()
+    nb_p = nblk[probes].long()  # (Q, P)
+    cum = torch.cumsum(nb_p, dim=1)
+    starts = cum - nb_p
+    total = cum[:, -1:]
+    j = torch.arange(L, device=probes.device)[None, :].expand(Q, L).contiguous()
+    seg = torch.searchsorted(cum.contiguous(), j, right=True)  # cum entries <= j
+    segc = torch.clamp(seg, max=P - 1)
+    probe_c = torch.gather(probes, 1, segc)
+    off = j - torch.gather(starts, 1, segc)
+    blk = blk_start[probe_c].long() + off
+    vcnt = torch.clamp(counts[probe_c].long() - off * SLAB, 0, SLAB)
+    live = j < total
+    return (torch.where(live, blk, 0).to(torch.int32),
+            torch.where(live, vcnt, 0).to(torch.int32))
+
+
+def _tail_scores(E_master, q, base: int, tail_max: int):
+    """(Q, tail_max) f32 scores of the master window [base, base +
+    tail_max): true f32 on an f32 master; on a bf16 master q rounded to
+    bf16, products exact, sums in f32, the window upcast a chunk at a
+    time (never a bf16 matmul, which would round the output)."""
+    win = E_master[base:base + tail_max]
+    if E_master.dtype == torch.float32:
+        return q @ win.T
+    qb = q.to(torch.bfloat16).float()
+    out = torch.empty((q.shape[0], tail_max), dtype=torch.float32, device=q.device)
+    for s in range(0, tail_max, _TAIL_CHUNK_ROWS):
+        out[:, s:s + _TAIL_CHUNK_ROWS] = qb @ win[s:s + _TAIL_CHUNK_ROWS].float().T
+    return out
+
+
+def ivf2_search_core(E_master, E_c3, scales3, perm, centroids, blk_start, nblk, counts,
+                     built: int, count: int, q, *, k: int, nprobe: int, L: int,
+                     tail_max: int, refine_extra: Optional[int] = None):
+    """q (Q, d) f32 -> (vals (Q, k) f32, rows (Q, k) int32 global ids).
+
+    Rows [0, built) are served by the clustered fine stage, rows [built,
+    count) by an exact scan of a ``tail_max``-wide window of the master.
+    The fine stage over-selects ``k + refine_extra`` candidates (default
+    2k); every candidate is rescored on the master, so returned scores
+    are master-exact and recall is bounded by nprobe coverage only.  Ties
+    go to the smallest global id."""
+    Q, d = q.shape
+    q = q.float()
+    if refine_extra is None:
+        refine_extra = k
+    cand_i = []
+    if L > 0:
+        cs = q @ centroids.T
+        _, probes = stable_topk(cs, nprobe)
+        blk, vcnt = block_lists(probes, blk_start, nblk, counts, L)
+        kf = min(k + refine_extra, L * SLAB)
+        _, fslots = fine_call_auto(E_c3, scales3, q, blk, vcnt, kf)
+        fgids = perm[torch.clamp(fslots, min=0).long()]
+        fgids = torch.where(fslots >= 0, fgids, -1)
+        # a built row may have been deleted (zeroed): it stays, and the
+        # engine's tombstone filter drops it, as on the exact tiers
+        cand_i.append(torch.where(fgids >= 0, fgids, _BIG_I32))
+    tail_v = tail_i = None
+    if tail_max > 0:
+        base = min(max(built, 0), max(E_master.shape[0] - tail_max, 0))
+        ts = _tail_scores(E_master, q, base, tail_max)
+        gid = base + torch.arange(tail_max, device=q.device)
+        live = (gid >= built) & (gid < count)
+        ts = torch.where(live[None, :], ts, _NEG_INF)
+        tv, tloc = stable_topk(ts, min(k, tail_max))
+        tail_v = tv
+        tail_i = torch.where(torch.isfinite(tv), gid[tloc], _BIG_I32).to(torch.int32)
+        cand_i.append(tail_i)
+    if not cand_i:
+        return (torch.full((Q, k), _NEG_INF, device=q.device),
+                torch.full((Q, k), -1, dtype=torch.int32, device=q.device))
+    if L == 0:  # tail only: scores are already master-exact
+        vals, ids = _select_topk(tail_v, tail_i, min(k, tail_v.shape[1]))
+    else:
+        ids_all = torch.cat([c.to(torch.int32) for c in cand_i], dim=1)
+        safe = torch.clamp(ids_all, 0, E_master.shape[0] - 1).long()
+        rows = E_master[safe].float()  # (Q, c, d)
+        # q rounded to the master dtype: the exact tiers' convention
+        q_r = _round_to_dtype_f32(q, E_master.dtype)
+        scores = torch.where(ids_all < count, _rescore(q_r, rows), _NEG_INF)
+        vals, ids = _select_topk(scores, ids_all, k)
+    if vals.shape[1] < k:
+        pad = k - vals.shape[1]
+        vals = torch.nn.functional.pad(vals, (0, pad), value=_NEG_INF)
+        ids = torch.nn.functional.pad(ids, (0, pad), value=_BIG_I32)
+    return vals, torch.where(torch.isfinite(vals), ids, -1).to(torch.int32)

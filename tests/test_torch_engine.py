@@ -104,7 +104,9 @@ def test_delete_readd_and_restart(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    {"index.tier": "ivf"}, {"index.tier": "fused"}, {"index.tier": "bf16"},
+    {"embedding.attention_impl": "flash"},
+    {"index.tier": "ivf", "index.ivf_fine_dtype": "int4"},
+    {"index.tier": "auto", "index.ivf_fine_dtype": "int4"},
     {"mesh.index_shards": 2}, {"mesh.multihost": True},
 ])
 def test_unported_configurations_raise(tmp_path, extra):
@@ -113,12 +115,76 @@ def test_unported_configurations_raise(tmp_path, extra):
 
 
 def test_auto_tier_at_ivf_scale_raises():
+    # what "auto" still cannot do at ivf scale: build the unported int4
+    # fine copy (refused when the index is made, before any row arrives)
+    from modular_rag_system_tpu_torch.index import DeviceIndex
+
+    with pytest.raises(NotImplementedError, match="int4"):
+        DeviceIndex(dim=8, tier="auto", ivf_fine_dtype="int4", device="cpu")
+
+
+def test_auto_tier_at_ivf_scale_serves_ivf():
+    # at ivf scale "auto" resolves to ivf, served by the fused route until
+    # the write path builds
     from modular_rag_system_tpu_torch.index import DeviceIndex
 
     idx = DeviceIndex(dim=8, tier="auto", device="cpu")
     idx.count = DeviceIndex._AUTO_IVF_ROWS
-    with pytest.raises(NotImplementedError, match="ivf"):
-        idx.search_ops()
+    assert idx.effective_tier() == "ivf" and idx.search_ops() == (idx.E,)
+
+
+_IVF = {"index.tier": "ivf", "index.ivf_clusters": 8, "index.ivf_nprobe": 8,
+        "index.ivf_rebuild_min": 64}
+
+
+@pytest.mark.parametrize("route", ["fused", "built"])
+def test_engine_ivf_parity_with_jax(tmp_path, route):
+    # a bf16 master: the fused fallback's products are bf16 in both
+    # packages (JAX on the CPU multiplies f32 rows in true f32, the port
+    # and the TPU in bf16), so similarities agree within 1e-5
+    extra = {**(_IVF if route == "built" else {"index.tier": "ivf"}),
+             "index.store_dtype": "bfloat16"}
+    jeng = JaxEngine(JaxConfig.load(overrides={**_overrides(tmp_path / "jax"), **extra}))
+    peng = _port(tmp_path / "port", **extra)
+    jeng.add_documents([JaxDocument(content=t) for t in KNOWLEDGE])
+    peng.add_documents([Document(content=t) for t in KNOWLEDGE])
+    assert (peng.index._ivf2 is not None) == (route == "built")
+    _assert_same(jeng.query_batch(QUERIES, max_results=5),
+                 peng.query_batch(QUERIES, max_results=5))
+    # with a filter, k = 30 x overfetch 4 passes 64: the fused fallback
+    deep = peng.query_batch(QUERIES[:2], max_results=30, source_filters=["unknown"])
+    assert all(len(r.documents) == 30 for r in deep)
+    _assert_same(jeng.query_batch(QUERIES[:2], max_results=30, source_filters=["unknown"]),
+                 deep)
+    stats = peng.get_system_stats()["index"]["ivf"]
+    if route == "built":
+        assert stats == jeng.get_system_stats()["index"]["ivf"]
+    else:
+        assert stats is None
+
+
+def test_engine_passes_every_index_knob(tmp_path):
+    from modular_rag_system_tpu.engine import _INDEX_TIER_KEYS as JAX_KEYS
+    from modular_rag_system_tpu_torch.engine import _INDEX_TIER_KEYS
+
+    assert _INDEX_TIER_KEYS == JAX_KEYS
+    eng = _port(tmp_path, **{**_IVF, "index.ivf_iters": 4, "index.ivf_tail_frac": 0.5,
+                             "index.ivf_refine_extra": 7, "index.ivf_balance": 0.0,
+                             "index.ivf_fine_dtype": "int8", "index.block_rows": 2048})
+    for key in _INDEX_TIER_KEYS:
+        assert getattr(eng.index, key) == getattr(eng.config.index, key), key
+
+
+def test_engine_ivf_restart_warm_starts(tmp_path):
+    eng = _port(tmp_path, **_IVF)
+    eng.add_documents([Document(content=t) for t in KNOWLEDGE])
+    before = eng.query_batch(QUERIES, max_results=3)
+    cents = eng.index._ivf2.centroids.clone()
+    eng.shutdown()
+    eng2 = _port(tmp_path, **_IVF)
+    assert eng2.index._ivf2.warm_started and eng2.index.ivf_warmstart is None
+    assert torch.equal(eng2.index._ivf2.centroids, cents)
+    _assert_same(before, eng2.query_batch(QUERIES, max_results=3))
 
 
 def test_default_device_engine_raises_without_gpu(tmp_path):

@@ -1,0 +1,396 @@
+"""The port's ivf tier (k-means, IVF2, the fine stage, DeviceIndex tiers
+"ivf" and "auto") against the JAX package's, on the CPU.
+
+The same numpy inputs (``np.random.default_rng``) go through both
+packages; JAX's Pallas kernels run in interpret mode, as its own tests
+run them, and the port's wrappers run their plain versions (the CUDA
+kernels are held against those on the card, ``tests/test_torch_kernels.py``).
+
+Tolerances and their reasons:
+
+* k-means: f32 products in both; the cluster sums are taken in another
+  order, so centroids agree within 1e-5 and labels exactly on separable
+  data.
+* The build's fill and the fine copies are bit-equal: the same gathers,
+  the same bf16 rounding, int8 quantization bit-exact with XLA.
+* Fine-stage scores: bf16(q) . row in both, exact products summed in f32
+  in another order: within 1e-6 on unit-scale scores; the -inf pattern
+  and the slot ids equal.
+* Index searches: inputs are bf16-representable, so the fused/two-pass
+  fallback (bf16 products in the port, true f32 products in JAX on the
+  CPU) sees the same products; ids equal, scores within 1e-6.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from modular_rag_system_tpu.index import DeviceIndex as JaxIndex
+from modular_rag_system_tpu.ops import ivf2 as jivf
+from modular_rag_system_tpu.ops import kmeans as jkm
+from modular_rag_system_tpu_torch.index import DeviceIndex
+from modular_rag_system_tpu_torch.ops import ivf2 as pivf
+from modular_rag_system_tpu_torch.ops import kmeans as pkm
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _bf16_exact(x):
+    """Round f32 values to the nearest bf16 value, kept as f32."""
+    return np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def _unit(rng, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return _bf16_exact(x / np.linalg.norm(x, axis=1, keepdims=True))
+
+
+def _clustered(rng, n_clusters, per, d, spread=0.15):
+    centers = rng.standard_normal((n_clusters, d)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    pts = centers[:, None, :] + spread * rng.standard_normal(
+        (n_clusters, per, d)).astype(np.float32)
+    pts = pts.reshape(-1, d)
+    return _bf16_exact(pts / np.linalg.norm(pts, axis=1, keepdims=True))
+
+
+def _jax_arrays(iv):
+    """A JAX IVF2's arrays as numpy, for ``IVF2.from_numpy``."""
+    return {"centroids": np.asarray(iv.centroids), "E_c3": np.asarray(iv.E_c3),
+            "scales3": None if iv.scales3 is None else np.asarray(iv.scales3),
+            "perm": np.asarray(iv.perm), "inv_perm": np.asarray(iv.inv_perm),
+            "blk_start": np.asarray(iv.blk_start), "nblk": np.asarray(iv.nblk),
+            "counts": np.asarray(iv.counts)}
+
+
+def _assert_same_build(jiv, piv):
+    np.testing.assert_array_equal(np.asarray(jiv.E_c3).astype(np.float32),
+                                  piv.E_c3.float().numpy())
+    if jiv.scales3 is not None:
+        np.testing.assert_array_equal(np.asarray(jiv.scales3), piv.scales3.numpy())
+    for name in ("perm", "inv_perm", "blk_start", "nblk", "counts"):
+        np.testing.assert_array_equal(np.asarray(getattr(jiv, name)),
+                                      getattr(piv, name).numpy(), err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# k-means
+def test_init_centroids_match_jax(rng):
+    E = _unit(rng, 300, 32)
+    np.testing.assert_array_equal(jkm.init_centroids_from_rows(E, 300, 12),
+                                  pkm.init_centroids_from_rows(E, 300, 12))
+
+
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+def test_kmeans_fit_matches_jax(rng, store):
+    E = np.zeros((4096, 32), np.float32)
+    count = 16 * 200
+    E[:count] = _clustered(rng, 16, 200, 32)[rng.permutation(count)]
+    init = jkm.init_centroids_from_rows(E, count, 16)
+    jc, jl = jkm.kmeans_fit(jnp.asarray(E).astype(store), jnp.int32(count),
+                            jnp.asarray(init), iters=6, batch=1024)
+    pc, pl_ = pkm.kmeans_fit(_t(E).to(getattr(torch, store)), count, init, iters=6,
+                             batch=1024)
+    np.testing.assert_array_equal(np.asarray(jl), pl_.numpy())
+    assert (pl_[count:] == -1).all() and (pl_[:count] >= 0).all()
+    np.testing.assert_allclose(np.asarray(jc), pc.numpy(), rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# IVF2 build
+@pytest.mark.parametrize("fine_dtype", ["bf16", "int8"])
+def test_warm_start_build_bit_equal(rng, fine_dtype):
+    E = np.zeros((4096, 32), np.float32)
+    count = 2500
+    E[:count] = _unit(rng, count, 32)
+    jiv = jivf.IVF2.build(jnp.asarray(E), count, n_clusters=9, iters=3,
+                          fine_dtype=fine_dtype)
+    warm = (np.asarray(jiv.centroids), jiv.labels_host())
+    jw = jivf.IVF2.build(jnp.asarray(E), count, fine_dtype=fine_dtype, warm_start=warm)
+    piv = pivf.IVF2.build(_t(E), count, fine_dtype=fine_dtype, warm_start=warm)
+    assert piv.warm_started and piv.built == count
+    _assert_same_build(jw, piv)
+    np.testing.assert_array_equal(piv.labels_host(), warm[1])
+
+
+@pytest.mark.parametrize("balance", [0.0, 1.5])
+def test_cold_build_matches_jax(rng, balance):
+    # separable clusters of unequal size; the largest is three tight
+    # sub-clusters, so the split pass has work with a separable outcome
+    d = 32
+    big = rng.standard_normal(d).astype(np.float32)
+    subs = [big / np.linalg.norm(big) + 0.4 * u / np.linalg.norm(u)
+            for u in rng.standard_normal((3, d)).astype(np.float32)]
+    parts = [s_ + 0.02 * rng.standard_normal((300, d)).astype(np.float32) for s_ in subs]
+    parts += [_clustered(rng, 1, n, d, spread=0.05) for n in (300, 300, 200, 200, 100)]
+    E = np.concatenate(parts)
+    E = _bf16_exact(E / np.linalg.norm(E, axis=1, keepdims=True))
+    E = E[rng.permutation(len(E))]
+    count = len(E)
+    jiv = jivf.IVF2.build(jnp.asarray(E), count, n_clusters=8, iters=5,
+                          fine_dtype="int8", balance=balance)
+    piv = pivf.IVF2.build(_t(E), count, n_clusters=8, iters=5, fine_dtype="int8",
+                          balance=balance)
+    assert piv.n_clusters == jiv.n_clusters and not piv.warm_started
+    np.testing.assert_allclose(np.asarray(jiv.centroids), piv.centroids.numpy(),
+                               rtol=0, atol=1e-5)
+    _assert_same_build(jiv, piv)
+
+
+def test_lbg_split_seeds_match_jax():
+    cents = np.eye(4, 16, dtype=np.float32)
+    cnts = np.array([900, 10, 500, 40])
+    a = jivf.lbg_split_seeds(cents, cnts, 300, np.random.default_rng(0))
+    b = pivf.lbg_split_seeds(cents, cnts, 300, np.random.default_rng(0))
+    np.testing.assert_array_equal(a, b)
+    assert pivf.lbg_split_seeds(cents, cnts, 1000, np.random.default_rng(0)) is None
+
+
+# ---------------------------------------------------------------------------
+# search half
+def _probe_lists(rng, jiv, Q, nprobe, d):
+    q = _unit(rng, Q, d)
+    _, probes = jax.lax.top_k(jnp.asarray(q) @ jiv.centroids.T, nprobe)
+    L = jiv.slots_for_nprobe(nprobe)
+    L = ((L + 3) // 4) * 4
+    return q, np.asarray(probes), L
+
+
+def test_block_lists_exact(rng):
+    E = _unit(rng, 3000, 32)
+    jiv = jivf.IVF2.build(jnp.asarray(E), 3000, n_clusters=10, iters=3)
+    _, probes, L = _probe_lists(rng, jiv, 6, 4, 32)
+    jb, jv = jivf.block_lists(jnp.asarray(probes), jiv.blk_start, jiv.nblk,
+                              jiv.counts, L + 8)
+    pb, pv = pivf.block_lists(_t(probes), _t(jiv.blk_start), _t(jiv.nblk),
+                              _t(jiv.counts), L + 8)
+    np.testing.assert_array_equal(np.asarray(jb), pb.numpy())
+    np.testing.assert_array_equal(np.asarray(jv), pv.numpy())
+
+
+def test_auto_u_and_dump_rule_match_jax():
+    for L in (1, 4, 7, 8, 12, 13, 4096, 4100):
+        assert pivf.auto_u(L) == jivf.auto_u(L)
+        for Q in (1, 16, 256, 4096):
+            assert pivf._use_dump(Q, L) == jivf._use_dump(Q, L)
+
+
+@pytest.mark.parametrize("fine_dtype", ["bf16", "int8"])
+def test_fine_stage_plain_matches_jax(rng, fine_dtype):
+    d = 64
+    E = _unit(rng, 2048, d)
+    jiv = jivf.IVF2.build(jnp.asarray(E), 2048, n_clusters=6, iters=3,
+                          fine_dtype=fine_dtype)
+    q, probes, L = _probe_lists(rng, jiv, 4, 3, d)
+    jb, jv = jivf.block_lists(jnp.asarray(probes), jiv.blk_start, jiv.nblk,
+                              jiv.counts, L)
+    sc = jiv.scales3 if jiv.scales3 is not None else jnp.zeros((1, 1), jnp.float32)
+    E_c3 = pivf._from_numpy(np.asarray(jiv.E_c3))
+    sc_p = None if jiv.scales3 is None else _t(jiv.scales3)
+    blk, vcnt = _t(jb), _t(jv)
+    # the dump kernel: same -inf pattern, scores to f32 summation order
+    js = np.asarray(jivf.fine_scores_call(jiv.E_c3, sc, jnp.asarray(q), jb, jv, 4, True))
+    ps = pivf.fine_scores_call(E_c3, sc_p, _t(q), blk, vcnt).numpy()
+    np.testing.assert_array_equal(np.isfinite(js), np.isfinite(ps))
+    fin = np.isfinite(js)
+    np.testing.assert_allclose(js[fin], ps[fin], rtol=0, atol=1e-6)
+    # the selecting kernel: slots equal, ties to the lowest slot
+    kf = 12
+    jv_, jsl = jivf.fine_call(jiv.E_c3, sc, jnp.asarray(q), jb, jv, kf, 4, True)
+    pv_, psl = pivf.fine_call(E_c3, sc_p, _t(q), blk, vcnt, kf)
+    np.testing.assert_array_equal(np.asarray(jsl), psl.numpy())
+    np.testing.assert_allclose(np.asarray(jv_), pv_.numpy(), rtol=0, atol=1e-6)
+    # the dump path's ids equal the selecting kernel's (the JAX invariant)
+    xv, xsl = pivf.fine_call_xla(E_c3, sc_p, _t(q), blk, vcnt, kf)
+    np.testing.assert_array_equal(xsl.numpy(), psl.numpy())
+
+
+def test_fine_topk_ties_by_lowest_slot():
+    # two identical blocks: every score ties with its copy, so the lower
+    # slot of each pair must win, on both the selecting and the dump path
+    E_c3 = torch.zeros((4, pivf.SLAB, 16), dtype=torch.bfloat16)
+    E_c3[1] = E_c3[3] = torch.randn(pivf.SLAB, 16, generator=torch.Generator().manual_seed(0))
+    q = torch.randn(2, 16, generator=torch.Generator().manual_seed(1))
+    blk = torch.tensor([[3, 1, 0, 0], [1, 3, 0, 0]], dtype=torch.int32)
+    vcnt = torch.tensor([[256, 256, 0, 0], [256, 256, 0, 0]], dtype=torch.int32)
+    v, s = pivf.fine_call(E_c3, None, q, blk, vcnt, 20)
+    xv, xs = pivf.fine_call_xla(E_c3, None, q, blk, vcnt, 20)
+    assert torch.equal(s, xs) and torch.equal(v, xv)
+    # tied pairs are adjacent, the block-1 slot first
+    assert (s[:, 0::2] // pivf.SLAB == 1).all()
+    assert torch.equal(s[:, 1::2], s[:, 0::2] + 2 * pivf.SLAB)
+
+
+def _jax_search(jiv, E, q, k, nprobe, built, count, tail_max):
+    L = jiv.slots_for_nprobe(nprobe)
+    U = jivf.auto_u(L)
+    L = ((L + U - 1) // U) * U
+    sc3 = jiv.scales3 if jiv.scales3 is not None else jnp.zeros((1, 1), jnp.float32)
+    core = jax.jit(functools.partial(jivf.ivf2_search_core, k=k, nprobe=nprobe, L=L,
+                                     tail_max=tail_max, U=U, interpret=True))
+    v, r = core(jnp.asarray(E), jiv.E_c3, sc3, jiv.perm, jiv.centroids, jiv.blk_start,
+                jiv.nblk, jiv.counts, jnp.int32(built), jnp.int32(count), jnp.asarray(q))
+    return np.asarray(v), np.asarray(r), L
+
+
+@pytest.mark.parametrize("fine_dtype,store", [("bf16", "float32"), ("int8", "bfloat16")])
+def test_ivf2_search_core_on_jax_state(rng, fine_dtype, store):
+    d, cap, built, count, k = 32, 4096, 2000, 2300, 10
+    E = np.zeros((cap, d), np.float32)
+    E[:count] = _unit(rng, count, d)
+    Em = jnp.asarray(E).astype(store)
+    jiv = jivf.IVF2.build(Em, built, n_clusters=8, iters=3, fine_dtype=fine_dtype)
+    q = _unit(rng, 5, d)
+    jv, jr, L = _jax_search(jiv, Em, q, k, 3, built, count, 8192 // 2)
+    piv = pivf.IVF2.from_numpy(_jax_arrays(jiv), built, fine_dtype, device="cpu")
+    pv, pr = pivf.ivf2_search_core(
+        _t(E).to(getattr(torch, store)), piv.E_c3, piv.scales3, piv.perm, piv.centroids,
+        piv.blk_start, piv.nblk, piv.counts, built, count, _t(q), k=k, nprobe=3, L=L,
+        tail_max=4096)
+    np.testing.assert_array_equal(jr, pr.numpy())
+    np.testing.assert_allclose(jv, pv.numpy(), rtol=0, atol=1e-6)
+    assert (pr.numpy() >= built).any()  # the tail took part
+
+
+# ---------------------------------------------------------------------------
+# DeviceIndex tiers ivf and auto
+_KW = dict(ivf_clusters=8, ivf_nprobe=4, ivf_rebuild_min=512)
+
+
+def _pair(store="float32", tier="ivf", **kw):
+    kw = {**_KW, **kw}
+    return (JaxIndex(dim=32, tier=tier, store_dtype=store, **kw),
+            DeviceIndex(dim=32, tier=tier, store_dtype=store, device="cpu", **kw))
+
+
+def _same_search(jidx, pidx, q, k):
+    js, jr = jidx.search(q, k)
+    ps, pr = pidx.search(q, k)
+    fin = np.isfinite(js)
+    np.testing.assert_array_equal(fin, np.isfinite(ps))
+    np.testing.assert_array_equal(jr[fin], pr[fin])
+    np.testing.assert_allclose(js[fin], ps[fin], rtol=0, atol=1e-6)
+    return pr
+
+
+@pytest.mark.parametrize("store,fine", [("float32", "bf16"), ("bfloat16", "int8")])
+def test_ivf_index_lifecycle_matches_jax(rng, store, fine):
+    jidx, pidx = _pair(store, ivf_fine_dtype=fine)
+    E = _unit(rng, 3000, 32)
+    q = np.concatenate([E[[5, 2100]], _unit(rng, 4, 32)])
+    for idx in (jidx, pidx):
+        idx.add(E[:1000])
+    assert pidx.ivf_rebuilds == jidx.ivf_rebuilds == 1
+    assert pidx._ivf2.built == 1000
+    # the tail: appends below the threshold do not rebuild
+    for idx in (jidx, pidx):
+        idx.add(E[1000:1200])
+    assert pidx.ivf_rebuilds == 1 and pidx._ivf2.built == 1000
+    _same_search(jidx, pidx, q, 10)
+    # delete a built row and resurrect it with new content
+    new = _unit(rng, 1, 32)
+    for idx in (jidx, pidx):
+        idx.delete_rows(np.array([5, 1100]))
+    _same_search(jidx, pidx, q, 10)
+    for idx in (jidx, pidx):
+        idx.set_rows(np.array([5]), new)
+    assert pidx._ivf2.stale_rows == jidx._ivf2.stale_rows == 2
+    _same_search(jidx, pidx, np.concatenate([q, new]), 10)
+    # the k > 64 route (filtered refill) serves the exact fused stream
+    _same_search(jidx, pidx, q, 100)
+    # crossing the tail threshold rebuilds from the write path
+    for idx in (jidx, pidx):
+        idx.add(E[1200:])
+    assert pidx.ivf_rebuilds == jidx.ivf_rebuilds == 2
+    assert pidx._ivf2.built == 3000
+    _same_search(jidx, pidx, q, 10)
+    _same_search(jidx, pidx, q, 100)
+
+
+def test_ivf_below_build_threshold_serves_fused(rng):
+    jidx, pidx = _pair(ivf_rebuild_min=32768)
+    E = _unit(rng, 700, 32)
+    for idx in (jidx, pidx):
+        idx.add(E)
+    assert pidx._ivf2 is None and pidx.effective_tier() == "ivf"
+    _same_search(jidx, pidx, _unit(rng, 3, 32), 10)
+
+
+@pytest.mark.parametrize("tier,store", [("fused", "float32"), ("bf16", "float32"),
+                                        ("fused", "bfloat16")])
+def test_streaming_tiers_match_jax(rng, tier, store):
+    jidx, pidx = _pair(store, tier=tier)
+    E = _unit(rng, 9000, 32)  # capacity 32768: the two-pass route
+    for idx in (jidx, pidx):
+        idx.add(E[:500])
+    q = _unit(rng, 4, 32)
+    _same_search(jidx, pidx, q, 10)  # single pass (capacity 1024)
+    for idx in (jidx, pidx):
+        idx.add(E[500:])
+        idx.set_rows(np.array([3]), E[:1] * 0.5)
+        idx.delete_rows(np.array([7]))
+    assert pidx.capacity == jidx.capacity == 32768
+    _same_search(jidx, pidx, q, 10)
+    if tier == "bf16" and store == "float32":
+        assert pidx._E_bf16 is not None and torch.equal(
+            pidx._E_bf16[:9000].float(), pidx.E[:9000].to(torch.bfloat16).float())
+
+
+def test_fused_bin_width_validated_as_jax():
+    pidx = DeviceIndex(dim=32, tier="fused", fused_bin_width=96, device="cpu")
+    pidx.add(np.ones((10, 32), np.float32))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        pidx.search(np.ones((1, 32), np.float32), 3)
+
+
+def test_auto_promotes_to_ivf(rng, monkeypatch):
+    for cls in (JaxIndex, DeviceIndex):
+        monkeypatch.setattr(cls, "_AUTO_IVF_ROWS", 1024)
+        monkeypatch.setattr(cls, "_IVF_AUTO_INT8_ROWS", 1024)
+    jidx, pidx = _pair(tier="auto", ivf_rebuild_min=64)
+    E = _unit(rng, 1600, 32)
+    q = _unit(rng, 3, 32)
+    for idx in (jidx, pidx):
+        idx.add(E[:1000])
+    assert pidx.effective_tier() == "int8" and pidx._ivf2 is None
+    _same_search(jidx, pidx, q, 10)
+    for idx in (jidx, pidx):
+        idx.add(E[1000:1024])
+    # the write path promoted at exactly 1024 rows: a bf16 fine copy
+    assert pidx.effective_tier() == "ivf" and pidx._ivf2.fine_dtype == "bf16"
+    _same_search(jidx, pidx, q, 10)
+    for idx in (jidx, pidx):
+        idx.add(E[1024:])
+    # past the crossover the rebuild takes the int8 fine copy
+    assert pidx.ivf_rebuilds == 2 and pidx._ivf2.fine_dtype == "int8"
+    assert jidx._ivf2.fine_dtype == "int8"
+    _same_search(jidx, pidx, q, 10)
+
+
+def test_jax_snapshot_restores_with_warm_start(rng, tmp_path):
+    kw = dict(_KW, ivf_fine_dtype="int8")
+    jidx = JaxIndex(dim=32, tier="ivf", **kw)
+    jidx.add(_clustered(rng, 8, 150, 32))
+    path = str(tmp_path / "jax.npz")
+    jidx.snapshot(path)
+    pidx = DeviceIndex.load(path, tier="ivf", device="cpu", **kw)
+    assert pidx._ivf2.warm_started and pidx.ivf_warmstart is None
+    np.testing.assert_array_equal(np.asarray(jidx._ivf2.centroids),
+                                  pidx._ivf2.centroids.numpy())
+    _assert_same_build(jidx._ivf2, pidx._ivf2)
+    _same_search(jidx, pidx, _unit(rng, 4, 32), 10)
+    # and back: the port's snapshot carries the same clustering
+    pidx.snapshot(str(tmp_path / "port.npz"))
+    data = np.load(str(tmp_path / "port.npz"))
+    np.testing.assert_array_equal(data["ivf_labels"], jidx._ivf2.labels_host())
+
+
+def test_int4_fine_copy_raises():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DeviceIndex(dim=32, tier="ivf", ivf_fine_dtype="int4", device="cpu")

@@ -7,9 +7,11 @@ conftest's fixtures, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_kernels.py -m cuda -q --noconftest
 
 Tolerances: ``binmax_int8`` sums int8 products exactly, so it must match
-bit for bit; ``fused_topk_int8`` sums real-valued products in another
-order than the plain version, so scores agree within 1e-5 and ids agree
-except at near-ties (checked against an f64 rescore).
+bit for bit, and so must every kernel on integer-valued inputs (all
+partial sums exact); on real-valued inputs the kernels sum f32 products
+in another order than the plain versions (``binmax`` on the tensor
+cores), so scores agree within 1e-5 and ids agree except at near-ties
+(checked against an f64 rescore); the -inf pattern is always identical.
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 
 from modular_rag_system_tpu_torch.ops import binmax_topk as pb
 from modular_rag_system_tpu_torch.ops import fused_topk as pf
+from modular_rag_system_tpu_torch.ops import ivf2 as pivf
 from modular_rag_system_tpu_torch.ops.quantize import quantize_rows
 
 D = 768
@@ -73,3 +76,99 @@ def test_fused_topk_int8_kernel_matches_plain(cuda_device, cap, count, k, bw):
         qb = q.to(torch.bfloat16).double()[bad.nonzero()[:, 0]]
         exact = (qb * E_q[rows].double()).sum(1) * sc[rows].double()
         assert (exact - v2[bad].double()).abs().max().item() <= 2e-5
+
+
+def _float_rows(seed, cap, count, dev, dtype, crafted=False):
+    rng = np.random.default_rng(seed)
+    if crafted:  # small integers: every partial sum exact
+        E = rng.integers(-2, 3, (cap, D)).astype(np.float32)
+    else:
+        E = rng.standard_normal((cap, D)).astype(np.float32)
+        E /= np.linalg.norm(E, axis=1, keepdims=True)
+    E[count:] = 0
+    return torch.from_numpy(E).to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap,Q,bw,crafted", [
+    (8192, 1, 32, False), (8192, 70, 64, False), (16384, 256, 32, False),
+    (8192, 9, 32, True)])
+def test_binmax_kernel_matches_plain(cuda_device, dtype, cap, Q, bw, crafted):
+    E = _float_rows(4, cap, cap - 13, cuda_device, dtype, crafted)
+    q = (torch.randint(-1, 2, (Q, D), device=cuda_device).float() if crafted
+         else _queries(5, Q, cuda_device))
+    out, ref = pb.binmax_call(E, q, bw), pb.binmax_reference(E, q, bw)
+    if crafted:
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+def _assert_topk_close(v1, i1, v2, i2, exact):
+    fin = torch.isfinite(v2)
+    assert torch.equal(torch.isfinite(v1), fin)
+    if exact:
+        assert torch.equal(v1[fin], v2[fin]) and torch.equal(i1[fin], i2[fin])
+        return
+    torch.testing.assert_close(v1[fin], v2[fin], rtol=0, atol=1e-5)
+    bad = (i1 != i2) & fin
+    # only near-ties may swap: the swapped-in ids score within 2e-5
+    assert bad.sum().item() <= max(2, fin.sum().item() // 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap,count,k,bw,crafted", [
+    (1024, 1000, 10, None, False), (4096, 4000, 1024, None, False),
+    (4096, 4001, 20, 128, False), (1024, 5, 10, None, False),
+    (4096, 3000, 16, None, True), (4096, 3000, 8, 128, True)])
+def test_fused_topk_kernel_matches_plain(cuda_device, dtype, cap, count, k, bw, crafted):
+    E = _float_rows(6, cap, count, cuda_device, dtype, crafted)
+    q = (torch.randint(-1, 2, (16, D), device=cuda_device).float() if crafted
+         else _queries(7, 16, cuda_device))
+    v1, i1 = pf.fused_topk_raw(E, count, q, k, bw)
+    v2, i2 = pf.fused_topk_reference(E, count, q, k, bw)
+    _assert_topk_close(v1, i1, v2, i2, crafted)
+
+
+def _fine_case(seed, fine_dtype, dev, nblocks=64, Q=8, L=24):
+    rng = np.random.default_rng(seed)
+    E = rng.standard_normal((nblocks * pivf.SLAB, D)).astype(np.float32)
+    E /= np.linalg.norm(E, axis=1, keepdims=True)
+    Et = torch.from_numpy(E).to(dev)
+    if fine_dtype == "int8":
+        from modular_rag_system_tpu_torch.ops.quantize import quantize_rows
+
+        qv, sc = quantize_rows(Et)
+        E_c3, sc3 = qv.view(nblocks, pivf.SLAB, D), sc.view(nblocks, pivf.SLAB)
+    else:
+        E_c3, sc3 = Et.to(torch.bfloat16).view(nblocks, pivf.SLAB, D), None
+    blk = torch.from_numpy(np.stack([rng.choice(nblocks, L, replace=False)
+                                     for _ in range(Q)]).astype(np.int32)).to(dev)
+    vcnt = torch.from_numpy(rng.choice([0, 1, 100, 256, 256], (Q, L)).astype(np.int32)).to(dev)
+    return E_c3, sc3, _queries(seed + 1, Q, dev), blk, vcnt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine_dtype", ["bf16", "int8"])
+def test_fine_scores_kernel_matches_plain(cuda_device, fine_dtype):
+    E_c3, sc3, q, blk, vcnt = _fine_case(8, fine_dtype, cuda_device)
+    out = pivf.fine_scores_call(E_c3, sc3, q, blk, vcnt)
+    ref = pivf.fine_scores_reference(E_c3, sc3, q, blk, vcnt)
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(out), fin)
+    torch.testing.assert_close(out[fin], ref[fin], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine_dtype,k,L", [("bf16", 20, 24), ("int8", 128, 24),
+                                            ("int8", 20, 300)])
+def test_fine_topk_kernel_matches_plain(cuda_device, fine_dtype, k, L):
+    E_c3, sc3, q, blk, vcnt = _fine_case(9, fine_dtype, cuda_device, nblocks=400, L=L)
+    v1, s1 = pivf.fine_call(E_c3, sc3, q, blk, vcnt, k)
+    v2, s2 = pivf.fine_topk_reference(E_c3, sc3, q, blk, vcnt, k)
+    _assert_topk_close(v1, s1, v2, s2, False)
+    # the dump path selects the same slots (the JAX package's invariant)
+    xv, xs = pivf.fine_call_xla(E_c3, sc3, q, blk, vcnt, k)
+    _assert_topk_close(v1, s1, xv, xs, False)

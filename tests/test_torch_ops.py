@@ -223,3 +223,111 @@ def test_stream_search_core_routing(rng, monkeypatch, cap, count, k, route):
     np.testing.assert_array_equal(fin, np.isfinite(vp.numpy()))
     np.testing.assert_array_equal(ij[fin], ip.numpy()[fin])
     np.testing.assert_allclose(vj[fin], vp.numpy()[fin], rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the f32/bf16 kernels' plain versions (binmax, fused_topk, twopass)
+#
+# The port scores bf16(q) . bf16(row) in f32, as the TPU kernels do at
+# default precision; JAX's interpret mode on the CPU multiplies f32 rows
+# in true f32.  On bf16-representable inputs the two agree (exact
+# products, f32 sums in another order: 1e-6), on integer-valued inputs
+# bit for bit.
+def _bf16_vals(x):
+    return np.array(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def _float_case(rng, case, cap, d, Q):
+    if case == "ties":  # small integers: exact sums, many ties
+        return (rng.integers(-2, 3, (cap, d)).astype(np.float32),
+                rng.integers(-1, 2, (Q, d)).astype(np.float32))
+    E, q = _bf16_vals(_unit(rng, cap, d)), _bf16_vals(_unit(rng, Q, d))
+    return E, q
+
+
+def _close(ref, out, exact):
+    if exact:
+        np.testing.assert_array_equal(ref, out)
+    else:
+        np.testing.assert_allclose(ref, out, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("store,case,bw", [
+    ("float32", "unit", 32), ("bfloat16", "unit", 64), ("float32", "ties", 32)])
+def test_binmax_matches_jax(rng, store, case, bw):
+    cap, d, Q = 2048, 64, 5
+    E, q = _float_case(rng, case, cap, d, Q)
+    ref = jb.binmax_call(jnp.asarray(E).astype(store), jnp.asarray(q), 512, bw, True)
+    out = pb.binmax_call(_t(E).to(getattr(torch, store)), _t(q), bw)
+    _close(np.asarray(ref).T, out.numpy(), case == "ties")
+
+
+def test_binmax_general_f32_within_bf16_rounding(rng):
+    # general f32 unit vectors: the port rounds both operands to bf16
+    # (relative error <= 2^-9 each), so each product moves by at most
+    # ~2^-8 of its magnitude and the sum by 2^-8 * sum|q_i e_i| <= 2^-8
+    E, q = _unit(rng, 1024, 64), _unit(rng, 4, 64)
+    ref = jb.binmax_call(jnp.asarray(E), jnp.asarray(q), 512, 32, True)
+    out = pb.binmax_call(_t(E), _t(q), 32)
+    np.testing.assert_allclose(np.asarray(ref).T, out.numpy(), rtol=0, atol=2.0**-8)
+
+
+@pytest.mark.parametrize("store,case,k,count", [
+    ("float32", "unit", 10, 8000), ("bfloat16", "unit", 100, 8000),
+    ("float32", "ties", 16, 7001), ("float32", "unit", 10, 5)])
+def test_twopass_topk_matches_jax(rng, store, case, k, count):
+    cap, d, bw = 8192, 64, 32
+    E, q = _float_case(rng, case, cap, d, 6)
+    E[count:] = 0
+    Ej = jnp.asarray(E).astype(store)
+    vj, ij = jax.jit(jb.twopass_topk_raw, static_argnums=(3, 4, 5, 6))(
+        Ej, jnp.int32(count), jnp.asarray(q), k, 4096, bw, True)
+    vp, ip = pb.twopass_topk_raw(_t(E).to(getattr(torch, store)), count, _t(q), k, bw)
+    vj, ij = np.asarray(vj), np.asarray(ij)
+    fin = np.isfinite(vj)
+    np.testing.assert_array_equal(fin, np.isfinite(vp.numpy()))
+    np.testing.assert_array_equal(ij[fin], ip.numpy()[fin])
+    _close(vj[fin], vp.numpy()[fin], case == "ties")
+
+
+@pytest.mark.parametrize("store,case,k,bw,count", [
+    ("float32", "unit", 10, None, 1000), ("bfloat16", "unit", 40, 128, 1000),
+    ("float32", "ties", 16, None, 700), ("float32", "ties", 5, 128, 900),
+    ("float32", "unit", 10, None, 5)])
+def test_fused_topk_matches_jax(rng, store, case, k, bw, count):
+    cap, d = 1024, 64
+    E, q = _float_case(rng, case, cap, d, 8)
+    vj, ij = jf.fused_topk_raw(jnp.asarray(E).astype(store), jnp.int32(count),
+                               jnp.asarray(q), k, 256, True, bin_width=bw)
+    vp, ip = pf.fused_topk_raw(_t(E).to(getattr(torch, store)), count, _t(q), k, bw)
+    vj, ij = np.asarray(vj), np.asarray(ij)
+    fin = np.isfinite(vj)
+    np.testing.assert_array_equal(fin, np.isfinite(vp.numpy()))
+    np.testing.assert_array_equal(ij[fin], ip.numpy()[fin])
+    _close(vj[fin], vp.numpy()[fin], case == "ties")
+    if count < k:
+        assert fin.sum(axis=1).tolist() == [count] * q.shape[0]
+
+
+@pytest.mark.parametrize("cap,k,bw,route", [
+    (4096, 10, None, "fused_topk_raw"), (8192, 10, None, "twopass_topk_raw"),
+    (8192, 300, None, "fused_topk_raw"), (8192, 10, 128, "fused_topk_raw")])
+def test_float_stream_search_core_routing(rng, monkeypatch, cap, k, bw, route):
+    d = 64
+    E = _bf16_vals(_unit(rng, cap, d))
+    count = cap - 100
+    E[count:] = 0
+    q = _bf16_vals(_unit(rng, 3, d))
+    calls = []
+    for name in ("twopass_topk_raw", "fused_topk_raw"):
+        fn = getattr(pindex, name)
+        monkeypatch.setattr(pindex, name,
+                            lambda *a, _fn=fn, _n=name, **kw: calls.append(_n) or _fn(*a, **kw))
+    vp, ip = pindex.stream_search_core(_t(E), None, None, count, _t(q), k, bw)
+    assert calls == [route]
+    vj, ij = jax.jit(lambda e, c, qq: jax_stream(e, c, qq, k, 1024, bw))(
+        jnp.asarray(E), jnp.int32(count), jnp.asarray(q))
+    vj, ij = np.asarray(vj), np.asarray(ij)
+    fin = np.isfinite(vj)
+    np.testing.assert_array_equal(ij[fin], ip.numpy()[fin])
+    np.testing.assert_allclose(vj[fin], vp.numpy()[fin], rtol=0, atol=1e-6)
