@@ -10,10 +10,11 @@ Phases (any failure exits non-zero and prints no result line):
 1. device: the card's name and power limit (``nvidia-smi``);
 2. kernels: builds every CUDA kernel from ``modular_rag_system_tpu_torch/
    kernels/*.cu`` (one ``nvcc`` per source, in parallel) and holds each
-   of the six against its plain PyTorch version on seeded inputs at d=768
+   of the nine against its plain PyTorch version on seeded inputs at d=768
    (crafted ties and integer-valued inputs that make the sums exact, a
    count that is no multiple of the bin width, count < k, dead and
-   partial fine-stage slots);
+   partial fine-stage slots in all three fine-copy modes, attention with
+   ragged padding and an all-padding row at L = 40 to 2048);
 3. engine: ``create_engine`` with the bundled hybrid encoder (dim 768),
    ``index.tier="auto"``: ingests the bundled knowledge sentences and QA
    passages as text (single-pass ``fused_topk_int8`` route), queries,
@@ -21,15 +22,24 @@ Phases (any failure exits non-zero and prints no result line):
    (two-pass ``binmax_int8`` route) and queries again, holding the ids
    against the exact tier; restart from the snapshot; then a second
    engine with ``index.tier="ivf"`` over the bundled corpus (below the
-   build threshold: the single-pass ``fused_topk`` route);
+   build threshold: the single-pass ``fused_topk`` route); a third with
+   ``embedding.attention_impl="flash"`` (``mea_attention`` in every
+   layer of every forward, its embeddings held against the dense
+   engine's); on the 1,048,576-row index the two-pass functions with
+   ``kernel_rescan=True`` (``rescan``) beside the gather they replace;
 4. ivf: the restarted engine fills on to 4,718,592 rows (the write path
    promotes ``auto`` to ivf at 4,194,304 rows with a bf16 fine copy and
    an exact tail; ``fine_scores`` route), a k = 100 query batch (the
    ``binmax`` two-pass fallback), one batch at nprobe 512 (the selecting
    ``fine_topk`` kernel), then on to 5,636,096 rows (the rebuild with an
    int8 fine copy), each held against the exact tier; kernel times at
-   the engine's own inputs; shutdown (a 17.3 GB snapshot) and a restart
-   whose rebuild takes the saved clustering (no k-means).
+   the engine's own inputs, ``fine_binmax`` (the fine stage's streaming
+   floor) among them; shutdown (a 17.3 GB snapshot) and a restart whose
+   rebuild takes the saved clustering (no k-means); a second restart
+   with ``index.ivf_fine_dtype="int4"``: the packed fine copy at half the
+   int8 copy's bytes, the route at Q = 128, the refusal of Q = 256 (its
+   rescore gather passes 1 GiB), and the int4 mode of the three fine
+   kernels at the engine's own lists.
 
 Each kernel is also held against its plain version at the inputs the
 main path gives it (the engine's own rows, queries and probe lists), and
@@ -62,7 +72,9 @@ FILL_BATCH = 65_536
 # the device kernel each launch of a port kernel runs (fine_topk's merge
 # is its second kernel and not counted)
 _PORT_KERNELS = ("binmax_int8_kernel", "fused_topk_int8_kernel", "binmax_kernel",
-                 "fused_topk_kernel", "fine_scores_kernel", "fine_topk_kernel")
+                 "fused_topk_kernel", "fine_scores_kernel", "fine_topk_kernel",
+                 "fine_binmax_kernel", "rescan_kernel", "mea_attention_kernel")
+FINE_MODES = ("bf16", "int8", "int4")
 
 # published dense peaks of the card variants nvidia-smi may name:
 # (HBM bytes/s, int8 ops/s, bf16 ops/s)
@@ -211,10 +223,20 @@ def fine_rescorer(E_c3, sc3, q):
     """(query rows, slots) -> f64 scores of bf16(q) . fine row (x scale)."""
     import torch
 
+    from modular_rag_system_tpu_torch.ops.ivf2 import SLAB, _fine_mode
+
     qb = q.to(torch.bfloat16).double()
+    int4 = _fine_mode(E_c3) == "int4"
+
+    def rows_at(slots):
+        if not int4:
+            return E_c3.reshape(-1, D)[slots].double()
+        b, r = slots // SLAB, slots % SLAB
+        t = E_c3[b, r % (SLAB // 2)].to(torch.int32)  # the packed bytes
+        return torch.where((r < SLAB // 2)[:, None], t >> 4, ((t & 0xF) ^ 8) - 8).double()
 
     def rescore(qi, slots):
-        r = (qb[qi] * E_c3.reshape(-1, D)[slots].double()).sum(1)
+        r = (qb[qi] * rows_at(slots)).sum(1)
         return r if sc3 is None else r * sc3.reshape(-1)[slots].double()
 
     return rescore
@@ -476,7 +498,7 @@ def fine_case(g, dev, fine_dtype, nblocks, Q, L, dup=False):
     import torch
 
     from modular_rag_system_tpu_torch.ops.ivf2 import SLAB
-    from modular_rag_system_tpu_torch.ops.quantize import quantize_rows
+    from modular_rag_system_tpu_torch.ops.quantize import quantize_int4_blocks, quantize_rows
 
     x = torch.randn((nblocks * SLAB, D), generator=g, device=dev)
     x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
@@ -485,12 +507,15 @@ def fine_case(g, dev, fine_dtype, nblocks, Q, L, dup=False):
     if fine_dtype == "int8":
         qv, sc = quantize_rows(x)
         E_c3, sc3 = qv.view(nblocks, SLAB, D), sc.view(nblocks, SLAB)
+    elif fine_dtype == "int4":
+        E_c3, sc3 = quantize_int4_blocks(x, nblocks, SLAB)
     else:
         E_c3, sc3 = x.to(torch.bfloat16).view(nblocks, SLAB, D), None
     blk = torch.stack([torch.randperm(nblocks, generator=g, device=dev)[:L]
                        for _ in range(Q)]).to(torch.int32)
-    choices = torch.tensor([0, 1, 77, SLAB, SLAB], device=dev, dtype=torch.int32)
-    vcnt = choices[torch.randint(0, 5, (Q, L), generator=g, device=dev)]
+    # dead, partial (odd, below and above half a slab) and full slots
+    choices = torch.tensor([0, 1, 77, 129, SLAB, SLAB], device=dev, dtype=torch.int32)
+    vcnt = choices[torch.randint(0, 6, (Q, L), generator=g, device=dev)]
     if dup:  # the list is the two copies, full
         blk = torch.tensor([[3, 1]] * Q, dtype=torch.int32, device=dev)
         vcnt = torch.full((Q, 2), SLAB, dtype=torch.int32, device=dev)
@@ -500,15 +525,40 @@ def fine_case(g, dev, fine_dtype, nblocks, Q, L, dup=False):
 def check_fine_scores(g, dev):
     from modular_rag_system_tpu_torch.ops import ivf2 as V
 
-    worst = 0.0
-    for fdt in ("bf16", "int8"):
+    worst = dict.fromkeys(FINE_MODES, 0.0)
+    for fdt in FINE_MODES:
         for nblocks, Q, L in ((512, 16, 64), (2048, 4, 1024)):
             E_c3, sc3, q, blk, vcnt = fine_case(g, dev, fdt, nblocks, Q, L)
-            worst = max(worst, _check_dense(V.fine_scores_call(E_c3, sc3, q, blk, vcnt),
-                                            V.fine_scores_reference(E_c3, sc3, q, blk, vcnt),
-                                            False, f"fine_scores {fdt} L={L}"))
-    log(f"kernel fine_scores bf16/int8: partial and zero vcnt, -inf pattern identical, "
-        f"max |err| {worst:.2e}")
+            worst[fdt] = max(worst[fdt], _check_dense(
+                V.fine_scores_call(E_c3, sc3, q, blk, vcnt),
+                V.fine_scores_reference(E_c3, sc3, q, blk, vcnt), False,
+                f"fine_scores {fdt} L={L}"))
+    log(f"kernel fine_scores bf16/int8/int4: partial and zero vcnt, -inf pattern "
+        f"identical, max |err| {worst}")
+    return worst
+
+
+def check_fine_binmax(g, dev):
+    """fine_binmax vs its plain version, and equal to the row maximum of
+    the dump kernel, which scores a row with the same code."""
+    import torch
+
+    from modular_rag_system_tpu_torch.ops import ivf2 as V
+
+    worst = dict.fromkeys(FINE_MODES, 0.0)
+    for fdt in FINE_MODES:
+        for nblocks, Q, L in ((512, 16, 64), (2048, 4, 1024)):
+            E_c3, sc3, q, blk, vcnt = fine_case(g, dev, fdt, nblocks, Q, L)
+            out = V.fine_binmax_call(E_c3, sc3, q, blk, vcnt)
+            worst[fdt] = max(worst[fdt], _check_dense(
+                out, V.fine_binmax_reference(E_c3, sc3, q, blk, vcnt), False,
+                f"fine_binmax {fdt} L={L}"))
+            dump = V.fine_scores_call(E_c3, sc3, q, blk, vcnt).view(Q, -1, V.SLAB)
+            if not (torch.equal(out, dump.amax(dim=2))
+                    and torch.equal(torch.isfinite(out), vcnt > 0)):
+                raise AssertionError(f"fine_binmax {fdt} L={L}: not the dump's row maximum")
+    log(f"kernel fine_binmax bf16/int8/int4: -inf exactly on dead slots, equal to the "
+        f"dump kernel's row maxima, max |err| vs plain {worst}")
     return worst
 
 
@@ -530,23 +580,117 @@ def check_fine_topk(g, dev):
 
     from modular_rag_system_tpu_torch.ops import ivf2 as V
 
-    worst = 0.0
-    for fdt in ("bf16", "int8"):
+    worst = dict.fromkeys(FINE_MODES, 0.0)
+    for fdt in FINE_MODES:
         for nblocks, Q, L, k, dup in ((512, 16, 64, 20, False), (2048, 4, 1500, 128, False),
                                       (512, 16, 2, 40, True), (2048, 2, 1500, 20, False)):
             E_c3, sc3, q, blk, vcnt = fine_case(g, dev, fdt, nblocks, Q, L, dup)
             v1, s1 = V.fine_call(E_c3, sc3, q, blk, vcnt, k)
             v2, s2 = V.fine_topk_reference(E_c3, sc3, q, blk, vcnt, k)
-            worst = max(worst, _check_topk(v1, s1, v2, s2, fine_rescorer(E_c3, sc3, q), False,
-                                           f"fine_topk {fdt} L={L} k={k}"))
+            worst[fdt] = max(worst[fdt], _check_topk(
+                v1, s1, v2, s2, fine_rescorer(E_c3, sc3, q), False,
+                f"fine_topk {fdt} L={L} k={k}"))
             _check_dump_ids(E_c3, sc3, q, blk, vcnt, k, s1, f"fine_topk {fdt} L={L}")
             if dup:  # tied pairs: the block-1 slot first
                 fin = torch.isfinite(v1)
                 pairs = s1[:, 0::2][fin[:, 0::2]] // V.SLAB
                 if not (pairs == 1).all():
                     raise AssertionError(f"fine_topk {fdt}: ties not broken by lowest slot")
-    log(f"kernel fine_topk bf16/int8: L 2..1500, k 20..128, ties by slot, ids equal "
-        f"to the dump path's, max |err| {worst:.2e}")
+    log(f"kernel fine_topk bf16/int8/int4: L 2..1500, k 20..128, ties by slot, ids "
+        f"equal to the dump path's, max |err| {worst}")
+    return worst
+
+
+def _straddle_bins(g, dev, Q, nb, kb, straddle):
+    """(Q, kb) distinct random bin ids per query, unsorted, the bin that
+    holds the live/dead boundary among them."""
+    import torch
+
+    bins = torch.stack([torch.randperm(nb, generator=g, device=dev)[:kb] for _ in range(Q)])
+    has = (bins == straddle).any(dim=1)
+    bins[:, 0] = torch.where(has, bins[:, 0], straddle)
+    return bins.to(torch.int32)
+
+
+def check_rescan(g, dev):
+    """rescan vs its plain version on f32 and bf16 stores: unit rows within
+    1e-5 (ids equal except near-ties), integer-valued rows with crafted
+    ties exactly; a count inside a bin; fewer candidates than k."""
+    import torch
+
+    from modular_rag_system_tpu_torch.ops import binmax_topk as B
+
+    worst, Q = 0.0, 16
+    for dtype in (torch.float32, torch.bfloat16):
+        for cap, count, k, kb, bw, crafted in (
+                (16384, 16001, 10, 13, 32, False), (65536, 65523, 100, 103, 64, False),
+                (8192, 7001, 16, 19, 32, True), (8192, 8000, 100, 2, 32, False),
+                (8192, 5, 10, 13, 32, False)):
+            E = float_rows(g, cap, count, dev, dtype, crafted)
+            q = (torch.randint(-1, 2, (Q, D), generator=g, device=dev).float()
+                 if crafted else unit_queries(g, Q, dev))
+            bins = _straddle_bins(g, dev, Q, cap // bw, kb, min(count, cap - 1) // bw)
+            v1, i1 = B.rescan_call(E, bins, count, q, k, bw)
+            v2, i2 = B.rescan_reference(E, bins, count, q, k, bw)
+            what = f"rescan {dtype} cap={cap} count={count} k={k} kb={kb} bw={bw}"
+            worst = max(worst, _check_topk(v1, i1, v2, i2, float_rescorer(E, q), crafted, what))
+            if not (i1[~torch.isfinite(v1)] == -1).all():
+                raise AssertionError(f"{what}: an empty slot carries an id")
+            if int(torch.isfinite(v1).sum(1).max()) > min(k, kb * bw, count):
+                raise AssertionError(f"{what}: more live slots than live candidates")
+    log(f"kernel rescan f32/bf16: crafted ties exact, a count inside a bin, count < k, "
+        f"kb x bin_width < k; max |err| {worst:.2e}")
+    return worst
+
+
+def _mea_tolerance(ref):
+    """f32: 1e-5 (summation order, exp).  bf16: the probabilities and the
+    output are rounded to bf16, so a last-bit difference in f32 can move
+    an output by one bf16 step, 2^-7 of its magnitude."""
+    import torch
+
+    if ref.dtype == torch.float32:
+        return torch.full_like(ref, 1e-5)
+    return 2.0**-7 * ref.float().abs() + 1e-5
+
+
+def _check_mea(out, ref, what):
+    import torch
+
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{what}: non-finite output")
+    d = (out.float() - ref.float()).abs()
+    if not (d <= _mea_tolerance(ref)).all():
+        raise AssertionError(f"{what}: differs from its plain version, max |d| "
+                             f"{d.max().item()}")
+    return d.max().item()
+
+
+def check_mea(g, dev):
+    """mea_attention vs its plain version: f32 and bf16, ragged padding, an
+    all-padding batch row, dh 32 and 64, L off and on the tile sizes.
+    Returns the max |error| per dtype."""
+    import torch
+
+    from modular_rag_system_tpu_torch.ops import flash_attention as FA
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        w = 0.0
+        for B_, L, H, dh in ((3, 40, 12, 32), (3, 128, 12, 32), (2, 600, 4, 64),
+                             (2, 2048, 12, 32), (2, 2048, 2, 64)):
+            q, k, v = (torch.randn((B_, L, H, dh), generator=g, device=dev).to(dtype)
+                       for _ in range(3))
+            pad = torch.ones((B_, L), dtype=torch.int32, device=dev)
+            pad[0, L * 5 // 8:] = 0  # ragged padding
+            pad[-1] = 0              # an all-padding batch row
+            w = max(w, _check_mea(FA.mea_attention(q, k, v, pad),
+                                  FA.mea_attention_reference(q, k, v, pad),
+                                  f"mea_attention {dtype} L={L} dh={dh}"))
+        worst[dtype] = w
+    log(f"kernel mea_attention: L 40..2048, dh 32/64, ragged and all-padding rows finite; "
+        f"max |err| f32 {worst[torch.float32]:.2e} (tolerance 1e-5), bf16 "
+        f"{worst[torch.bfloat16]:.2e} (tolerance one bf16 step, 2^-7 |ref| + 1e-5)")
     return worst
 
 
@@ -650,13 +794,13 @@ def probe_lists(idx, q, nprobe, sort):
 
 def _fine_bound(iv, blk, vcnt, out_bytes, spec):
     """Bytes: the live rows of each probed slab once (rows + scales; the
-    kernels read no row at or past a slab's vcnt), the queries, the block
-    lists and the output; operations: 2 d per row scored.  Also returns
-    the bytes the per-query stream reads (a slab once per query probing
-    it)."""
+    kernels read no row at or past a slab's vcnt; an int4 row is half a
+    byte a value), the queries, the block lists and the output;
+    operations: 2 d per row scored.  Also returns the bytes the per-query
+    stream reads (a slab once per query probing it)."""
     import torch
 
-    row_b = D * iv.E_c3.element_size() + (4 if iv.scales3 is not None else 0)
+    row_b = {"bf16": 2 * D, "int8": D + 4, "int4": D // 2 + 4}[iv.fine_dtype]
     live = vcnt > 0
     b, v = blk[live].long(), vcnt[live].long()
     slab_rows = torch.zeros(iv.E_c3.shape[0], dtype=torch.int64, device=blk.device)
@@ -672,43 +816,51 @@ def _fine_bound(iv, blk, vcnt, out_bytes, spec):
     return b_ms, b_by, uniq, per_query
 
 
-def time_fine(idx, q, nprobe, k, spec, selecting):
-    """fine_scores (dump path) or fine_topk (selecting) at the engine's own
-    probe lists: held against its plain version (and fine_topk's ids
-    against the dump path's on the same lists), then timed.  Returns the
-    timings at Q=len(q) and the max |error|."""
+def time_fine(idx, q, nprobe, k, spec, name):
+    """fine_scores (dump path), fine_topk (selecting) or fine_binmax (the
+    maxima probe) at the engine's own probe lists: held against its plain
+    version (fine_topk's ids also against the dump path's on the same
+    lists, fine_binmax also against the dump's row maxima), then timed.
+    Returns the timings at Q=len(q) and the max |error|."""
+    import torch
+
     from modular_rag_system_tpu_torch.ops import ivf2 as V
 
     iv = idx._ivf2
     res, worst = {}, 0.0
-    name = "fine_topk" if selecting else "fine_scores"
+    selecting = name == "fine_topk"
     for Q in ((q.shape[0],) if selecting else (q.shape[0], 1)):
         qq = q[:Q]
         blk, vcnt = probe_lists(idx, qq, nprobe, sort=not selecting)
+        ops = (iv.E_c3, iv.scales3, qq, blk, vcnt)
         if selecting:
-            def fn():
-                return V.fine_call(iv.E_c3, iv.scales3, qq, blk, vcnt, k)
-
-            def plain_fn():
-                return V.fine_topk_reference(iv.E_c3, iv.scales3, qq, blk, vcnt, k)
-
-            out_bytes = Q * k * 8
+            kernel, plain_version = V.fine_call, V.fine_topk_reference
+            args, out_bytes = ops + (k,), Q * k * 8
+        elif name == "fine_binmax":
+            kernel, plain_version = V.fine_binmax_call, V.fine_binmax_reference
+            args, out_bytes = ops, blk.numel() * 4
         else:
-            def fn():
-                return V.fine_scores_call(iv.E_c3, iv.scales3, qq, blk, vcnt)
+            kernel, plain_version = V.fine_scores_call, V.fine_scores_reference
+            args, out_bytes = ops, blk.numel() * 256 * 4
 
-            def plain_fn():
-                return V.fine_scores_reference(iv.E_c3, iv.scales3, qq, blk, vcnt)
+        def fn(kernel=kernel, args=args):
+            return kernel(*args)
 
-            out_bytes = blk.numel() * 256 * 4
-        what = f"{name} at the engine's nprobe={nprobe} lists, Q={Q}"
+        def plain_fn(plain_version=plain_version, args=args):
+            return plain_version(*args)
+
+        what = f"{name} ({iv.fine_dtype}) at the engine's nprobe={nprobe} lists, Q={Q}"
         if selecting:
             (v1, s1), (v2, s2) = fn(), plain_fn()
             err = _check_topk(v1, s1, v2, s2, fine_rescorer(iv.E_c3, iv.scales3, qq), False,
                               what)
             _check_dump_ids(iv.E_c3, iv.scales3, qq, blk, vcnt, k, s1, what)
         else:
-            err = _check_dense(fn(), plain_fn(), False, what)
+            out = fn()
+            err = _check_dense(out, plain_fn(), False, what)
+            if name == "fine_binmax" and not torch.equal(
+                    out, V.fine_scores_call(*ops).view(Q, -1, V.SLAB).amax(dim=2)):
+                raise AssertionError(f"{what}: not the dump's row maximum")
         worst = max(worst, err)
         ms = cuda_ms(fn, reps=10)
         queued = queued_ms(fn, reps=10)
@@ -724,6 +876,123 @@ def time_fine(idx, q, nprobe, k, spec, selecting):
     return res[q.shape[0]], worst
 
 
+def time_rescan(eng, q, spec, kernels):
+    """The two-pass functions with ``kernel_rescan=True`` on the index's own
+    tensors and the embedded questions: the int8 route over the f32 master
+    at k = 10 and the f32 route at k = 100.  Each drives the ``rescan``
+    kernel (counted), is held against the gather path it replaces, and the
+    kernel against its plain version on the route's own bins; then timed.
+    Returns the k = 10 timings, the launches and the max |error|."""
+    import torch
+
+    from modular_rag_system_tpu_torch.ops import binmax_topk as B
+
+    E_q, sc, E = eng.index.search_ops()
+    count, cap = eng.index.count, E.shape[0]
+    bw, nb, Q = B.auto_bin_width(cap), cap // B.auto_bin_width(cap), q.shape[0]
+    rescore = float_rescorer(E, q)
+    qd = q.double()
+    res, worst, launched = {}, 0.0, 0
+    for route, k in (("int8 master", 10), ("f32", 100)):
+        if route == "f32":
+            def twopass(kr):
+                return B.twopass_topk_raw(E, count, q, k, bw, kernel_rescan=kr)
+
+            kb = min(k + 1 + B._MARGIN_BINS, nb)
+            binmax = B.binmax_call(E, q, bw)
+        else:
+            def twopass(kr):
+                return B.twopass_topk_int8_master_raw(E_q, sc, E, count, q, k, bw,
+                                                      kernel_rescan=kr)
+
+            kb = min(k + 1 + B._MARGIN_BINS + B._INT8_MIXED_EXTRA_BINS, nb)
+            binmax = B.binmax_int8_call(E_q, sc, *B.quantize_queries(q), bw)
+        what = f"rescan on the {route} route, k={k}, Q={Q}"
+        kernels.reset_launches()
+        v1, i1 = twopass(True)
+        n = kernels.launches["rescan"]
+        log(f"route two-pass {route} k={k} kernel_rescan=True: launches "
+            f"{dict(kernels.launches)}")
+        if n == 0:
+            raise AssertionError(f"{what}: the route launched no rescan kernel")
+        launched += n
+        v2, i2 = twopass(False)
+        if route == "f32":  # one scoring space: equal except near-ties
+            _check_topk(v1, i1, v2, i2, rescore, False, f"{what} vs the gather path")
+        else:
+            # the gather path scores the f32 master in true f32, the kernel
+            # in bf16 products (within 2^-8 on unit vectors): an id that
+            # only the kernel returns must score, in f64, within 2^-7 of the
+            # gather path's k-th value
+            if (v1 - v2).abs().max().item() > 2.0**-8:
+                raise AssertionError(f"{what}: scores off the gather path's by more than 2^-8")
+            only = (i1[:, :, None] != i2[:, None, :]).all(dim=2)
+            if only.any():
+                qi = only.nonzero()[:, 0]
+                true = (qd[qi] * E[i1[only].long()].double()).sum(1)
+                if (true < v2[qi, -1].double() - 2.0**-7).any():
+                    raise AssertionError(f"{what}: ids differ beyond bf16 near-ties")
+            log(f"  {what}: {int(only.sum())} of {i1.numel()} ids differ from the gather "
+                f"path's (bf16-product near-ties, confirmed in f64), scores within "
+                f"{(v1 - v2).abs().max().item():.2e}")
+        # the kernel alone on the route's own bins, against its plain version
+        bins = B.select_bins(B._mask_bins(binmax, count, nb, bw), kb)
+        pv, pi = B.rescan_reference(E, bins, count, q, k, bw)
+        kv, ki = B.rescan_call(E, bins, count, q, k, bw)
+        err = _check_topk(kv, ki, pv, pi, rescore, False, what)
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: B.rescan_call(E, bins, count, q, k, bw))
+        queued = queued_ms(lambda: B.rescan_call(E, bins, count, q, k, bw))
+        plain = cuda_ms(lambda: B.rescan_reference(E, bins, count, q, k, bw), reps=5)
+        t_kernel = cuda_ms(lambda: twopass(True), reps=5)
+        t_gather = cuda_ms(lambda: twopass(False), reps=5)
+        # bytes: each bin that any query scans once (similar queries share
+        # bins), the queries, the bin lists and the output
+        uniq = int(torch.unique(bins).numel())
+        bin_b = bw * D * E.element_size()
+        b_ms, b_by = bound(uniq * bin_b + Q * D * 2 + Q * kb * 4 + Q * k * 8,
+                           2 * Q * kb * bw * D, spec[2], spec)
+        log(f"time rescan {route} cap={cap} Q={Q} k={k} kb={kb} bw={bw}: {ms:.4f} ms "
+            f"(queued {queued:.4f} ms; plain (gather, product, sort) {plain:.4f} ms, "
+            f"library none: no single call; bound {b_ms:.4f} ms by {b_by}: {uniq} unique "
+            f"bins; the per-query stream reads {Q * kb * bin_b / 1e9:.3f} GB); the whole "
+            f"two-pass search {t_kernel:.4f} ms with the kernel, {t_gather:.4f} ms with "
+            f"the gather; max |err| vs plain {err:.2e}")
+        res[k] = {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
+                  "bound_by": b_by}
+    return res[10], launched, worst
+
+
+def time_mea(q, k, v, pad, spec, what):
+    """mea_attention at the given inputs: held against its plain version,
+    then timed beside it and one ``scaled_dot_product_attention`` call
+    with the key-padding mask.  Bound: q, k, v and the output once each
+    against 4 B H L^2 dh operations."""
+    import torch
+    import torch.nn.functional as F
+
+    from modular_rag_system_tpu_torch.ops import flash_attention as FA
+
+    B_, L, H, dh = q.shape
+    err = _check_mea(FA.mea_attention(q, k, v, pad), FA.mea_attention_reference(q, k, v, pad),
+                     f"mea_attention {what}")
+    ms = cuda_ms(lambda: FA.mea_attention(q, k, v, pad), reps=10)
+    queued = queued_ms(lambda: FA.mea_attention(q, k, v, pad), reps=10)
+    plain = cuda_ms(lambda: FA.mea_attention_reference(q, k, v, pad), reps=3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, L, dh) views
+    mask = (pad > 0)[:, None, None, :]
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=10)
+    peak = spec[2] if q.dtype == torch.bfloat16 else 67e12
+    b_ms, b_by = bound(4 * q.numel() * q.element_size() + pad.numel() * 4,
+                       4 * B_ * H * L * L * dh, peak, spec)
+    log(f"time mea_attention {what} B={B_} L={L} H={H} dh={dh} {q.dtype}: {ms:.4f} ms "
+        f"(queued {queued:.4f} ms; plain {plain:.4f} ms, library {lib:.4f} ms "
+        f"(scaled_dot_product_attention with the key mask), bound {b_ms:.4f} ms by {b_by}); "
+        f"max |err| vs plain {err:.2e}")
+    return ({"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+             "bound_by": b_by}, err)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the engine
 def load_corpus():
@@ -733,8 +1002,13 @@ def load_corpus():
     return know, [it["query"] for it in items], [it["passage"] for it in items]
 
 
-def gold_recall(eng, questions, passages, k=10):
-    res = eng.query_batch(questions, max_results=k, similarity_threshold=0.0)
+def gold_recall(eng, questions, passages, k=10, batch=None):
+    """Share of the questions whose gold passage is among the k results
+    (``batch`` questions a call; None = all in one)."""
+    batch = batch or len(questions)
+    res = [r for s in range(0, len(questions), batch)
+           for r in eng.query_batch(questions[s:s + batch], max_results=k,
+                                    similarity_threshold=0.0)]
     hits = sum(any(d.content.strip() == p.strip() for d in r.documents)
                for r, p in zip(res, passages))
     return hits / len(questions)
@@ -857,7 +1131,10 @@ def check_against_exact(eng, q, k, tol, what):
 def fill(eng, g, target):
     """Pre-embedded seeded unit rows (distinct contents) up to ``target``
     rows; the first batch tops the count up to a multiple of FILL_BATCH so
-    the pow-2 padded appends keep the capacity a power of two."""
+    the pow-2 padded appends keep the capacity a power of two.  The
+    documents carry explicit ids in row order: the store's unique index
+    on ``id`` then grows by appends, where content-hash ids (random keys)
+    make every insert a random page of a multi-million-row B-tree."""
     import torch
 
     from modular_rag_system_tpu_torch.types import Document
@@ -872,7 +1149,8 @@ def fill(eng, g, target):
         base = eng.index.count
         rebuilds = eng.index.ivf_rebuilds
         eng.add_documents([Document(content=f"filler row {base + i}", source="filler",
-                                    embedding=x[i]) for i in range(n)])
+                                    embedding=x[i], id=f"filler-{base + i:010d}")
+                           for i in range(n)])
         if eng.index.ivf_rebuilds != rebuilds:
             builds.append((eng.index.count, eng.index.ivf_last_build_s))
     torch.cuda.synchronize()
@@ -886,6 +1164,188 @@ def fill(eng, g, target):
             f"{iv.n_clusters} clusters, {iv.fine_dtype} fine copy "
             f"{iv.fine_bytes() / 1e9:.2f} GB, built {iv.built}")
     return builds
+
+
+def flash_engine(work, kernels, dense_eng, know, questions, passages, r_int8, spec, dev):
+    """A small engine with ``embedding.attention_impl="flash"`` over the
+    bundled corpus: every forward launches ``mea_attention`` once a layer;
+    its embeddings are held against the dense engine's, its gold recall
+    against the int8 route's, and the kernel is held against its plain
+    version and timed at the engine's own (B, L) and, alone, at long
+    sequences.  Returns the engine-shape timings, the route's launches and
+    the max |error|."""
+    import torch
+
+    from modular_rag_system_tpu_torch import RAGConfig, create_engine
+    from modular_rag_system_tpu_torch.models import encoder as encoder_module
+    from modular_rag_system_tpu_torch.types import Document
+
+    cfg = RAGConfig.load(overrides={"index.tier": "auto",
+                                    "embedding.attention_impl": "flash",
+                                    "store.storage_path": str(work / "flash")})
+    eng = create_engine(cfg)
+    dense = eng.encoder.dense
+    layers = len(dense.module.blocks)
+    if dense.module.attention_impl != "flash" or dense.module.dtype != torch.bfloat16:
+        raise AssertionError("expected the bf16 flash encoder")
+    forwards = [0]
+    forward_tokens = dense.forward_tokens
+
+    def counted(ids, mask):
+        forwards[0] += 1
+        return forward_tokens(ids, mask)
+
+    dense.forward_tokens = counted
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng.add_documents([Document(content=t, source="knowledge") for t in know])
+    for p in passages:
+        eng.add_text(p, source="qa")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = kernels.launches["mea_attention"]
+    log(f"flash engine ingest: {eng.index.count} rows in {dt:.2f} s "
+        f"({eng.index.count / dt:.1f} rows/s), {forwards[0]} forwards x {layers} layers, "
+        f"{n} mea_attention launches")
+    if n != layers * forwards[0] or n == 0:
+        raise AssertionError(f"{n} mea_attention launches for {forwards[0]} forwards")
+    forwards[0] = 0
+    launched = run_route(eng, kernels, questions, "flash encoder (int8 single-pass search)",
+                         "mea_attention")
+    if launched != layers * forwards[0]:
+        raise AssertionError(f"{launched} mea_attention launches for {forwards[0]} forwards")
+    dense.forward_tokens = forward_tokens
+
+    # the dense halves of the two engines' embeddings (the lexical halves
+    # are the same host code): bf16 models, two attention arithmetics
+    e_f = dense.encode_device(questions)
+    e_d = dense_eng.encoder.dense.encode_device(questions)
+    cos = (e_f * e_d).sum(1)
+    log(f"flash vs dense encoder over {len(questions)} questions (bf16): min cosine "
+        f"{cos.min().item():.6f}, max |d| {(e_f - e_d).abs().max().item():.2e} "
+        f"(floor: cosine 0.999)")
+    if not (torch.isfinite(e_f).all() and cos.min().item() >= 0.999):
+        raise AssertionError("flash embeddings differ from the dense encoder's")
+    r_flash = gold_recall(eng, questions, passages)
+    lat1, qps = query_timings(eng, questions)
+    log(f"flash engine: gold recall@10 {r_flash:.4f} (int8 route {r_int8:.4f}), "
+        f"Q=1 latency {lat1:.2f} ms, Q=256 {qps:.1f} QPS")
+    if abs(r_flash - r_int8) > 0.05:
+        raise AssertionError(f"flash gold recall {r_flash} vs the int8 route's {r_int8}")
+
+    # the kernel at the engine's own inputs: the first layer's q, k, v of a
+    # 256-question forward
+    captured = []
+    mea = encoder_module.mea_attention
+
+    def capture(q, k, v, pad):
+        if not captured:
+            captured.append((q.clone(), k.clone(), v.clone(), pad.clone()))
+        return mea(q, k, v, pad)
+
+    encoder_module.mea_attention = capture
+    try:
+        eng.embed_queries(questions[:256])
+    finally:
+        encoder_module.mea_attention = mea
+    entry, err = time_mea(*captured[0], spec, "at the engine's first layer, Q=256")
+    eng.shutdown()
+
+    # alone, at the lengths the TPU kernel was written for
+    g = torch.Generator(device=dev).manual_seed(2)
+    for L in (2048, 4096):
+        q, k, v = (torch.randn((8, L, 12, 32), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        pad = torch.ones((8, L), dtype=torch.int32, device=dev)
+        pad[0, L * 3 // 4:] = 0
+        _, e = time_mea(q, k, v, pad, spec, "alone (B x H = 96)")
+        err = max(err, e)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return entry, launched, err
+
+
+def int4_route(storage, kernels, V, questions, passages, spec, rec_int8, r_full,
+               int8_fine_bytes, entries4, launches4, errs4):
+    """Restart the 5,636,096-row snapshot with ``index.ivf_fine_dtype=
+    "int4"``: the snapshot holds the clustering, the fine copy is rebuilt
+    packed.  Drives the route at Q = 128, checks the refusal of Q = 256,
+    and holds and times the int4 mode of the three fine kernels at the
+    engine's own lists."""
+    import torch
+
+    from modular_rag_system_tpu_torch import RAGConfig, create_engine
+
+    cfg = RAGConfig.load(overrides={"index.tier": "auto", "index.ivf_fine_dtype": "int4",
+                                    "store.storage_path": storage,
+                                    "store.snapshot_on_shutdown": False})
+    t0 = time.perf_counter()
+    eng = create_engine(cfg)
+    idx, iv = eng.index, eng.index._ivf2
+    log(f"restart with an int4 fine copy: {time.perf_counter() - t0:.1f} s (ivf rebuild "
+        f"{idx.ivf_last_build_s:.1f} s); ivf stats {eng.get_system_stats()['index']['ivf']}")
+    if (iv is None or not iv.warm_started or iv.built != REBUILD_ROWS
+            or iv.fine_dtype != "int4" or iv.E_c3.shape[1] != V.SLAB // 2):
+        raise AssertionError("the int4 restart did not warm-start a packed fine copy")
+    ratio = iv.fine_bytes() / int8_fine_bytes
+    log(f"int4 fine copy {iv.fine_bytes() / 1e9:.2f} GB, {ratio:.3f} of the int8 copy's "
+        f"{int8_fine_bytes / 1e9:.2f} GB")
+    if not 0.45 <= ratio <= 0.55:
+        raise AssertionError(f"int4 fine copy is {ratio} of the int8 copy")
+
+    batch = questions[:128]
+    q128 = eng.embed_queries(batch)
+
+    def route():
+        eng.query_batch(batch, similarity_threshold=0.0)
+        eng.query(questions[0], similarity_threshold=0.0)
+
+    launches4["fine_scores"] = drive(kernels, "ivf (int4, Q=128)", "fine_scores", route)
+    rec = check_against_exact(eng, q128, 10, 1e-5, "ivf route (int4 fine copy, Q=128)")
+    log(f"ivf recall@10 vs the exact tier: int4 copy {rec:.4f}, int8 copy {rec_int8:.4f}")
+    if rec < 0.9:
+        raise AssertionError(f"int4 ivf recall@10 {rec} below the 0.9 floor")
+    r_int4 = gold_recall(eng, questions, passages, batch=128)
+    lat1 = statistics.median(wall_ms(lambda t=t: eng.query(t, similarity_threshold=0.0),
+                                     reps=1) for t in questions[1:11])
+    t_b = wall_ms(lambda: eng.query_batch(batch, similarity_threshold=0.0), reps=5)
+    log(f"ivf route (int4) at {idx.count} rows: gold recall@10 {r_int4:.4f}, Q=1 latency "
+        f"{lat1:.2f} ms, Q=128 {len(batch) / (t_b / 1e3):.1f} QPS")
+    if r_int4 < r_full - 0.05:
+        raise AssertionError(f"int4 gold recall {r_int4} vs the two-pass route's {r_full}")
+
+    # Q = 256: the default over-selection's rescore gather passes the cap
+    k = eng._initial_k(eng.config.retrieval.max_results, False)
+    L = probe_lists(idx, q128[:1], idx.ivf_nprobe, sort=False)[0].shape[1]
+    kf = min(k + max(10 * k, L * V.SLAB // 12), L * V.SLAB)
+    for Q in (128, 256):
+        log(f"int4 rescore gather at Q={Q}, k={k}, L={L}: {Q * kf * D * 4} bytes, cap "
+            f"{V._RESCORE_MAX_BYTES}")
+    if not 128 * kf * D * 4 <= V._RESCORE_MAX_BYTES < 256 * kf * D * 4:
+        raise AssertionError("expected Q=128 under and Q=256 over the rescore cap")
+    try:
+        eng.query_batch(questions[:256], similarity_threshold=0.0)
+    except ValueError as exc:
+        want = (f"int4 master rescore would gather {256 * kf * D * 4 >> 20} MiB "
+                f"(Q=256, pool={L * V.SLAB}, refine_extra={kf - k}); cap is "
+                f"{V._RESCORE_MAX_BYTES >> 20} MiB.")
+        if not str(exc).startswith(want):
+            raise AssertionError(f"refusal message {str(exc)!r} != {want!r}...") from exc
+        log(f"Q=256 refused: {exc}")
+    else:
+        raise AssertionError("the int4 route served Q=256 past its rescore cap")
+
+    for name in ("fine_scores", "fine_topk", "fine_binmax"):
+        if name != "fine_scores":  # reached by a direct call, as the tools do
+            blk, vcnt = probe_lists(idx, q128, idx.ivf_nprobe, sort=name == "fine_binmax")
+            call = ((lambda: V.fine_call(iv.E_c3, iv.scales3, q128, blk, vcnt, 20))
+                    if name == "fine_topk" else
+                    (lambda: V.fine_binmax_call(iv.E_c3, iv.scales3, q128, blk, vcnt)))
+            launches4[name] = drive(kernels, f"{name} (direct call, int4)", name, call)
+        entries4[name], err = time_fine(idx, q128, idx.ivf_nprobe, 20, spec, name)
+        errs4[name] = max(errs4[name], err)
+    log(f"peak device memory so far {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    eng.shutdown()
 
 
 def phase(name, t0):
@@ -938,9 +1398,17 @@ def smoke(work: Path) -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     errs = {"binmax_int8": check_binmax(g, dev), "fused_topk_int8": check_fused(g, dev),
             "binmax": check_binmax_float(g, dev), "fused_topk": check_fused_float(g, dev),
-            "fine_scores": check_fine_scores(g, dev), "fine_topk": check_fine_topk(g, dev)}
+            "rescan": check_rescan(g, dev)}
+    # the fine kernels' int4 mode is reported beside their bf16/int8 figures
+    errs4 = {}
+    for kname, check in (("fine_scores", check_fine_scores), ("fine_topk", check_fine_topk),
+                         ("fine_binmax", check_fine_binmax)):
+        w = check(g, dev)
+        errs[kname], errs4[kname] = max(w["bf16"], w["int8"]), w["int4"]
+    mea_errs = check_mea(g, dev)
+    errs["mea_attention"] = mea_errs[torch.bfloat16]  # the engine's model dtype
     torch.cuda.empty_cache()
-    entries, launches = {}, {}
+    entries, launches, entries4, launches4 = {}, {}, {}, {}
     tp = phase("2 (kernels)", tp)
 
     # ---- phase 3: the int8 routes, restart, the small ivf engine
@@ -979,6 +1447,9 @@ def smoke(work: Path) -> int:
     entries["binmax_int8"], err = time_binmax(eng, eng.embed_queries(questions[:256]), spec)
     errs["binmax_int8"] = max(errs["binmax_int8"], err)
     check_against_exact(eng, eng.embed_queries(questions[:256]), 10, 1e-5, "two-pass route")
+    entries["rescan"], launches["rescan"], err = time_rescan(
+        eng, eng.embed_queries(questions[:256]), spec, kernels)
+    errs["rescan"] = max(errs["rescan"], err)
     r_full = gold_recall(eng, questions, passages)
     lat1, qps = query_timings(eng, questions)
     query_breakdown(eng, questions, "two-pass route")
@@ -1019,6 +1490,11 @@ def smoke(work: Path) -> int:
         f"(int8 single-pass route {r_small:.4f})")
     if abs(r_ivf_small - r_small) > 0.05:
         raise AssertionError(f"gold recall {r_ivf_small} vs the int8 route's {r_small}")
+
+    # a third small engine whose encoder runs the mea_attention kernel
+    entries["mea_attention"], launches["mea_attention"], err = flash_engine(
+        work, kernels, small, know, questions, passages, r_small, spec, dev)
+    errs["mea_attention"] = max(errs["mea_attention"], err)
     small.shutdown()
     del small
     tp = phase("3 (int8 routes, restart, small ivf engine)", tp)
@@ -1068,7 +1544,7 @@ def smoke(work: Path) -> int:
     rec = check_against_exact(eng2, q256[:16], 10, 1e-5, "ivf nprobe=512 route")
     if rec < 0.9:
         raise AssertionError(f"ivf nprobe=512 recall@10 {rec} below the 0.9 floor")
-    entries["fine_topk"], err = time_fine(idx, q256[:16], 512, 20, spec, selecting=True)
+    entries["fine_topk"], err = time_fine(idx, q256[:16], 512, 20, spec, "fine_topk")
     errs["fine_topk"] = max(errs["fine_topk"], err)
     idx.ivf_nprobe = 8
     tp = phase("4a (ivf promotion, k=100, nprobe 512)", tp)
@@ -1091,9 +1567,19 @@ def smoke(work: Path) -> int:
         f"{lat1:.2f} ms, Q=256 {qps:.1f} QPS")
     if r_ivf < r_full - 0.05:
         raise AssertionError(f"ivf gold recall {r_ivf} vs the two-pass route's {r_full}")
-    entries["fine_scores"], err = time_fine(idx, q256, 8, 20, spec, selecting=False)
+    rec_int8 = rec
+    entries["fine_scores"], err = time_fine(idx, q256, 8, 20, spec, "fine_scores")
     errs["fine_scores"] = max(errs["fine_scores"], err)
-    tp = phase("4b (int8 rebuild, fine_scores timing)", tp)
+    # the maxima probe: on no serving path, driven through its wrapper at
+    # the lists the route above probed; the fine stage's streaming floor
+    blk, vcnt = probe_lists(idx, q256, 8, sort=True)
+    launches["fine_binmax"] = drive(
+        kernels, "fine_binmax (maxima probe, int8)", "fine_binmax",
+        lambda: V.fine_binmax_call(iv.E_c3, iv.scales3, q256, blk, vcnt))
+    entries["fine_binmax"], err = time_fine(idx, q256, 8, 20, spec, "fine_binmax")
+    errs["fine_binmax"] = max(errs["fine_binmax"], err)
+    int8_fine_bytes = iv.fine_bytes()
+    tp = phase("4b (int8 rebuild, fine_scores and fine_binmax timing)", tp)
 
     log(f"peak device memory so far {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     # restart: the snapshot's clustering warm-starts the rebuild
@@ -1117,8 +1603,18 @@ def smoke(work: Path) -> int:
     after = eng3.query(questions[0], similarity_threshold=0.0)
     if [d.id for d in before.documents] != [d.id for d in after.documents]:
         raise AssertionError("ivf results changed across the restart")
+    # the snapshot on disk is this engine's own: not written again
+    eng3.config.store.snapshot_on_shutdown = False
     eng3.shutdown()
+    del eng3, iv
+    gc.collect()
+    torch.cuda.empty_cache()
     tp = phase("4c (snapshot, warm restart)", tp)
+
+    # ---- phase 4d: the same snapshot served with an int4 fine copy
+    int4_route(storage, kernels, V, questions, passages, spec, rec_int8, r_full,
+               int8_fine_bytes, entries4, launches4, errs4)
+    tp = phase("4d (int4 restart, int4 fine kernels)", tp)
 
     out = []
     replaces = {"binmax_int8": "modular_rag_system_tpu/ops/binmax_topk.py:450",
@@ -1126,12 +1622,19 @@ def smoke(work: Path) -> int:
                 "binmax": "modular_rag_system_tpu/ops/binmax_topk.py:225",
                 "fused_topk": "modular_rag_system_tpu/ops/fused_topk.py:147",
                 "fine_scores": "modular_rag_system_tpu/ops/ivf2.py:763",
-                "fine_topk": "modular_rag_system_tpu/ops/ivf2.py:529"}
+                "fine_topk": "modular_rag_system_tpu/ops/ivf2.py:529",
+                "fine_binmax": "modular_rag_system_tpu/ops/ivf2.py:664",
+                "rescan": "modular_rag_system_tpu/ops/binmax_topk.py:275",
+                "mea_attention": "modular_rag_system_tpu/ops/flash_attention.py:53"}
     for kname in kernels.SOURCES:
-        out.append({"name": kname, "route": "cuda",
-                    "source": f"modular_rag_system_tpu_torch/kernels/{kname}.cu",
-                    "replaces": replaces[kname], "launches": launches[kname],
-                    "max_abs_err": errs[kname], **entries[kname]})
+        entry = {"name": kname, "route": "cuda",
+                 "source": f"modular_rag_system_tpu_torch/kernels/{kname}.cu",
+                 "replaces": replaces[kname], "launches": launches[kname],
+                 "max_abs_err": errs[kname], **entries[kname]}
+        if kname in entries4:  # the same source's int4 mode, on the int4 route
+            entry["int4"] = {"launches": launches4[kname], "max_abs_err": errs4[kname],
+                             **entries4[kname]}
+        out.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": out}))

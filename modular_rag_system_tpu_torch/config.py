@@ -4,9 +4,8 @@ One typed config tree with layered overlay semantics: dataclass
 defaults -> optional JSON file -> explicit overrides (e.g. CLI flags).
 Field names and defaults match ``modular_rag_system_tpu.config``, so one
 config file drives either package.  Knobs of what the port does not
-serve yet (the int4 ivf fine copy, sharding, multihost, flash attention)
-are kept so such a config loads; the engine and the index raise
-``NotImplementedError`` when asked to use them.
+serve yet (sharding, multihost) are kept so such a config loads; the
+engine raises ``NotImplementedError`` when asked to use them.
 """
 
 from __future__ import annotations
@@ -33,7 +32,8 @@ class EmbeddingConfig:
     cache_size: int = 4096
     # compute dtype of the encoder forward
     dtype: str = "bfloat16"
-    # "dense" (plain tensor ops) or "flash" (not ported yet: raises)
+    # "dense" (plain tensor ops) or "flash" (the mea_attention kernel,
+    # ops/flash_attention.py: no (L, L) score tensor in device memory)
     attention_impl: str = "dense"
     num_layers: int = 6
     num_heads: int = 12
@@ -59,8 +59,9 @@ class IndexConfig:
     (quantized index + the int8 kernels, master-exact scores), "ivf"
     (clustered ANN with an exact tail, ``ops/ivf2.py``) or "auto" (int8
     below 4,194,304 rows, ivf at and above; the write path promotes).
-    ``ivf_fine_dtype``: "auto" (bf16, int8 past 4,194,304 rows), "bf16"
-    or "int8"; "int4" is not ported yet and raises.
+    ``ivf_fine_dtype``: "auto" (bf16, int8 past 4,194,304 rows), "bf16",
+    "int8" or "int4" (two residual-encoded rows a byte: half the int8
+    copy's bytes, candidates over-selected and rescored on the master).
     """
 
     tier: str = "exact"

@@ -31,7 +31,7 @@ from typing import Dict
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
 SOURCES = ("binmax_int8", "fused_topk_int8", "binmax", "fused_topk", "fine_scores",
-           "fine_topk")
+           "fine_topk", "fine_binmax", "rescan", "mea_attention")
 
 launches: Dict[str, int] = {name: 0 for name in SOURCES}
 build_logs: Dict[str, str] = {}
@@ -41,6 +41,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: every entry point returns a cudaError_t as int
 _ARGTYPES = {
     # E_q, q_i8, scales, q_scale, cap, Q, d, bin_width, out, stream
@@ -51,11 +52,18 @@ _ARGTYPES = {
     "binmax": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
     # E, is_bf16, q_bf16, Q, cap, d, count, k, bin_width, vals, ids, stream
     "fused_topk": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # E_c3, is_int8, scales3, q_bf16, blk, vcnt, Q, L, d, out, stream
+    # E_c3, mode (0 bf16, 1 int8, 2 int4), scales3, q_bf16, blk, vcnt, Q, L,
+    # d, out, stream
     "fine_scores": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # E_c3, is_int8, scales3, q_bf16, blk, vcnt, Q, L, d, k, G, part, vals,
+    # E_c3, mode, scales3, q_bf16, blk, vcnt, Q, L, d, k, G, part, vals,
     # slots, stream
     "fine_topk": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # as fine_scores, out (Q, L)
+    "fine_binmax": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # E, is_bf16, q_bf16, bins, Q, d, count, kb, bin_width, k, vals, ids, stream
+    "rescan": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # q, k, v, pad, is_bf16, B, L, H, dh, scale, out, stream
+    "mea_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
 }
 
 

@@ -2,11 +2,12 @@
 //
 // Replaces modular_rag_system_tpu/ops/ivf2.py:_fine_kernel (via fine_call).
 // For query i it scores the rows of its candidate slabs blk/vcnt (Q, L) as
-// fine_scores.cu does (bf16(q) . row in f32, int8 rows x their scale, rows
-// past vcnt skipped) and keeps the top k by (score desc, slot asc), slot
+// fine_scores.cu does (bf16(q) . row in f32, int8 and int4 rows x their
+// scale, rows past vcnt skipped) and keeps the top k by (score desc, slot asc), slot
 // = blk * 256 + row: vals (Q, k) f32 and slots (Q, k) int32, -1 where
 // fewer than k rows scored.  The engine reaches it at deep nprobe, when
-// the score dump would pass its buffer limits.
+// the score dump would pass its buffer limits (never with an int4 copy,
+// whose per-slot bias needs the dump; that mode is for direct callers).
 //
 // Bound: memory, as fine_scores: the probed slabs once each, the output
 // is tiny.  Design: the TPU kernel walks a query's L slabs on its
@@ -28,7 +29,7 @@ constexpr int NT = 512;
 constexpr int NWARPS = NT / 32;
 constexpr int ROWS = 4;
 
-template <bool INT8>
+template <int MODE>
 __global__ void __launch_bounds__(NT)
 fine_topk_kernel(const uint4* __restrict__ E_c3, const float* __restrict__ scales3,
                  const uint16_t* __restrict__ q_bf16, const int32_t* __restrict__ blk,
@@ -49,7 +50,9 @@ fine_topk_kernel(const uint4* __restrict__ E_c3, const float* __restrict__ scale
     __syncthreads();
 
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-    const int nvec = fine::row_vectors<INT8>(d);
+    const int nvec = fine::row_vectors<MODE>(d);
+    constexpr int NOUT = fine::outputs<MODE, ROWS>();
+    constexpr int PR = fine::stored_slab<MODE>();  // stored rows per slab
     for (int js = j_begin; js < j_end; js += S) {
         const unsigned long long kth = keys[k - 1];
         for (int c = threadIdx.x; c < T - KP; c += NT) keys[KP + c] = EMPTY;
@@ -60,21 +63,20 @@ fine_topk_kernel(const uint4* __restrict__ E_c3, const float* __restrict__ scale
         }
         __syncthreads();
         bool any = false;
-        // row groups of the chunk's S slabs, ROWS rows each
-        for (int gi = warp; gi < S * fine::SLAB / ROWS; gi += NWARPS) {
-            const int u = gi * ROWS / fine::SLAB, r0 = gi * ROWS % fine::SLAB;
+        // groups of ROWS stored rows of the chunk's S slabs
+        for (int gi = warp; gi < S * PR / ROWS; gi += NWARPS) {
+            const int u = gi * ROWS / PR, r0 = gi * ROWS % PR;
             const int vc = svc[u];
-            if (r0 >= vc) continue;
+            const int rlim = fine::stored_rows<MODE>(vc);
+            if (r0 >= rlim) continue;
             const int b = sblk[u];
-            float acc[ROWS];
-            fine::score_rows<INT8, ROWS>(E_c3 + (size_t)b * fine::SLAB * nvec, nvec, r0, vc,
-                                         qs, lane, acc);
-            if (lane < ROWS && r0 + lane < vc) {
-                float a = acc[0];
-#pragma unroll
-                for (int jj = 1; jj < ROWS; ++jj) a = lane == jj ? acc[jj] : a;
-                const int r = r0 + lane;
-                if (INT8) a *= scales3[(size_t)b * fine::SLAB + r];
+            float acc[NOUT];
+            fine::score_rows<MODE, ROWS>(E_c3 + (size_t)b * PR * nvec, nvec, r0, rlim, qs,
+                                         lane, acc);
+            const int r = fine::logical_row<ROWS>(r0, lane);
+            if (lane < NOUT && r0 + lane % ROWS < rlim && r < vc) {
+                float a = fine::pick<NOUT>(acc, lane);
+                if (MODE != fine::BF16) a *= scales3[(size_t)b * fine::SLAB + r];
                 const unsigned long long key = topk::make_key(a, b * fine::SLAB + r);
                 if (key < kth) {
                     keys[KP + u * fine::SLAB + r] = key;
@@ -114,13 +116,14 @@ int next_pow2(int n) {
 
 }  // namespace
 
-// E_c3 (nblocks, 256, d) bf16 (is_int8 = 0) or int8 (is_int8 = 1) with
-// scales3 (nblocks, 256) f32 (unused for bf16), q_bf16 (Q, d) bf16 bits,
+// E_c3 (nblocks, 256, d) bf16 (mode 0) or int8 (mode 1), or (nblocks, 128, d)
+// packed int4 bytes (mode 2), with scales3 (nblocks, 256) f32 (unused for
+// bf16), q_bf16 (Q, d) bf16 bits,
 // blk/vcnt (Q, L) int32, G CTAs per query, part (Q, G, k) uint64 scratch,
 // vals (Q, k) f32, slots (Q, k) int32.  d % 16 == 0, d <= 1024,
 // 1 <= k <= 8192, G * next_pow2(k) <= 4096, Q <= 65535 (checked by the
 // Python wrapper).  Returns the first launch error as a cudaError_t.
-extern "C" int fine_topk(const void* E_c3, int is_int8, const void* scales3,
+extern "C" int fine_topk(const void* E_c3, int mode, const void* scales3,
                          const void* q_bf16, const void* blk, const void* vcnt, int Q, int L,
                          int d, int k, int G, void* part, void* vals, void* slots,
                          void* stream) {
@@ -129,7 +132,9 @@ extern "C" int fine_topk(const void* E_c3, int is_int8, const void* scales3,
     const int T = 2 * KP > 2048 ? 2 * KP : 2048;
     const int S = (T - KP) / fine::SLAB;
     const size_t smem = (size_t)T * 8 + (size_t)d * 4 + (size_t)S * 8;
-    auto kern = is_int8 ? fine_topk_kernel<true> : fine_topk_kernel<false>;
+    auto kern = mode == fine::INT4   ? fine_topk_kernel<fine::INT4>
+                : mode == fine::INT8 ? fine_topk_kernel<fine::INT8>
+                                     : fine_topk_kernel<fine::BF16>;
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;

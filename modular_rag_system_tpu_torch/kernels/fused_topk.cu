@@ -16,7 +16,7 @@
 // (atomicMin on its key), and a chunk with a survivor is bitonic-sorted
 // (topk_common.cuh).  Each warp scores ROWS rows at a time with all their
 // loads in flight, the query from shared memory, one shuffle reduction
-// per row.
+// per row (float_rows.cuh, shared with rescan.cu).
 //
 // Bound: the card must read count*d*4 (f32) or *2 (bf16) bytes and do
 // 2*Q*count*d operations.  The tiers send it capacities below 8192 rows
@@ -25,7 +25,7 @@
 // time, not the bound.  Several queries per CTA and mma tiles are the way
 // to the bound.
 
-#include "topk_common.cuh"
+#include "float_rows.cuh"
 
 namespace {
 
@@ -35,21 +35,6 @@ using topk::make_key;
 
 constexpr int NT = 512;
 constexpr int NWARPS = NT / 32;
-
-// dot of a 16-byte vector of row values with the matching query values
-template <bool BF16>
-__device__ __forceinline__ float vec_dot(const uint4& v, const float* qw) {
-    if (BF16) {
-        return qw[0] * topk::bf16_lo(v.x) + qw[1] * topk::bf16_hi(v.x) +
-               qw[2] * topk::bf16_lo(v.y) + qw[3] * topk::bf16_hi(v.y) +
-               qw[4] * topk::bf16_lo(v.z) + qw[5] * topk::bf16_hi(v.z) +
-               qw[6] * topk::bf16_lo(v.w) + qw[7] * topk::bf16_hi(v.w);
-    }
-    return qw[0] * topk::round_bf16(__uint_as_float(v.x)) +
-           qw[1] * topk::round_bf16(__uint_as_float(v.y)) +
-           qw[2] * topk::round_bf16(__uint_as_float(v.z)) +
-           qw[3] * topk::round_bf16(__uint_as_float(v.w));
-}
 
 // ROWS rows in flight per warp; VPL 16-byte vectors of a row per lane
 // (d <= 1024: 256 f32 vectors or 128 bf16 vectors over 32 lanes)
@@ -86,29 +71,8 @@ fused_topk_kernel(const uint4* __restrict__ E, const uint16_t* __restrict__ q_bf
 #pragma unroll
             for (int j = 0; j < ROWS; ++j)
                 row[j] = E + (size_t)min(r0 + j, row_end - 1) * nvec;
-            // all of the rows' vectors are loaded before any is used
-            uint4 v[ROWS][VPL];
-#pragma unroll
-            for (int i = 0; i < VPL; ++i)
-#pragma unroll
-                for (int j = 0; j < ROWS; ++j)
-                    v[j][i] = lane + 32 * i < nvec ? row[j][lane + 32 * i]
-                                                   : make_uint4(0, 0, 0, 0);
             float acc[ROWS];
-#pragma unroll
-            for (int j = 0; j < ROWS; ++j) acc[j] = 0.0f;
-#pragma unroll
-            for (int i = 0; i < VPL; ++i) {
-                if (lane + 32 * i >= nvec) break;
-                const float* qw = qs + EPV * (lane + 32 * i);
-#pragma unroll
-                for (int j = 0; j < ROWS; ++j) acc[j] += vec_dot<BF16>(v[j][i], qw);
-            }
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-                for (int j = 0; j < ROWS; ++j)
-                    acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+            frows::score_rows<BF16, ROWS, VPL>(row, nvec, qs, lane, acc);
             if (lane < ROWS && r0 + lane < row_end) {
                 float a = acc[0];
 #pragma unroll

@@ -1,6 +1,6 @@
 // Shared device code of the port's selecting kernels: (score, id) keys,
 // the bitonic sort of a shared-memory key array, and the exact conversions
-// of int8 and bf16 values to f32.
+// of int8, packed int4 and bf16 values to f32.
 //
 // A (score, id) pair packs into one 64-bit key whose ascending order is
 // (score desc, id asc), the TPU kernels' selection order, so a selection
@@ -36,6 +36,19 @@ __device__ __forceinline__ float key_score(unsigned long long key) {
 __device__ __forceinline__ float int8_to_float(int32_t v, int b) {
     const uint32_t x = (uint32_t)v ^ 0x80808080u;
     return __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540 + b)) - 8388736.0f;
+}
+
+// the four high (or low) nibbles of v's bytes, each a 4-bit two's
+// complement value, biased to unsigned (n ^ 8 = value + 8) in the bytes of
+// the result; nibble_to_float then converts byte b exactly, as above
+__device__ __forceinline__ uint32_t hi_nibbles(uint32_t v) {
+    return ((v >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+}
+__device__ __forceinline__ uint32_t lo_nibbles(uint32_t v) {
+    return (v & 0x0F0F0F0Fu) ^ 0x08080808u;
+}
+__device__ __forceinline__ float nibble_to_float(uint32_t biased, int b) {
+    return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 + b)) - 8388616.0f;
 }
 
 // the two bf16 values packed in a 32-bit word, low half first

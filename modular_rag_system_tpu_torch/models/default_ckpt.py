@@ -46,7 +46,9 @@ def params_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     attention q/k/v kernels (hidden, heads, head_dim) flatten their head
     axes before the transpose and the out kernel (heads, head_dim,
     hidden) flattens its leading axes; attention biases flatten;
-    LayerNorm ``scale`` becomes ``weight``."""
+    LayerNorm ``scale`` becomes ``weight``.  The flash attention path
+    owns no parameters, so the same state dict loads on either
+    ``attention_impl``."""
     out: Dict[str, np.ndarray] = {
         "tok_embed.weight": flat["tok_embed/embedding"],
         "pos_embed.weight": flat["pos_embed/embedding"],

@@ -8,10 +8,14 @@ name, rewritten as ``nn.Module``s with the same numerics:
   casts back to the compute dtype;
 * Dense layers compute in the compute dtype: input, weight and bias are
   all in it, and the bias is added after the product is rounded;
-* attention divides the query by sqrt(head_dim) in the compute dtype
-  before the QK product, masks padded positions with ``finfo(dtype).min``
-  and runs the softmax in the compute dtype; plain tensor ops, since
-  the numerics must follow the flax dense path;
+* dense attention divides the query by sqrt(head_dim) in the compute
+  dtype before the QK product, masks padded positions with
+  ``finfo(dtype).min`` and runs the softmax in the compute dtype; plain
+  tensor ops, since the numerics must follow the flax dense path;
+* ``attention_impl="flash"`` routes the same q, k, v through
+  ``ops/flash_attention.mea_attention`` (f32 scores and softmax, keys
+  masked at -1e9, no (L, L) tensor in device memory): the long-context
+  path, with the same parameters as the dense one;
 * erf GELU; masked mean-pool in f32, then L2 normalisation with a 1e-12
   floor.
 
@@ -30,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from modular_rag_system_tpu_torch.models.tokenizer import HashingTokenizer
+from modular_rag_system_tpu_torch.ops.flash_attention import mea_attention
 from modular_rag_system_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -58,9 +63,11 @@ def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, hidden: int, heads: int, dtype: torch.dtype) -> None:
+    def __init__(self, hidden: int, heads: int, dtype: torch.dtype,
+                 attention_impl: str = "dense") -> None:
         super().__init__()
         self.heads = heads
+        self.attention_impl = attention_impl
         self.query = nn.Linear(hidden, hidden, dtype=dtype)
         self.key = nn.Linear(hidden, hidden, dtype=dtype)
         self.value = nn.Linear(hidden, hidden, dtype=dtype)
@@ -72,6 +79,9 @@ class SelfAttention(nn.Module):
         q = _dense(self.query, x).view(B, L, self.heads, dh)
         k = _dense(self.key, x).view(B, L, self.heads, dh)
         v = _dense(self.value, x).view(B, L, self.heads, dh)
+        if self.attention_impl == "flash":
+            # the kernel scales the f32 scores itself and masks keys only
+            return _dense(self.out, mea_attention(q, k, v, pad).reshape(B, L, H))
         q = q / torch.tensor(math.sqrt(dh), dtype=torch.float32).to(x.dtype)
         w = torch.einsum("bqhd,bkhd->bhqk", q, k)
         # nn.make_attention_mask: query mask x key mask
@@ -86,9 +96,9 @@ class SelfAttention(nn.Module):
 
 class TransformerBlock(nn.Module):
     def __init__(self, hidden: int, heads: int, mlp_dim: int,
-                 dtype: torch.dtype) -> None:
+                 dtype: torch.dtype, attention_impl: str = "dense") -> None:
         super().__init__()
-        self.attn = SelfAttention(hidden, heads, dtype)
+        self.attn = SelfAttention(hidden, heads, dtype, attention_impl)
         self.ln0 = LayerNormF32(hidden)
         self.ffn_in = nn.Linear(hidden, mlp_dim, dtype=dtype)
         self.ffn_out = nn.Linear(mlp_dim, hidden, dtype=dtype)
@@ -106,13 +116,19 @@ class SentenceEncoderModule(nn.Module):
 
     def __init__(self, vocab_size: int = 30522, hidden: int = 384,
                  layers: int = 6, heads: int = 12, mlp_dim: int = 1536,
-                 max_len: int = 256, dtype: torch.dtype = torch.bfloat16) -> None:
+                 max_len: int = 256, dtype: torch.dtype = torch.bfloat16,
+                 attention_impl: str = "dense") -> None:
         super().__init__()
+        if attention_impl not in ("dense", "flash"):
+            raise ValueError(
+                f"attention_impl must be 'dense' or 'flash', got {attention_impl!r}")
+        self.attention_impl = attention_impl
         self.tok_embed = nn.Embedding(vocab_size, hidden, dtype=dtype)
         self.pos_embed = nn.Embedding(max_len, hidden, dtype=dtype)
         self.embed_ln = LayerNormF32(hidden)
         self.blocks = nn.ModuleList(
-            TransformerBlock(hidden, heads, mlp_dim, dtype) for _ in range(layers))
+            TransformerBlock(hidden, heads, mlp_dim, dtype, attention_impl)
+            for _ in range(layers))
         self.dtype = dtype
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -158,11 +174,7 @@ class MiniLMEncoder:
         attention_impl: str = "dense",
         device="cuda",
     ) -> None:
-        if attention_impl == "flash":
-            raise NotImplementedError(
-                "attention_impl='flash' needs the flash-attention kernel, "
-                "which is not ported yet (ROADMAP: TPU kernels still to port)")
-        if attention_impl != "dense":
+        if attention_impl not in ("dense", "flash"):
             raise ValueError(
                 f"attention_impl must be 'dense' or 'flash', got {attention_impl!r}")
         self.device = resolve_device(device)
@@ -173,7 +185,7 @@ class MiniLMEncoder:
         self.module = SentenceEncoderModule(
             vocab_size=vocab_size, hidden=dim, layers=num_layers,
             heads=num_heads, mlp_dim=mlp_dim, max_len=max_seq_len,
-            dtype=_DTYPES[dtype])
+            dtype=_DTYPES[dtype], attention_impl=attention_impl)
         self.module.load_state_dict(state_dict)
         self.module.to(self.device).eval()
         self.name = f"minilm-l{num_layers}-h{dim}"

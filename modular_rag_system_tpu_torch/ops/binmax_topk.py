@@ -1,5 +1,6 @@
 """Two-pass top-k: the ``binmax_int8`` and ``binmax`` CUDA kernels (pass
-1), their plain PyTorch versions, and the glue of the two-pass searches.
+1), the optional ``rescan`` kernel (pass 2), their plain PyTorch
+versions, and the glue of the two-pass searches.
 
 Pass 1 keeps one score maximum per bin of ``bin_width`` rows:
 ``binmax_int8_call`` scores int8 rows against int8-quantized queries,
@@ -10,6 +11,13 @@ lowest-position ties are lowest-row-id ties.  The int8 route
 (``twopass_topk_int8_master_raw``) rescans the MASTER matrix, so its
 scores are master-exact; the f32/bf16 route (``twopass_topk_raw``)
 rescores in pass 1's own space, bf16 products summed in f32.
+
+With ``kernel_rescan=True`` pass 2 is one kernel (``rescan_call``,
+``kernels/rescan.cu``) that reads a query's bins straight from the store
+and selects in shared memory.  It scores bf16(q) . bf16(row) in f32 on
+every store, an f32 master included (the TPU kernel's default
+precision), so on the int8 route over an f32 master its scores are
+bf16-product scores where the gather path's are true f32.
 
 ``refine_against_master`` is the master rescore of the single-pass
 route (kf over-selection, ``int8_refine_kf``).
@@ -206,13 +214,78 @@ def _rescore(q_r: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return torch.bmm(rows, q_r.unsqueeze(2)).squeeze(2)
 
 
+# candidates (kb * bin_width) one CTA of the rescan kernel sorts
+_RESCAN_MAX_CANDIDATES = 16384
+
+
+def rescan_reference(E, bins, count: int, q, k: int, bin_width: int):
+    """Plain PyTorch version of ``rescan``: gather the bins' rows, score
+    bf16(q) . bf16(row) in f32, mask rows >= count, select by (score desc,
+    id asc); (-inf, -1) where fewer than k live rows were scanned."""
+    cap, d = E.shape
+    Q, kb = bins.shape
+    bins = bins.long()
+    offs = torch.arange(bin_width, device=E.device)
+    gid = (bins[:, :, None] * bin_width + offs).reshape(Q, kb * bin_width)
+    qb = q.to(torch.bfloat16).float()
+    E3 = E.view(cap // bin_width, bin_width, d)
+    scores = torch.empty((Q, kb * bin_width), dtype=torch.float32, device=E.device)
+    for s in range(0, Q, _RESCORE_CHUNK_Q):
+        sl = slice(s, s + _RESCORE_CHUNK_Q)
+        slabs = E3[bins[sl]].to(torch.bfloat16).float()  # (c, kb, bw, d)
+        scores[sl] = _rescore(qb[sl], slabs.reshape(slabs.shape[0], kb * bin_width, d))
+    scores = torch.where(gid < count, scores, _NEG_INF)
+    if scores.shape[1] < k:
+        pad = k - scores.shape[1]
+        scores = torch.nn.functional.pad(scores, (0, pad), value=_NEG_INF)
+        gid = torch.nn.functional.pad(gid, (0, pad), value=_BIG_I32)
+    vals, ids = _select_topk(scores, gid.to(torch.int32), k)
+    return vals, torch.where(torch.isfinite(vals), ids, -1)
+
+
+def rescan_call(E, bins, count: int, q, k: int, bin_width: int):
+    """Pass 2 in one kernel: E (cap, d) f32 or bf16, bins (Q, kb) distinct
+    bin ids per query, q (Q, d) f32 -> (vals (Q, k) f32, ids (Q, k)
+    int32): the top k rows of the query's bins below ``count`` by
+    bf16(q) . bf16(row) summed in f32, ties to the smallest id.
+
+    On a CUDA device this launches the hand-written kernel; on the CPU
+    it runs the plain version."""
+    if E.device.type == "cpu":
+        return rescan_reference(E, bins, count, q, k, bin_width)
+    cap, d = E.shape
+    Q, kb = bins.shape
+    if E.dtype not in (torch.float32, torch.bfloat16) or not E.is_contiguous():
+        raise ValueError("E must be a contiguous float32 or bfloat16 tensor")
+    if d % 8 or d > 1024 or cap % bin_width or k < 1:
+        raise ValueError(f"rescan needs d % 8 == 0, d <= 1024, cap % bin_width == 0 "
+                         f"and k >= 1; got d={d}, cap={cap}, bin_width={bin_width}, k={k}")
+    if not 1 <= kb * bin_width <= _RESCAN_MAX_CANDIDATES:
+        raise ValueError(f"rescan sorts at most {_RESCAN_MAX_CANDIDATES} candidates a "
+                         f"query; got kb={kb} x bin_width={bin_width}")
+    qb = q.to(torch.bfloat16).contiguous()
+    bins = bins.to(torch.int32).contiguous()
+    vals = torch.empty((Q, k), dtype=torch.float32, device=E.device)
+    ids = torch.empty((Q, k), dtype=torch.int32, device=E.device)
+    if Q == 0:
+        return vals, ids
+    kernels.launch(
+        "rescan", E.data_ptr(), int(E.dtype == torch.bfloat16), qb.data_ptr(),
+        bins.data_ptr(), Q, d, int(count), kb, bin_width, k, vals.data_ptr(),
+        ids.data_ptr(), torch.cuda.current_stream(E.device).cuda_stream)
+    return vals, ids
+
+
 def twopass_topk_int8_master_raw(E_q, scales, E_master, count: int, q, k: int,
                                  bin_width: int,
-                                 extra_bins: int = _INT8_MIXED_EXTRA_BINS):
+                                 extra_bins: int = _INT8_MIXED_EXTRA_BINS,
+                                 kernel_rescan: bool = False):
     """Mixed two-pass: int8 pass 1 selects bins, pass 2 rescans the
     master (f32 or bf16) rows of those bins.  Returns (vals (Q, k) f32,
     ids (Q, k) int32), ties by lowest row id; scores are master-exact,
-    the top-k set is bounded by pass-1 bin coverage."""
+    the top-k set is bounded by pass-1 bin coverage.  ``kernel_rescan``
+    runs pass 2 as the ``rescan`` kernel (bf16-product scores, also on an
+    f32 master) in place of the gather."""
     cap, d = E_q.shape
     nb = cap // bin_width
     q = q.float()
@@ -221,6 +294,8 @@ def twopass_topk_int8_master_raw(E_q, scales, E_master, count: int, q, k: int,
     bm = _mask_bins(binmax, count, nb, bin_width)
     kb = min(k + 1 + _MARGIN_BINS + extra_bins, nb)
     bins = select_bins(bm, kb)  # (Q, kb) ascending
+    if kernel_rescan:
+        return rescan_call(E_master, bins, count, q, k, bin_width)
     offs = torch.arange(bin_width, device=bins.device)
     rid_flat = (bins[:, :, None] * bin_width + offs).reshape(q.shape[0], -1)
     slabs = E_master.view(nb, bin_width, d)[bins].float()
@@ -231,14 +306,17 @@ def twopass_topk_int8_master_raw(E_q, scales, E_master, count: int, q, k: int,
     return vals, torch.gather(rid_flat, 1, pos).to(torch.int32)
 
 
-def twopass_topk_raw(E, count: int, q, k: int, bin_width: int):
+def twopass_topk_raw(E, count: int, q, k: int, bin_width: int,
+                     kernel_rescan: bool = False):
     """Two-pass top-k over f32 or bf16 rows (the fused/bf16 tiers at
     capacity >= ``_MIN_TWOPASS_CAP``): ``binmax`` pass 1 selects
     ``k + 1 + _MARGIN_BINS`` bins, pass 2 rescores their rows in the same
     space, bf16(q) . bf16(row) summed in f32 (the TPU tiers' similarity
     contract: default-precision products in every store dtype).
     Returns (vals (Q, k) f32, ids (Q, k) int32), ties by lowest row id;
-    exact within that space up to the margin bin."""
+    exact within that space up to the margin bin.  ``kernel_rescan`` runs
+    pass 2 as the ``rescan`` kernel in place of the gather (the same
+    scoring space)."""
     cap, d = E.shape
     nb = cap // bin_width
     Q = q.shape[0]
@@ -247,6 +325,8 @@ def twopass_topk_raw(E, count: int, q, k: int, bin_width: int):
     bm = _mask_bins(binmax, count, nb, bin_width)
     kb = min(k + 1 + _MARGIN_BINS, nb)
     bins = select_bins(bm, kb)  # (Q, kb) ascending
+    if kernel_rescan:
+        return rescan_call(E, bins, count, q, k, bin_width)
     offs = torch.arange(bin_width, device=bins.device)
     rid_flat = (bins[:, :, None] * bin_width + offs).reshape(Q, -1)
     q_r = _round_to_dtype_f32(q, torch.bfloat16)

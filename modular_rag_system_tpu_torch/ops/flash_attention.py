@@ -1,0 +1,85 @@
+"""Memory-efficient (flash-style) self-attention of the encoder.
+
+The port of the JAX package's ``ops/flash_attention.py``: the attention
+of ``embedding.attention_impl="flash"``, which lets a long-context
+encoder embed a whole document as one sequence without the dense path's
+(B, H, L, L) score tensor in device memory.
+
+``mea_attention(q, k, v, pad_mask)`` computes softmax(q k^T / sqrt(dh)) v
+with key padding for (B, L, H, dh) tensors in the model dtype.  Its
+arithmetic is the TPU kernel's, not the dense path's: the scores are f32
+sums times the scale (the query is not pre-scaled), only KEYS are masked,
+at a finite -1e9 (a batch row that is all padding softmaxes uniformly and
+stays finite, where -inf would give NaN and poison the mean pool), the
+softmax runs in f32, exp(s - m) is rounded to the model dtype before it
+multiplies v, that product accumulates in f32, and the f32 row sum,
+floored at 1e-30, divides at the end.  The JAX kernel pads L to a multiple
+of 128 with masked keys, so its all-padding rows average over the padded
+length; here they average over L.  Such rows are dropped by the pooling
+mask either way.
+
+On a CUDA device the wrapper launches ``kernels/mea_attention.cu``; on
+the CPU it runs the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from modular_rag_system_tpu_torch import kernels
+
+_NEG = -1e9  # the finite masked score (not -inf: see the module docstring)
+# f32 bytes of one chunk of the plain version's (c, H, L, L) scores
+_REF_CHUNK_BYTES = 1 << 30
+_MAX_DH = 128
+
+
+def mea_attention_reference(q, k, v, pad_mask):
+    """Plain PyTorch version of ``mea_attention``, a few batch rows at a
+    time so the (c, H, L, L) f32 scores stay bounded."""
+    B, L, H, dh = q.shape
+    scale = 1.0 / (dh ** 0.5)
+    out = torch.empty_like(q)
+    live = pad_mask.to(torch.float32) > 0.5
+    step = max(_REF_CHUNK_BYTES // max(H * L * L * 4, 1), 1)
+    for s0 in range(0, B, step):
+        sl = slice(s0, s0 + step)
+        qf, kf, vf = (x[sl].float().permute(0, 2, 1, 3) for x in (q, k, v))  # (c, H, L, dh)
+        s = (qf @ kf.transpose(2, 3)) * scale
+        s = torch.where(live[sl, None, None, :], s, _NEG)
+        m = s.amax(dim=3, keepdim=True)
+        e = torch.exp(s - m)
+        denom = e.sum(dim=3, keepdim=True)
+        o = e.to(v.dtype).float() @ vf
+        out[sl] = (o / torch.clamp(denom, min=1e-30)).permute(0, 2, 1, 3).to(q.dtype)
+    return out
+
+
+def mea_attention(q, k, v, pad_mask):
+    """softmax(q k^T / sqrt(dh)) v with key padding, no (L, L) tensor in
+    device memory.  ``q``/``k``/``v``: (B, L, H, dh) bf16 or f32;
+    ``pad_mask``: (B, L), 1 = live.  Returns (B, L, H, dh) in q's dtype.
+
+    On a CUDA device this launches the hand-written kernel; on the CPU
+    it runs the plain version."""
+    if q.device.type == "cpu":
+        return mea_attention_reference(q, k, v, pad_mask)
+    B, L, H, dh = q.shape
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"mea_attention takes bf16 or f32 tensors, got {q.dtype}")
+    if k.shape != q.shape or v.shape != q.shape or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("mea_attention: q, k and v must share one shape and dtype")
+    if dh % 8 or dh > _MAX_DH or B * H > 65535 or tuple(pad_mask.shape) != (B, L):
+        raise ValueError(f"mea_attention needs dh % 8 == 0, dh <= {_MAX_DH}, B * H <= "
+                         f"65535 and a (B, L) mask; got q {tuple(q.shape)}, mask "
+                         f"{tuple(pad_mask.shape)}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    pad = pad_mask.to(torch.float32).contiguous()
+    out = torch.empty_like(q)
+    if B == 0 or L == 0:
+        return out
+    kernels.launch(
+        "mea_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
+        int(q.dtype == torch.bfloat16), B, L, H, dh, 1.0 / (dh ** 0.5), out.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    return out

@@ -1,6 +1,7 @@
 """IVF2 — the cluster-contiguous ANN tier with an exact streamed tail.
 
-The port of the JAX package's ``ops/ivf2.py`` (bf16 and int8 fine copies):
+The port of the JAX package's ``ops/ivf2.py`` (bf16, int8 and int4 fine
+copies):
 
 * **Build.**  Spherical k-means (``ops/kmeans.py``, optionally LBG-split
   so no cluster passes ``balance`` x the average), then the rows are laid
@@ -22,11 +23,23 @@ The port of the JAX package's ``ops/ivf2.py`` (bf16 and int8 fine copies):
   limits were set for the TPU's memories; they are kept because they
   choose the kernel, so the dispatch stays the JAX package's.
 
-Both fine kernels score ``bf16(q) . row`` in f32 (int8 rows times their
-scale after the dot); slots past a block's valid count score -inf.  A
-wrapper launches its kernel for tensors on a CUDA device and runs its
-plain version for tensors on the CPU.  The int4 fine copy is not ported
-yet and raises.
+* **int4 fine copy** (``fine_dtype="int4"``).  Two logical rows share a
+  byte (row r in the high nibble, row r + SLAB/2 in the low one,
+  ``ops/quantize.py``), so a block is (SLAB/2, d) int8 and the fine copy
+  half the int8 copy's bytes.  What is quantized is the RESIDUAL
+  row - centroid; the exact q . centroid term comes back from the coarse
+  score table as a per-slot ``bias`` added after the score dump, so the
+  4-bit scores only rank candidates, over-selected in proportion to the
+  probed pool (``refine_extra``), and the master rescore keeps returned
+  scores exact.  A bias needs the dump path: the selecting kernel would
+  rank biasless scores across clusters, so it is refused there.
+
+The fine kernels score ``bf16(q) . row`` in f32 (int8 and int4 rows times
+their scale after the dot); slots past a block's valid count score -inf.
+``fine_binmax`` (``kernels/fine_binmax.cu``) keeps only each slot's
+maximum: the streaming floor beside which the other two are timed, on no
+serving path.  A wrapper launches its kernel for tensors on a CUDA device
+and runs its plain version for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -42,7 +55,12 @@ from modular_rag_system_tpu_torch.ops.binmax_topk import _rescore, _round_to_dty
 from modular_rag_system_tpu_torch.ops.exact import stable_topk
 from modular_rag_system_tpu_torch.ops.fused_topk import _select_topk
 from modular_rag_system_tpu_torch.ops.kmeans import init_centroids_from_rows, kmeans_fit
-from modular_rag_system_tpu_torch.ops.quantize import quantize_rows
+from modular_rag_system_tpu_torch.ops.quantize import (
+    int4_scale_and_values,
+    quantize_int4_blocks,
+    quantize_rows,
+    unpack_int4_values,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -53,6 +71,9 @@ _BIG_I32 = 2**31 - 1
 # dump-path limits of the JAX package (they pick the fine kernel)
 _DUMP_MAX_BYTES = 1 << 31
 _DUMP_VMEM_BYTES = 4 << 20
+# cap of the master rescore's (Q, kf, d) f32 gather under the int4
+# default over-selection, which grows with the probed pool
+_RESCORE_MAX_BYTES = 1 << 30
 
 # the selecting kernel's largest running top-k
 _FINE_TOPK_MAX_K = 8192
@@ -63,18 +84,12 @@ _REF_CHUNK_BYTES = 1 << 28
 # rows per chunk of the tail scan over a bf16 master
 _TAIL_CHUNK_ROWS = 1 << 16
 
-INT4_NOT_PORTED = ("ivf_fine_dtype='int4' is not ported yet (ROADMAP: TPU "
-                   "kernels still to port, the int4 fine copy)")
-
-
 def _cdiv(a: int, b: int) -> int:
     return (a + b - 1) // b
 
 
 def check_fine_dtype(fine_dtype: str) -> None:
-    if fine_dtype == "int4":
-        raise NotImplementedError(INT4_NOT_PORTED)
-    if fine_dtype not in ("auto", "bf16", "int8"):
+    if fine_dtype not in ("auto", "bf16", "int8", "int4"):
         raise ValueError(f"ivf_fine_dtype must be auto|bf16|int8|int4, got {fine_dtype}")
 
 
@@ -92,8 +107,10 @@ def order_counts_core(labels: torch.Tensor, count: int, C: int):
 
 
 def _fill_chunk_core(E_c3, scales3, perm, inv_perm, E, order, counts, blk_start,
-                     row_start, block_cluster, lo: int, nb: int, fine_dtype: str):
-    """Fill destination blocks [lo, lo + nb) in place."""
+                     row_start, block_cluster, centroids, lo: int, nb: int,
+                     fine_dtype: str):
+    """Fill destination blocks [lo, lo + nb) in place.  The int4 copy
+    stores the residual row - centroid of the block's cluster."""
     d = E.shape[1]
     dev = E.device
     b = lo + torch.arange(nb, device=dev)
@@ -109,6 +126,11 @@ def _fill_chunk_core(E_c3, scales3, perm, inv_perm, E, order, counts, blk_start,
         qv, sc = quantize_rows(rows)
         E_c3[lo:lo + nb] = qv.view(nb, SLAB, d)
         scales3[lo:lo + nb] = sc.view(nb, SLAB)
+    elif fine_dtype == "int4":
+        res = rows.view(nb, SLAB, d) - centroids[c].float()[:, None, :]
+        res = torch.where(valid[..., None], res, 0.0)
+        E_c3[lo:lo + nb], scales3[lo:lo + nb] = quantize_int4_blocks(
+            res.view(nb * SLAB, d), nb, SLAB)
     else:
         E_c3[lo:lo + nb] = rows.to(E_c3.dtype).view(nb, SLAB, d)
     perm[lo * SLAB:(lo + nb) * SLAB] = pm.to(torch.int32)
@@ -168,8 +190,11 @@ def _from_numpy(a: np.ndarray) -> torch.Tensor:
 class IVF2:
     """Built cluster-contiguous structure.
 
-    ``E_c3`` (nblocks, SLAB, d) bf16 or int8 fine copy; ``scales3``
-    (nblocks, SLAB) f32 row scales (int8 only, else None); ``perm``
+    ``E_c3`` (nblocks, SLAB, d) bf16 or int8 fine copy, or (nblocks,
+    SLAB / 2, d) int8 holding two int4 rows a byte; ``scales3``
+    (nblocks, SLAB) f32 row scales (int8 and int4, else None);
+    ``block_cluster`` (nblocks,) int32 block -> cluster (the int4 row
+    updates need each slot's centroid); ``perm``
     (nblocks * SLAB,) int32 slot -> global row (-1 padding); ``inv_perm``
     (capacity + 1,) int32 global row -> slot (-1 if unbuilt; the last
     entry is the trash row); cluster tables ``blk_start``/``nblk``/
@@ -177,9 +202,10 @@ class IVF2:
     [0, built) are clustered; later rows are the exact tail."""
 
     def __init__(self, centroids, E_c3, scales3, perm, inv_perm, blk_start, nblk,
-                 counts, built: int, fine_dtype: str) -> None:
+                 counts, built: int, fine_dtype: str, block_cluster=None) -> None:
         check_fine_dtype(fine_dtype)
         self.centroids = centroids
+        self.block_cluster = block_cluster
         self.E_c3 = E_c3
         self.scales3 = scales3
         self.perm = perm
@@ -237,15 +263,15 @@ class IVF2:
     def from_numpy(cls, arrays, built: int, fine_dtype: str, device="cuda") -> "IVF2":
         """An IVF2 from another build's arrays given as numpy (e.g. a JAX
         ``IVF2``'s ``centroids``, ``E_c3``, ``scales3``, ``perm``,
-        ``inv_perm``, ``blk_start``, ``nblk`` and ``counts``), placed on
-        ``device``."""
+        ``inv_perm``, ``blk_start``, ``nblk``, ``counts`` and, optionally,
+        ``block_cluster``), placed on ``device``."""
         dev = torch.device(device)
         t = {name: (None if a is None else _from_numpy(a).to(dev))
              for name, a in arrays.items()}
         return cls(t["centroids"], t["E_c3"],
-                   t["scales3"] if fine_dtype == "int8" else None, t["perm"],
-                   t["inv_perm"], t["blk_start"], t["nblk"], t["counts"], built,
-                   fine_dtype)
+                   t["scales3"] if fine_dtype in ("int8", "int4") else None,
+                   t["perm"], t["inv_perm"], t["blk_start"], t["nblk"], t["counts"],
+                   built, fine_dtype, block_cluster=t.get("block_cluster"))
 
     # ------------------------------------------------------------------
     @classmethod
@@ -261,7 +287,7 @@ class IVF2:
         count = int(count)
         check_fine_dtype(fine_dtype)
         if fine_dtype == "auto":
-            raise ValueError("IVF2.build needs a resolved fine_dtype (bf16|int8)")
+            raise ValueError("IVF2.build needs a resolved fine_dtype (bf16|int8|int4)")
         cap, d = E.shape
         dev = E.device
         if warm_start is not None:
@@ -314,17 +340,18 @@ class IVF2:
         blk_start, nblk, counts_d = dev_i32(blk_start_h), dev_i32(nblk_h), dev_i32(counts_h)
         row_start, block_cluster = dev_i32(row_start_h), dev_i32(block_cluster_h)
         fdt = torch.bfloat16 if fine_dtype == "bf16" else torch.int8
-        E_c3 = torch.zeros((nblocks_pad, SLAB, d), dtype=fdt, device=dev)
+        slab_p = SLAB // 2 if fine_dtype == "int4" else SLAB
+        E_c3 = torch.zeros((nblocks_pad, slab_p, d), dtype=fdt, device=dev)
         scales3 = (torch.zeros((nblocks_pad, SLAB), dtype=torch.float32, device=dev)
-                   if fine_dtype == "int8" else None)
+                   if fine_dtype in ("int8", "int4") else None)
         perm = torch.full((nblocks_pad * SLAB,), -1, dtype=torch.int32, device=dev)
         inv_perm = torch.full((cap + 1,), -1, dtype=torch.int32, device=dev)
         for lo in range(0, nblocks_pad, CHUNK_BLOCKS):
             _fill_chunk_core(E_c3, scales3, perm, inv_perm, E, order, counts_d,
-                             blk_start, row_start, block_cluster, lo, CHUNK_BLOCKS,
-                             fine_dtype)
+                             blk_start, row_start, block_cluster, centroids, lo,
+                             CHUNK_BLOCKS, fine_dtype)
         iv = cls(centroids, E_c3, scales3, perm, inv_perm, blk_start, nblk, counts_d,
-                 count, fine_dtype)
+                 count, fine_dtype, block_cluster=block_cluster)
         iv.warm_started = warm_start is not None
         return iv
 
@@ -339,6 +366,12 @@ class IVF2:
         r = r0[mask]
         if r.size == 0:
             return
+        if self.fine_dtype == "int4" and self.block_cluster is None:
+            # the residual re-quantization needs each slot's centroid
+            raise ValueError(
+                "IVF2.update_rows with fine_dtype='int4' requires "
+                "block_cluster (per-block cluster ids); this instance "
+                "was constructed without it — use IVF2.build()")
         dev = self.E_c3.device
         if mat is None:
             vals = torch.zeros((len(r), self.E_c3.shape[2]), dtype=torch.float32, device=dev)
@@ -346,11 +379,23 @@ class IVF2:
             m = torch.as_tensor(mat).to(dev, torch.float32)
             vals = m[torch.from_numpy(np.nonzero(mask)[0]).to(dev)]
         slots = self.inv_perm[torch.from_numpy(r).to(dev)]
-        _scatter_slots(self.E_c3, self.scales3, slots, vals, self.fine_dtype)
+        _scatter_slots(self.E_c3, self.scales3, slots, vals, self.fine_dtype,
+                       self.centroids, self.block_cluster)
         self.stale_rows += len(r)
 
 
-def _scatter_slots(E_c3, scales3, slots, vals, fine_dtype: str) -> None:
+def _int4_nibble_rmw(packed_rows, qvals, hi: bool):
+    """Read-modify-write one nibble of gathered packed bytes:
+    ``packed_rows`` (B, d) int8, ``qvals`` (B, d) int32 in [-7, 7] ->
+    the new (B, d) int8 bytes, the other nibble kept."""
+    old = packed_rows.to(torch.int32) & 0xFF  # the byte as unsigned
+    qn = qvals & 0xF
+    new = ((qn << 4) | (old & 0xF)) if hi else ((old & 0xF0) | qn)
+    return torch.where(new >= 128, new - 256, new).to(torch.int8)
+
+
+def _scatter_slots(E_c3, scales3, slots, vals, fine_dtype: str, centroids=None,
+                   block_cluster=None) -> None:
     """Scatter rows into the fine copy in place; slots < 0 (rows not in
     the build) are dropped, never written back."""
     ok = slots >= 0
@@ -361,31 +406,72 @@ def _scatter_slots(E_c3, scales3, slots, vals, fine_dtype: str) -> None:
         qv, sc = quantize_rows(v)
         E_c3[b, rr] = qv
         scales3[b, rr] = sc[:, 0]
+    elif fine_dtype == "int4":
+        # one nibble per row: residual-quantize as the fill does, then two
+        # read-modify-write phases (high-nibble rows, then low-nibble
+        # rows), so a batch that updates both rows of one byte loses
+        # neither nibble (an in-place indexed write with duplicate
+        # indices keeps an arbitrary one)
+        S = E_c3.shape[1]
+        qv, sc = int4_scale_and_values(v.float() - centroids[block_cluster[b].long()].float())
+        pr, is_hi = rr % S, rr < S
+        for hi in (True, False):
+            sel = is_hi == hi
+            bs, ps = b[sel], pr[sel]
+            E_c3[bs, ps] = _int4_nibble_rmw(E_c3[bs, ps], qv[sel], hi)
+        scales3[b, rr] = sc[:, 0]
     else:
         E_c3[b, rr] = v.to(E_c3.dtype)
 
 
 # ---------------------------------------------------------------------------
 # fine stage: the two kernels and their plain versions
-def _check_fine_operands(E_c3, scales3, blk, vcnt, what: str) -> None:
+_MODE_IDS = {"bf16": 0, "int8": 1, "int4": 2}
+
+
+def _fine_mode(E_c3) -> str:
+    """Storage mode of a fine copy, from its dtype and shape: int4 packs
+    two logical rows a byte along the slab, so its blocks are
+    (SLAB / 2, d) int8 (``ops.quantize.quantize_int4_blocks``)."""
+    if E_c3.dtype == torch.int8:
+        return "int4" if E_c3.shape[1] == SLAB // 2 else "int8"
+    return "bf16"
+
+
+def _check_fine_operands(E_c3, scales3, blk, vcnt, what: str) -> str:
+    """Raise on operands the fine kernels do not take; returns the mode."""
     nblocks, S, d = E_c3.shape
     if E_c3.dtype not in (torch.bfloat16, torch.int8) or not E_c3.is_contiguous():
         raise ValueError(f"{what}: E_c3 must be a contiguous bf16 or int8 tensor")
-    if S != SLAB or d % 16 or d > 1024:
-        raise ValueError(f"{what} needs (nblocks, {SLAB}, d) slabs with d % 16 == 0 "
-                         f"and d <= 1024; got {tuple(E_c3.shape)}")
-    if E_c3.dtype == torch.int8 and scales3 is None:
-        raise ValueError(f"{what}: an int8 fine copy needs scales3")
+    mode = _fine_mode(E_c3)
+    if S != (SLAB // 2 if mode == "int4" else SLAB) or d % 16 or d > 1024:
+        raise ValueError(f"{what} needs (nblocks, {SLAB}, d) slabs ((nblocks, "
+                         f"{SLAB // 2}, d) int8 for int4) with d % 16 == 0 and "
+                         f"d <= 1024; got {tuple(E_c3.shape)}")
+    if mode != "bf16" and (scales3 is None or scales3.shape != (nblocks, SLAB)):
+        raise ValueError(f"{what}: an {mode} fine copy needs scales3 "
+                         f"({nblocks}, {SLAB})")
     if blk.shape != vcnt.shape or blk.shape[0] > 65535:
         raise ValueError(f"{what}: blk {tuple(blk.shape)} and vcnt "
                          f"{tuple(vcnt.shape)} must match, with at most 65535 queries")
+    return mode
+
+
+def _kernel_operands(E_c3, scales3, q, blk, vcnt, mode: str):
+    """The fine kernels' common arguments: bf16 queries, int32 lists and
+    a scales pointer (any valid pointer where the mode reads none)."""
+    qb = q.to(torch.bfloat16).contiguous()
+    sc = scales3.contiguous() if mode != "bf16" else qb
+    return qb, blk.to(torch.int32).contiguous(), vcnt.to(torch.int32).contiguous(), sc
 
 
 def _slab_scores_reference(E_c3, scales3, q, blk, vcnt):
-    """(Q, L, SLAB) f32 scores of bf16(q) . row (int8 rows x their
-    scale), -inf at positions >= vcnt, in query chunks."""
+    """(Q, L, SLAB) f32 scores of bf16(q) . row (int8 and int4 rows x
+    their scale; int4 blocks unpacked first), -inf at positions >= vcnt,
+    in query chunks."""
     Q, L = blk.shape
     d = E_c3.shape[2]
+    int4 = _fine_mode(E_c3) == "int4"
     qb = q.to(torch.bfloat16).float()
     out = torch.empty((Q, L, SLAB), dtype=torch.float32, device=E_c3.device)
     iota = torch.arange(SLAB, device=E_c3.device)
@@ -393,7 +479,8 @@ def _slab_scores_reference(E_c3, scales3, q, blk, vcnt):
     for s in range(0, Q, step):
         sl = slice(s, s + step)
         b = blk[sl].long()
-        tiles = E_c3[b].float()  # (c, L, SLAB, d)
+        tiles = E_c3[b]
+        tiles = (unpack_int4_values(tiles) if int4 else tiles).float()  # (c, L, SLAB, d)
         sc = (tiles.reshape(tiles.shape[0], L * SLAB, d) @ qb[sl, :, None])[..., 0]
         sc = sc.view(-1, L, SLAB)
         if scales3 is not None:
@@ -410,27 +497,53 @@ def fine_scores_reference(E_c3, scales3, q, blk, vcnt):
 
 def fine_scores_call(E_c3, scales3, q, blk, vcnt):
     """Every candidate row's score, streamed: E_c3 (nblocks, SLAB, d) bf16
-    or int8 (+ scales3 (nblocks, SLAB) f32), q (Q, d) f32, per-query block
-    lists blk/vcnt (Q, L) int32 -> (Q, L * SLAB) f32, -inf at positions
-    >= vcnt.
+    or int8, or (nblocks, SLAB / 2, d) packed int4 (+ scales3 (nblocks,
+    SLAB) f32), q (Q, d) f32, per-query block lists blk/vcnt (Q, L) int32
+    -> (Q, L * SLAB) f32, -inf at positions >= vcnt.
 
     On a CUDA device this launches the hand-written kernel; on the CPU
     it runs the plain version."""
     if E_c3.device.type == "cpu":
         return fine_scores_reference(E_c3, scales3, q, blk, vcnt)
-    _check_fine_operands(E_c3, scales3, blk, vcnt, "fine_scores")
+    mode = _check_fine_operands(E_c3, scales3, blk, vcnt, "fine_scores")
     d = E_c3.shape[2]
     Q, L = blk.shape
-    int8 = E_c3.dtype == torch.int8
-    qb = q.to(torch.bfloat16).contiguous()
-    blk = blk.to(torch.int32).contiguous()
-    vcnt = vcnt.to(torch.int32).contiguous()
-    sc = scales3.contiguous() if int8 else qb  # any pointer when unused
+    qb, blk, vcnt, sc = _kernel_operands(E_c3, scales3, q, blk, vcnt, mode)
     out = torch.empty((Q, L * SLAB), dtype=torch.float32, device=E_c3.device)
     if Q == 0 or L == 0:
         return out
     kernels.launch(
-        "fine_scores", E_c3.data_ptr(), int(int8), sc.data_ptr(), qb.data_ptr(),
+        "fine_scores", E_c3.data_ptr(), _MODE_IDS[mode], sc.data_ptr(), qb.data_ptr(),
+        blk.data_ptr(), vcnt.data_ptr(), Q, L, d, out.data_ptr(),
+        torch.cuda.current_stream(E_c3.device).cuda_stream)
+    return out
+
+
+def fine_binmax_reference(E_c3, scales3, q, blk, vcnt):
+    """Plain PyTorch version of ``fine_binmax``: the row maximum of the
+    score dump per slot, (Q, L) f32, -inf for a dead slot."""
+    return _slab_scores_reference(E_c3, scales3, q, blk, vcnt).amax(dim=2)
+
+
+def fine_binmax_call(E_c3, scales3, q, blk, vcnt):
+    """Per (query, list slot) the maximum score of the slab's live rows:
+    operands as ``fine_scores_call`` -> (Q, L) f32, -inf for a dead slot.
+    The same reads and dots as the other fine kernels with no selection
+    and almost no output: their streaming floor, on no serving path.
+
+    On a CUDA device this launches the hand-written kernel; on the CPU
+    it runs the plain version."""
+    if E_c3.device.type == "cpu":
+        return fine_binmax_reference(E_c3, scales3, q, blk, vcnt)
+    mode = _check_fine_operands(E_c3, scales3, blk, vcnt, "fine_binmax")
+    d = E_c3.shape[2]
+    Q, L = blk.shape
+    qb, blk, vcnt, sc = _kernel_operands(E_c3, scales3, q, blk, vcnt, mode)
+    out = torch.empty((Q, L), dtype=torch.float32, device=E_c3.device)
+    if Q == 0 or L == 0:
+        return out
+    kernels.launch(
+        "fine_binmax", E_c3.data_ptr(), _MODE_IDS[mode], sc.data_ptr(), qb.data_ptr(),
         blk.data_ptr(), vcnt.data_ptr(), Q, L, d, out.data_ptr(),
         torch.cuda.current_stream(E_c3.device).cuda_stream)
     return out
@@ -470,17 +583,13 @@ def fine_call(E_c3, scales3, q, blk, vcnt, k: int):
     it runs the plain version."""
     if E_c3.device.type == "cpu":
         return fine_topk_reference(E_c3, scales3, q, blk, vcnt, k)
-    _check_fine_operands(E_c3, scales3, blk, vcnt, "fine_topk")
+    mode = _check_fine_operands(E_c3, scales3, blk, vcnt, "fine_topk")
     if not 1 <= k <= _FINE_TOPK_MAX_K:
         raise ValueError(f"fine_topk supports 1 <= k <= {_FINE_TOPK_MAX_K}; got k={k}")
     d = E_c3.shape[2]
     Q, L = blk.shape
     dev = E_c3.device
-    int8 = E_c3.dtype == torch.int8
-    qb = q.to(torch.bfloat16).contiguous()
-    blk = blk.to(torch.int32).contiguous()
-    vcnt = vcnt.to(torch.int32).contiguous()
-    sc = scales3.contiguous() if int8 else qb
+    qb, blk, vcnt, sc = _kernel_operands(E_c3, scales3, q, blk, vcnt, mode)
     G = fine_split(Q, L, k, torch.cuda.get_device_properties(dev).multi_processor_count)
     part = torch.empty((Q, G, k), dtype=torch.int64, device=dev)  # partial keys
     vals = torch.empty((Q, k), dtype=torch.float32, device=dev)
@@ -488,7 +597,7 @@ def fine_call(E_c3, scales3, q, blk, vcnt, k: int):
     if Q == 0:
         return vals, slots
     kernels.launch(
-        "fine_topk", E_c3.data_ptr(), int(int8), sc.data_ptr(), qb.data_ptr(),
+        "fine_topk", E_c3.data_ptr(), _MODE_IDS[mode], sc.data_ptr(), qb.data_ptr(),
         blk.data_ptr(), vcnt.data_ptr(), Q, L, d, k, G, part.data_ptr(),
         vals.data_ptr(), slots.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return vals, slots
@@ -510,17 +619,24 @@ def _use_dump(Q: int, L: int) -> bool:
             and L * SLAB * 4 <= _DUMP_VMEM_BYTES)
 
 
-def fine_call_xla(E_c3, scales3, q, blk, vcnt, k: int):
+def fine_call_xla(E_c3, scales3, q, blk, vcnt, k: int, bias=None):
     """Fine stage with the selection outside the kernel: blocks sorted
     ascending (dead slots last), every candidate's score dumped by
     ``fine_scores``, one positional top-k, so the lowest position is the
-    lowest slot id (the selecting kernel's tie order)."""
+    lowest slot id (the selecting kernel's tie order).
+
+    ``bias`` (Q, L) f32 adds a per-slot term to every row score of that
+    slot after the dump: the int4 residual copy's exact q . centroid part
+    (a dead slot stays -inf)."""
     Q, L = blk.shape
     key = torch.where(vcnt > 0, blk, 2**30)
     order = torch.argsort(key, dim=1, stable=True)
     blk2 = torch.gather(blk, 1, order)
     vc2 = torch.gather(vcnt, 1, order)
     flat = fine_scores_call(E_c3, scales3, q, blk2, vc2)
+    if bias is not None:
+        bias2 = torch.gather(bias, 1, order)
+        flat = (flat.view(Q, L, SLAB) + bias2[:, :, None]).view(Q, L * SLAB)
     kk = min(k, L * SLAB)
     vals, pos = stable_topk(flat, kk)
     slots = torch.gather(blk2.long(), 1, pos // SLAB) * SLAB + pos % SLAB
@@ -531,22 +647,32 @@ def fine_call_xla(E_c3, scales3, q, blk, vcnt, k: int):
     return vals, slots
 
 
-def fine_call_auto(E_c3, scales3, q, blk, vcnt, k: int):
+def fine_call_auto(E_c3, scales3, q, blk, vcnt, k: int, bias=None):
     """The JAX package's fine-stage dispatch: the score dump while
     ``_use_dump`` holds, else the selecting kernel.  Candidate ids are the
-    same on both paths; values differ by summation order."""
+    same on both paths; values differ by summation order.  A ``bias``
+    (the int4 copy's q . centroid term) needs the dump path and is
+    refused past its limits."""
     Q, L = blk.shape
+    if bias is not None and not _use_dump(Q, L):
+        raise ValueError(
+            f"int4 fine stage needs the score-dump path, but Q={Q} L={L} "
+            f"exceeds its buffer budget ({Q}x{L}x{SLAB} f32 scores; caps "
+            f"{_DUMP_MAX_BYTES >> 20} MiB total / {_DUMP_VMEM_BYTES >> 20}"
+            f" MiB per query). Lower nprobe or use ivf_fine_dtype='int8'.")
     if _use_dump(Q, L):
-        return fine_call_xla(E_c3, scales3, q, blk, vcnt, k)
+        return fine_call_xla(E_c3, scales3, q, blk, vcnt, k, bias=bias)
     return fine_call(E_c3, scales3, q, blk, vcnt, k)
 
 
 # ---------------------------------------------------------------------------
 # search core
-def block_lists(probes, blk_start, nblk, counts, L: int):
+def block_lists(probes, blk_start, nblk, counts, L: int, return_clusters: bool = False):
     """Per-query candidate block lists: probes (Q, P) cluster ids ->
     (blk (Q, L) block ids, vcnt (Q, L) valid rows per block); slots past
-    the probed clusters' blocks point at block 0 with vcnt 0."""
+    the probed clusters' blocks point at block 0 with vcnt 0.  With
+    ``return_clusters`` also the per-slot cluster ids (Q, L), through
+    which the int4 path gathers its per-slot q . centroid bias."""
     Q, P = probes.shape
     probes = probes.long()
     nb_p = nblk[probes].long()  # (Q, P)
@@ -561,8 +687,11 @@ def block_lists(probes, blk_start, nblk, counts, L: int):
     blk = blk_start[probe_c].long() + off
     vcnt = torch.clamp(counts[probe_c].long() - off * SLAB, 0, SLAB)
     live = j < total
-    return (torch.where(live, blk, 0).to(torch.int32),
-            torch.where(live, vcnt, 0).to(torch.int32))
+    out = (torch.where(live, blk, 0).to(torch.int32),
+           torch.where(live, vcnt, 0).to(torch.int32))
+    if return_clusters:
+        return out + (probe_c.to(torch.int32),)
+    return out
 
 
 def _tail_scores(E_master, q, base: int, tail_max: int):
@@ -588,20 +717,42 @@ def ivf2_search_core(E_master, E_c3, scales3, perm, centroids, blk_start, nblk, 
     Rows [0, built) are served by the clustered fine stage, rows [built,
     count) by an exact scan of a ``tail_max``-wide window of the master.
     The fine stage over-selects ``k + refine_extra`` candidates (default
-    2k); every candidate is rescored on the master, so returned scores
-    are master-exact and recall is bounded by nprobe coverage only.  Ties
-    go to the smallest global id."""
+    2k; with an int4 copy max(10k, a twelfth of the probed pool), whose
+    rescore gather is refused past ``_RESCORE_MAX_BYTES``); every
+    candidate is rescored on the master, so returned scores are
+    master-exact and recall is bounded by nprobe coverage only.  Ties go
+    to the smallest global id."""
     Q, d = q.shape
     q = q.float()
+    int4 = _fine_mode(E_c3) == "int4"
     if refine_extra is None:
-        refine_extra = k
+        # 4-bit residual ranking drops a roughly constant share of the true
+        # top-k below a fixed percentile of the pool, so the int4 default
+        # grows with the pool (L * SLAB), not with k
+        refine_extra = max(10 * k, (L * SLAB) // 12) if int4 else k
+        gather = Q * min(k + refine_extra, L * SLAB) * d * 4
+        if gather > _RESCORE_MAX_BYTES:
+            raise ValueError(
+                f"int4 master rescore would gather {gather >> 20} MiB "
+                f"(Q={Q}, pool={L * SLAB}, refine_extra={refine_extra}); "
+                f"cap is {_RESCORE_MAX_BYTES >> 20} MiB. Lower nprobe, "
+                f"split the query batch, use ivf_fine_dtype='int8', or "
+                f"pass refine_extra explicitly.")
     cand_i = []
     if L > 0:
         cs = q @ centroids.T
         _, probes = stable_topk(cs, nprobe)
-        blk, vcnt = block_lists(probes, blk_start, nblk, counts, L)
+        if int4:
+            # fine scores are q . (row - centroid): add the exact
+            # q . centroid of each slot's cluster from the coarse table
+            blk, vcnt, pc = block_lists(probes, blk_start, nblk, counts, L,
+                                        return_clusters=True)
+            bias = torch.gather(cs, 1, pc.long())
+        else:
+            blk, vcnt = block_lists(probes, blk_start, nblk, counts, L)
+            bias = None
         kf = min(k + refine_extra, L * SLAB)
-        _, fslots = fine_call_auto(E_c3, scales3, q, blk, vcnt, kf)
+        _, fslots = fine_call_auto(E_c3, scales3, q, blk, vcnt, kf, bias=bias)
         fgids = perm[torch.clamp(fslots, min=0).long()]
         fgids = torch.where(fslots >= 0, fgids, -1)
         # a built row may have been deleted (zeroed): it stays, and the

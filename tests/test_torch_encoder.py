@@ -133,6 +133,6 @@ def test_build_encoder_raises_on_broken_checkpoint(tmp_path):
         build_encoder(cfg, device="cpu")
     with pytest.raises(ValueError):
         build_encoder(RAGConfig.load(overrides={"embedding.dim": 64}), device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_encoder(RAGConfig.load(overrides={"embedding.attention_impl": "flash"}),
+    with pytest.raises(ValueError, match="attention_impl"):
+        build_encoder(RAGConfig.load(overrides={"embedding.attention_impl": "Flash"}),
                       device="cpu")

@@ -103,24 +103,59 @@ def test_delete_readd_and_restart(tmp_path):
     _assert_same(before, eng2.query_batch(QUERIES, max_results=3))
 
 
-@pytest.mark.parametrize("extra", [
-    {"embedding.attention_impl": "flash"},
-    {"index.tier": "ivf", "index.ivf_fine_dtype": "int4"},
-    {"index.tier": "auto", "index.ivf_fine_dtype": "int4"},
-    {"mesh.index_shards": 2}, {"mesh.multihost": True},
-])
+@pytest.mark.parametrize("extra", [{"mesh.index_shards": 2}, {"mesh.multihost": True}])
 def test_unported_configurations_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported"):
         _port(tmp_path, **extra)
 
 
-def test_auto_tier_at_ivf_scale_raises():
-    # what "auto" still cannot do at ivf scale: build the unported int4
-    # fine copy (refused when the index is made, before any row arrives)
+@pytest.mark.parametrize("extra", [
+    {"embedding.attention_impl": "flash"},
+    {"index.tier": "ivf", "index.ivf_fine_dtype": "int4"},
+    {"index.tier": "auto", "index.ivf_fine_dtype": "int4"},
+])
+def test_ported_configurations_serve(tmp_path, extra):
+    # the configurations of the last TPU kernels build and serve, and give
+    # the JAX engine's answers (ids equal, similarities within 1e-5)
+    extra = {**extra, "index.ivf_clusters": 8, "index.ivf_nprobe": 8,
+             "index.ivf_rebuild_min": 64}
+    # the JAX flash kernel runs in interpret mode, a Python loop over
+    # batch rows x heads x layers: that case takes a handful of texts
+    flash = "embedding.attention_impl" in extra
+    texts, queries = (KNOWLEDGE[:8], QUERIES[:2]) if flash else (KNOWLEDGE, QUERIES)
+    jeng = JaxEngine(JaxConfig.load(overrides={**_overrides(tmp_path / "jax"), **extra}))
+    peng = _port(tmp_path / "port", **extra)
+    jeng.add_documents([JaxDocument(content=t) for t in texts])
+    peng.add_documents([Document(content=t) for t in texts])
+    _assert_same(jeng.query_batch(queries, max_results=5),
+                 peng.query_batch(queries, max_results=5))
+    stats = peng.get_system_stats()["index"]
+    if extra.get("index.tier") == "ivf":
+        assert stats["ivf"]["fine_dtype"] == "int4"
+        assert stats["ivf"] == jeng.get_system_stats()["index"]["ivf"]
+        # two rows a byte: half of an int8 copy's bytes
+        iv = peng.index._ivf2
+        assert stats["ivf"]["fine_bytes"] == iv.nblocks * 128 * 768
+    elif "index.tier" in extra:  # auto below the crossover: the int8 tier
+        assert stats["effective_tier"] == "int8" and stats["ivf"] is None
+    else:
+        assert peng.encoder.dense.module.attention_impl == "flash"
+
+
+def test_auto_tier_at_ivf_scale_builds_int4(monkeypatch):
+    # at ivf scale "auto" with ivf_fine_dtype="int4" builds the packed copy
     from modular_rag_system_tpu_torch.index import DeviceIndex
 
-    with pytest.raises(NotImplementedError, match="int4"):
-        DeviceIndex(dim=8, tier="auto", ivf_fine_dtype="int4", device="cpu")
+    monkeypatch.setattr(DeviceIndex, "_AUTO_IVF_ROWS", 512)
+    idx = DeviceIndex(dim=8, tier="auto", ivf_fine_dtype="int4", ivf_clusters=4,
+                      ivf_rebuild_min=64, device="cpu")
+    rng = np.random.default_rng(5)
+    E = rng.standard_normal((600, 8)).astype(np.float32)
+    E /= np.linalg.norm(E, axis=1, keepdims=True)
+    idx.add(E)
+    assert idx.effective_tier() == "ivf" and idx._ivf2.fine_dtype == "int4"
+    assert idx._ivf2.E_c3.shape[1] == 128 and idx._ivf2.block_cluster is not None
+    assert idx.search(E[:3], 1)[1][:, 0].tolist() == [0, 1, 2]
 
 
 def test_auto_tier_at_ivf_scale_serves_ivf():

@@ -16,12 +16,20 @@ Tolerances and their reasons:
 * Fine-stage scores: bf16(q) . row in both, exact products summed in f32
   in another order: within 1e-6 on unit-scale scores; the -inf pattern
   and the slot ids equal.
+* The int4 fine copy: packed bytes and scales bit for bit (the compiled
+  JAX code multiplies absmax by the f32 reciprocal of 7, and so does the
+  port), after the fill and after ``update_rows``.  Its 4-bit scores only
+  rank candidates, which the master rescores: ids equal, scores within
+  1e-5.
+* ``fine_binmax`` is the row maximum of the dump, exactly (the plain
+  versions share one scoring function), and within 1e-6 of the JAX kernel.
 * Index searches: inputs are bf16-representable, so the fused/two-pass
   fallback (bf16 products in the port, true f32 products in JAX on the
   CPU) sees the same products; ids equal, scores within 1e-6.
 """
 
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -32,9 +40,11 @@ import torch
 from modular_rag_system_tpu.index import DeviceIndex as JaxIndex
 from modular_rag_system_tpu.ops import ivf2 as jivf
 from modular_rag_system_tpu.ops import kmeans as jkm
+from modular_rag_system_tpu.ops import quantize as jquant
 from modular_rag_system_tpu_torch.index import DeviceIndex
 from modular_rag_system_tpu_torch.ops import ivf2 as pivf
 from modular_rag_system_tpu_torch.ops import kmeans as pkm
+from modular_rag_system_tpu_torch.ops import quantize as pquant
 
 
 def _t(x):
@@ -66,7 +76,8 @@ def _jax_arrays(iv):
             "scales3": None if iv.scales3 is None else np.asarray(iv.scales3),
             "perm": np.asarray(iv.perm), "inv_perm": np.asarray(iv.inv_perm),
             "blk_start": np.asarray(iv.blk_start), "nblk": np.asarray(iv.nblk),
-            "counts": np.asarray(iv.counts)}
+            "counts": np.asarray(iv.counts),
+            "block_cluster": np.asarray(iv.block_cluster)}
 
 
 def _assert_same_build(jiv, piv):
@@ -104,7 +115,7 @@ def test_kmeans_fit_matches_jax(rng, store):
 
 # ---------------------------------------------------------------------------
 # IVF2 build
-@pytest.mark.parametrize("fine_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("fine_dtype", ["bf16", "int8", "int4"])
 def test_warm_start_build_bit_equal(rng, fine_dtype):
     E = np.zeros((4096, 32), np.float32)
     count = 2500
@@ -117,6 +128,116 @@ def test_warm_start_build_bit_equal(rng, fine_dtype):
     assert piv.warm_started and piv.built == count
     _assert_same_build(jw, piv)
     np.testing.assert_array_equal(piv.labels_host(), warm[1])
+    np.testing.assert_array_equal(np.asarray(jw.block_cluster), piv.block_cluster.numpy())
+    if fine_dtype == "int4":
+        assert piv.E_c3.shape[1] == pivf.SLAB // 2 and piv.E_c3.dtype == torch.int8
+        assert piv.fine_bytes() * 2 == piv.nblocks * pivf.SLAB * 32
+
+
+# ---------------------------------------------------------------------------
+# the int4 fine copy: packing, fill, row updates
+def test_int4_blocks_bit_exact(rng):
+    x = (rng.standard_normal((4 * 256, 48)) * rng.uniform(0.01, 5, (1024, 1))).astype(
+        np.float32)
+    x[3] = x[700] = 0.0  # zero rows stay dead: scale 0
+    jp, js = jax.jit(functools.partial(jquant.quantize_int4_blocks, nb=4, slab=256))(
+        jnp.asarray(x))
+    pp, ps = pquant.quantize_int4_blocks(_t(x), 4, 256)
+    assert pp.shape == (4, 128, 48) and pp.dtype == torch.int8
+    np.testing.assert_array_equal(np.asarray(jp), pp.numpy())
+    np.testing.assert_array_equal(np.asarray(js), ps.numpy())
+    assert ps[0, 3].item() == 0.0 and ps[2, 700 - 512].item() == 0.0
+    np.testing.assert_array_equal(np.asarray(jquant.unpack_int4_blocks(jp, js)),
+                                  pquant.unpack_int4_blocks(pp, ps).numpy())
+
+
+def _int4_pair(rng, n=2500, d=32, clusters=9):
+    E = np.zeros((4096, d), np.float32)
+    E[:n] = _unit(rng, n, d)
+    jiv = jivf.IVF2.build(jnp.asarray(E), n, n_clusters=clusters, iters=3,
+                          fine_dtype="int4")
+    piv = pivf.IVF2.from_numpy(_jax_arrays(jiv), n, "int4", device="cpu")
+    return E, jiv, piv
+
+
+def test_int4_update_rows_bit_exact(rng):
+    E, jiv, piv = _int4_pair(rng)
+    perm = np.asarray(jiv.perm)
+    # both rows of one packed byte row: slots s and s + SLAB / 2 of a block
+    s_hi = next(s for s in range(0, len(perm), pivf.SLAB)
+                if perm[s] >= 0 and perm[s + pivf.SLAB // 2] >= 0)
+    pair = perm[[s_hi, s_hi + pivf.SLAB // 2]]
+    others = np.setdiff1d(np.arange(40), pair)[:6]
+    rows = np.concatenate([pair, others, [3000]])  # 3000 is past built: dropped
+    mat = np.array(_unit(rng, len(rows), E.shape[1]))  # writable
+    for iv in (jiv, piv):
+        iv.update_rows(rows, mat)
+    _assert_same_build(jiv, piv)
+    assert piv.stale_rows == jiv.stale_rows == len(rows) - 1
+    # the two nibbles of the shared bytes are the two rows' own values
+    got = pquant.unpack_int4_values(piv.E_c3[s_hi // pivf.SLAB])
+    cen = piv.centroids[piv.block_cluster[s_hi // pivf.SLAB].long()]
+    for j, off in enumerate((0, pivf.SLAB // 2)):
+        qv, _ = pquant.int4_scale_and_values(_t(mat[j:j + 1]) - cen)
+        np.testing.assert_array_equal(got[s_hi % pivf.SLAB + off].numpy(), qv[0].numpy())
+    # a delete (zero row: the residual is -centroid) and a resurrect
+    for iv in (jiv, piv):
+        iv.update_rows(pair[:1], None)
+    _assert_same_build(jiv, piv)
+    for iv in (jiv, piv):
+        iv.update_rows(pair[:1], mat[:1])
+    _assert_same_build(jiv, piv)
+
+
+def test_int4_fine_copy_raises(rng):
+    # what the int4 copy still refuses, with the JAX package's messages: a
+    # row update on an instance made without its block -> cluster table
+    E, jiv, piv = _int4_pair(rng, n=600, clusters=4)
+    jbare = jivf.IVF2(jiv.centroids, jiv.E_c3, jiv.scales3, jiv.perm, jiv.inv_perm,
+                      jiv.blk_start, jiv.nblk, jiv.counts, jiv.built, jiv.nprobe, "int4")
+    pbare = pivf.IVF2(piv.centroids, piv.E_c3, piv.scales3, piv.perm, piv.inv_perm,
+                      piv.blk_start, piv.nblk, piv.counts, piv.built, "int4")
+    msgs = []
+    for bare in (jbare, pbare):
+        with pytest.raises(ValueError, match="block_cluster") as err:
+            bare.update_rows(np.asarray([0]), E[:1])
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
+    with pytest.raises(ValueError, match="ivf_fine_dtype"):
+        DeviceIndex(dim=32, tier="ivf", ivf_fine_dtype="int2", device="cpu")
+
+
+def test_int4_refusals_match_jax(rng, monkeypatch):
+    E, jiv, piv = _int4_pair(rng, n=1024, clusters=4)
+    q = _unit(rng, 4, 32)
+    L = ((jiv.slots_for_nprobe(4) + 3) // 4) * 4
+    monkeypatch.setattr(jivf, "_RESCORE_MAX_BYTES", 1024)
+    monkeypatch.setattr(pivf, "_RESCORE_MAX_BYTES", 1024)
+    with pytest.raises(ValueError, match="master rescore") as jerr:
+        jivf.ivf2_search_core(
+            jnp.asarray(E), jiv.E_c3, jiv.scales3, jiv.perm, jiv.centroids, jiv.blk_start,
+            jiv.nblk, jiv.counts, jnp.int32(1024), jnp.int32(1024), jnp.asarray(q),
+            k=10, nprobe=4, L=L, tail_max=0, interpret=True)
+    args = (_t(E), piv.E_c3, piv.scales3, piv.perm, piv.centroids, piv.blk_start, piv.nblk,
+            piv.counts, 1024, 1024, _t(q))
+    with pytest.raises(ValueError, match="master rescore") as perr:
+        pivf.ivf2_search_core(*args, k=10, nprobe=4, L=L, tail_max=0)
+    assert str(perr.value) == str(jerr.value)
+    # an explicit refine_extra overrides the default's budget check
+    _, rows = pivf.ivf2_search_core(*args, k=10, nprobe=4, L=L, tail_max=0, refine_extra=100)
+    assert rows.shape == (4, 10) and (rows >= 0).all()
+    # a bias meets the selecting path: refused before anything is read
+    Lbig = 2 * jivf._DUMP_VMEM_BYTES // (jivf.SLAB * 4)
+    blk = np.zeros((1, Lbig), np.int32)
+    with pytest.raises(ValueError, match="score-dump path") as jerr:
+        jivf.fine_call_auto(jiv.E_c3, jiv.scales3, jnp.asarray(q[:1]), jnp.asarray(blk),
+                            jnp.asarray(blk), 10, 4, True,
+                            bias=jnp.zeros((1, Lbig), jnp.float32))
+    with pytest.raises(ValueError, match="score-dump path") as perr:
+        pivf.fine_call_auto(piv.E_c3, piv.scales3, _t(q[:1]), _t(blk), _t(blk), 10,
+                            bias=torch.zeros((1, Lbig)))
+    assert str(perr.value) == str(jerr.value)
+    assert re.search(r"Q=1 L=\d+", str(perr.value))
 
 
 @pytest.mark.parametrize("balance", [0.0, 1.5])
@@ -172,6 +293,12 @@ def test_block_lists_exact(rng):
                               _t(jiv.counts), L + 8)
     np.testing.assert_array_equal(np.asarray(jb), pb.numpy())
     np.testing.assert_array_equal(np.asarray(jv), pv.numpy())
+    jc = jivf.block_lists(jnp.asarray(probes), jiv.blk_start, jiv.nblk, jiv.counts,
+                          L + 8, return_clusters=True)[2]
+    pb2, pv2, pc = pivf.block_lists(_t(probes), _t(jiv.blk_start), _t(jiv.nblk),
+                                    _t(jiv.counts), L + 8, return_clusters=True)
+    assert torch.equal(pb2, pb) and torch.equal(pv2, pv)
+    np.testing.assert_array_equal(np.asarray(jc), pc.numpy())
 
 
 def test_auto_u_and_dump_rule_match_jax():
@@ -181,7 +308,7 @@ def test_auto_u_and_dump_rule_match_jax():
             assert pivf._use_dump(Q, L) == jivf._use_dump(Q, L)
 
 
-@pytest.mark.parametrize("fine_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("fine_dtype", ["bf16", "int8", "int4"])
 def test_fine_stage_plain_matches_jax(rng, fine_dtype):
     d = 64
     E = _unit(rng, 2048, d)
@@ -209,6 +336,38 @@ def test_fine_stage_plain_matches_jax(rng, fine_dtype):
     # the dump path's ids equal the selecting kernel's (the JAX invariant)
     xv, xsl = pivf.fine_call_xla(E_c3, sc_p, _t(q), blk, vcnt, kf)
     np.testing.assert_array_equal(xsl.numpy(), psl.numpy())
+    # the maxima probe: the row maximum of the dump, -inf for a dead slot
+    pm = pivf.fine_binmax_call(E_c3, sc_p, _t(q), blk, vcnt)
+    assert pm.shape == blk.shape
+    np.testing.assert_array_equal(pm.numpy(), ps.reshape(4, L, pivf.SLAB).max(axis=2))
+    np.testing.assert_array_equal(np.isfinite(pm.numpy()), np.asarray(jv) > 0)
+    jm = np.asarray(jivf._fine_binmax_call(jiv.E_c3, sc, jnp.asarray(q), jb, jv, 4, True))
+    fin = np.isfinite(jm)
+    np.testing.assert_array_equal(fin, np.isfinite(pm.numpy()))
+    np.testing.assert_allclose(jm[fin], pm.numpy()[fin], rtol=0, atol=1e-6)
+
+
+def test_fine_call_xla_bias_matches_jax(rng):
+    E, jiv, piv = _int4_pair(rng, n=2048, d=64, clusters=6)
+    q, probes, L = _probe_lists(rng, jiv, 4, 3, 64)
+    jb, jv, jc = jivf.block_lists(jnp.asarray(probes), jiv.blk_start, jiv.nblk,
+                                  jiv.counts, L, return_clusters=True)
+    cs = q @ np.asarray(jiv.centroids).T
+    bias = np.take_along_axis(cs, np.asarray(jc), axis=1)
+    kf = 300  # past the iterative selection's k: the sort branch
+    jv_, jsl = jivf.fine_call_xla(jiv.E_c3, jiv.scales3, jnp.asarray(q), jb, jv, kf, 4, True,
+                                  bias=jnp.asarray(bias))
+    pv_, psl = pivf.fine_call_xla(piv.E_c3, piv.scales3, _t(q), _t(jb), _t(jv), kf,
+                                  bias=_t(bias))
+    jv_, pv_ = np.asarray(jv_), pv_.numpy()
+    np.testing.assert_allclose(jv_, pv_, rtol=0, atol=1e-6)
+    # 4-bit scores tie often: equal slots wherever the score is not tied
+    # with a neighbour's within the summation-order tolerance
+    same = np.asarray(jsl) == psl.numpy()
+    gap = np.minimum(np.abs(np.diff(jv_, axis=1, prepend=np.inf)),
+                     np.abs(np.diff(jv_, axis=1, append=-np.inf)))
+    assert (same | (gap <= 2e-6)).all()
+    assert same.mean() > 0.95
 
 
 def test_fine_topk_ties_by_lowest_slot():
@@ -239,7 +398,8 @@ def _jax_search(jiv, E, q, k, nprobe, built, count, tail_max):
     return np.asarray(v), np.asarray(r), L
 
 
-@pytest.mark.parametrize("fine_dtype,store", [("bf16", "float32"), ("int8", "bfloat16")])
+@pytest.mark.parametrize("fine_dtype,store", [("bf16", "float32"), ("int8", "bfloat16"),
+                                              ("int4", "float32")])
 def test_ivf2_search_core_on_jax_state(rng, fine_dtype, store):
     d, cap, built, count, k = 32, 4096, 2000, 2300, 10
     E = np.zeros((cap, d), np.float32)
@@ -254,7 +414,9 @@ def test_ivf2_search_core_on_jax_state(rng, fine_dtype, store):
         piv.blk_start, piv.nblk, piv.counts, built, count, _t(q), k=k, nprobe=3, L=L,
         tail_max=4096)
     np.testing.assert_array_equal(jr, pr.numpy())
-    np.testing.assert_allclose(jv, pv.numpy(), rtol=0, atol=1e-6)
+    # int4: the master rescores 4-bit-ranked candidates (the stated 1e-5)
+    np.testing.assert_allclose(jv, pv.numpy(), rtol=0,
+                               atol=1e-5 if fine_dtype == "int4" else 1e-6)
     assert (pr.numpy() >= built).any()  # the tail took part
 
 
@@ -279,7 +441,8 @@ def _same_search(jidx, pidx, q, k):
     return pr
 
 
-@pytest.mark.parametrize("store,fine", [("float32", "bf16"), ("bfloat16", "int8")])
+@pytest.mark.parametrize("store,fine", [("float32", "bf16"), ("bfloat16", "int8"),
+                                        ("float32", "int4")])
 def test_ivf_index_lifecycle_matches_jax(rng, store, fine):
     jidx, pidx = _pair(store, ivf_fine_dtype=fine)
     E = _unit(rng, 3000, 32)
@@ -311,6 +474,9 @@ def test_ivf_index_lifecycle_matches_jax(rng, store, fine):
     assert pidx._ivf2.built == 3000
     _same_search(jidx, pidx, q, 10)
     _same_search(jidx, pidx, q, 100)
+    assert pidx._ivf2.fine_dtype == jidx._ivf2.fine_dtype == fine
+    if fine != "int4":  # int4 residuals follow the centroids, equal to 1e-5 only
+        _assert_same_build(jidx._ivf2, pidx._ivf2)
 
 
 def test_ivf_below_build_threshold_serves_fused(rng):
@@ -391,6 +557,31 @@ def test_jax_snapshot_restores_with_warm_start(rng, tmp_path):
     np.testing.assert_array_equal(data["ivf_labels"], jidx._ivf2.labels_host())
 
 
-def test_int4_fine_copy_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceIndex(dim=32, tier="ivf", ivf_fine_dtype="int4", device="cpu")
+def test_int4_index_serves_and_syncs_nibbles(rng):
+    # the JAX package's own int4 checks, on the port: at full probe the
+    # master rescore returns the exact tier's rows and scores, and a
+    # delete zeroes one nibble without clobbering the packed partner row
+    E = _clustered(rng, 8, 250, 64)
+    idx = DeviceIndex(dim=64, tier="ivf", ivf_clusters=8, ivf_nprobe=8,
+                      ivf_rebuild_min=64, ivf_fine_dtype="int4", device="cpu")
+    idx.add(E)
+    iv = idx._ivf2
+    assert iv.fine_dtype == "int4" and iv.E_c3.shape[1] == pivf.SLAB // 2
+    q = _unit(rng, 4, 64) * 0.3 + E[:4] * 0.7
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    scores, rows = idx.search(q, 5)
+    exact = DeviceIndex(dim=64, tier="exact", device="cpu")
+    exact.add(E)
+    ref_scores, ref_rows = exact.search(q, 5)
+    assert [set(r) for r in rows] == [set(r) for r in ref_rows]
+    np.testing.assert_allclose(scores, ref_scores, rtol=1e-5, atol=1e-5)
+    slot0 = int(iv.inv_perm[0])
+    half = pivf.SLAB // 2
+    partner = int(iv.perm[slot0 + (half if slot0 % pivf.SLAB < half else -half)])
+    idx.delete_rows(np.asarray([0]))
+    s0, r0 = idx.search(E[:1], 1)
+    assert r0[0, 0] != 0 or s0[0, 0] < 0.5
+    if partner >= 0:
+        assert idx.search(E[partner:partner + 1], 1)[1][0, 0] == partner
+    idx.set_rows(np.asarray([0]), E[:1])
+    assert idx.search(E[:1], 1)[1][0, 0] == 0

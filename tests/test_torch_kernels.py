@@ -12,6 +12,9 @@ partial sums exact); on real-valued inputs the kernels sum f32 products
 in another order than the plain versions (``binmax`` on the tensor
 cores), so scores agree within 1e-5 and ids agree except at near-ties
 (checked against an f64 rescore); the -inf pattern is always identical.
+``mea_attention`` in bf16 rounds its probabilities and its output to
+bf16, so a last-bit difference in f32 can move an output by one bf16
+step: |d| <= 2^-7 |ref| + 1e-5 there, 1e-5 in f32.
 """
 
 import numpy as np
@@ -19,9 +22,10 @@ import pytest
 import torch
 
 from modular_rag_system_tpu_torch.ops import binmax_topk as pb
+from modular_rag_system_tpu_torch.ops import flash_attention as pfa
 from modular_rag_system_tpu_torch.ops import fused_topk as pf
 from modular_rag_system_tpu_torch.ops import ivf2 as pivf
-from modular_rag_system_tpu_torch.ops.quantize import quantize_rows
+from modular_rag_system_tpu_torch.ops.quantize import quantize_int4_blocks, quantize_rows
 
 D = 768
 
@@ -138,20 +142,22 @@ def _fine_case(seed, fine_dtype, dev, nblocks=64, Q=8, L=24):
     E /= np.linalg.norm(E, axis=1, keepdims=True)
     Et = torch.from_numpy(E).to(dev)
     if fine_dtype == "int8":
-        from modular_rag_system_tpu_torch.ops.quantize import quantize_rows
-
         qv, sc = quantize_rows(Et)
         E_c3, sc3 = qv.view(nblocks, pivf.SLAB, D), sc.view(nblocks, pivf.SLAB)
+    elif fine_dtype == "int4":
+        E_c3, sc3 = quantize_int4_blocks(Et, nblocks, pivf.SLAB)
     else:
         E_c3, sc3 = Et.to(torch.bfloat16).view(nblocks, pivf.SLAB, D), None
     blk = torch.from_numpy(np.stack([rng.choice(nblocks, L, replace=False)
                                      for _ in range(Q)]).astype(np.int32)).to(dev)
-    vcnt = torch.from_numpy(rng.choice([0, 1, 100, 256, 256], (Q, L)).astype(np.int32)).to(dev)
+    # dead, partial (below and above half a slab, odd) and full slots
+    vcnt = torch.from_numpy(rng.choice([0, 1, 77, 100, 129, 256, 256],
+                                       (Q, L)).astype(np.int32)).to(dev)
     return E_c3, sc3, _queries(seed + 1, Q, dev), blk, vcnt
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fine_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("fine_dtype", ["bf16", "int8", "int4"])
 def test_fine_scores_kernel_matches_plain(cuda_device, fine_dtype):
     E_c3, sc3, q, blk, vcnt = _fine_case(8, fine_dtype, cuda_device)
     out = pivf.fine_scores_call(E_c3, sc3, q, blk, vcnt)
@@ -163,7 +169,8 @@ def test_fine_scores_kernel_matches_plain(cuda_device, fine_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fine_dtype,k,L", [("bf16", 20, 24), ("int8", 128, 24),
-                                            ("int8", 20, 300)])
+                                            ("int8", 20, 300), ("int4", 20, 24),
+                                            ("int4", 128, 300)])
 def test_fine_topk_kernel_matches_plain(cuda_device, fine_dtype, k, L):
     E_c3, sc3, q, blk, vcnt = _fine_case(9, fine_dtype, cuda_device, nblocks=400, L=L)
     v1, s1 = pivf.fine_call(E_c3, sc3, q, blk, vcnt, k)
@@ -172,3 +179,60 @@ def test_fine_topk_kernel_matches_plain(cuda_device, fine_dtype, k, L):
     # the dump path selects the same slots (the JAX package's invariant)
     xv, xs = pivf.fine_call_xla(E_c3, sc3, q, blk, vcnt, k)
     _assert_topk_close(v1, s1, xv, xs, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine_dtype", ["bf16", "int8", "int4"])
+def test_fine_binmax_kernel_matches_plain(cuda_device, fine_dtype):
+    E_c3, sc3, q, blk, vcnt = _fine_case(10, fine_dtype, cuda_device)
+    out = pivf.fine_binmax_call(E_c3, sc3, q, blk, vcnt)
+    ref = pivf.fine_binmax_reference(E_c3, sc3, q, blk, vcnt)
+    assert out.shape == blk.shape
+    assert torch.equal(torch.isfinite(out), vcnt > 0)
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(out), fin)
+    torch.testing.assert_close(out[fin], ref[fin], rtol=0, atol=1e-5)
+    # and the row maximum of the dump kernel, which scores with the same code
+    dump = pivf.fine_scores_call(E_c3, sc3, q, blk, vcnt)
+    assert torch.equal(out, dump.view(*blk.shape, pivf.SLAB).amax(dim=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap,count,k,kb,bw,crafted", [
+    (8192, 8000, 10, 13, 32, False), (16384, 16001, 100, 103, 64, False),
+    (8192, 7001, 16, 19, 32, True),   # crafted ties, a count inside a bin
+    (8192, 8000, 100, 2, 32, False),  # kb x bin_width < k
+    (8192, 5, 10, 13, 32, False)])    # fewer live rows than k
+def test_rescan_kernel_matches_plain(cuda_device, dtype, cap, count, k, kb, bw, crafted):
+    E = _float_rows(11, cap, count, cuda_device, dtype, crafted)
+    Q = 16
+    q = (torch.randint(-1, 2, (Q, D), device=cuda_device).float() if crafted
+         else _queries(12, Q, cuda_device))
+    rng = np.random.default_rng(13)
+    bins = np.stack([rng.permutation(cap // bw)[:kb] for _ in range(Q)]).astype(np.int32)
+    bins[:, 0] = np.where((bins[:, 1:] == count // bw).any(axis=1), bins[:, 0], count // bw)
+    bins = torch.from_numpy(bins).to(cuda_device)
+    v1, i1 = pb.rescan_call(E, bins, count, q, k, bw)
+    v2, i2 = pb.rescan_reference(E, bins, count, q, k, bw)
+    _assert_topk_close(v1, i1, v2, i2, crafted)
+    assert (i1[~torch.isfinite(v1)] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,dh", [(3, 40, 3, 32), (2, 128, 12, 32), (2, 600, 2, 64),
+                                      (1, 70, 2, 128), (2, 33, 4, 8)])
+def test_mea_attention_kernel_matches_plain(cuda_device, dtype, B, L, H, dh):
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    q, k, v = (torch.randn((B, L, H, dh), generator=g, device=cuda_device).to(dtype)
+               for _ in range(3))
+    pad = torch.ones((B, L), dtype=torch.int32, device=cuda_device)
+    pad[0, L * 5 // 8:] = 0  # ragged padding
+    pad[-1] = 0 if B > 1 else pad[-1]  # an all-padding batch row
+    out = pfa.mea_attention(q, k, v, pad)
+    ref = pfa.mea_attention_reference(q, k, v, pad)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    d = (out.float() - ref.float()).abs()
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7 * ref.float().abs() + 1e-5
+    assert (d <= tol).all(), d.max().item()

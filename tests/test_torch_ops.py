@@ -331,3 +331,88 @@ def test_float_stream_search_core_routing(rng, monkeypatch, cap, k, bw, route):
     fin = np.isfinite(vj)
     np.testing.assert_array_equal(ij[fin], ip.numpy()[fin])
     np.testing.assert_allclose(vj[fin], vp.numpy()[fin], rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# pass 2 in one kernel (kernel_rescan=True): rescan_call against the JAX
+# Pallas kernel in interpret mode.  The port multiplies bf16 products (the
+# TPU's default precision, on an f32 store too) where interpret mode
+# multiplies in true f32, so rows and queries are bf16-representable: ids
+# equal, scores within 1e-6 (f32 summation order), bit for bit on
+# integer-valued inputs.
+@pytest.mark.parametrize("store,case,k,bw,count", [
+    ("float32", "unit", 10, 32, 8000), ("bfloat16", "unit", 10, 64, 8000),
+    ("float32", "ties", 16, 32, 7001),   # crafted ties, a count inside a bin
+    ("bfloat16", "unit", 100, 32, 8000),
+    ("float32", "unit", 10, 32, 5)])     # fewer live rows than k
+def test_rescan_call_matches_jax(rng, store, case, k, bw, count):
+    cap, d, Q = 8192, 64, 6
+    E, q = _float_case(rng, case, cap, d, Q)
+    E[count:] = 0
+    kb = k + 3
+    # distinct bins per query, unsorted, the straddle bin among them
+    bins = np.stack([rng.permutation(cap // bw)[:kb] for _ in range(Q)]).astype(np.int32)
+    bins[:, 0] = min(count, cap - 1) // bw
+    for r in range(Q):  # keep the row's bins distinct
+        dup = np.nonzero(bins[r, 1:] == bins[r, 0])[0]
+        bins[r, 1 + dup] = (bins[r, 0] + 1) % (cap // bw)
+    vj, ij = jb.rescan_call(jnp.asarray(E).astype(store), jnp.asarray(bins),
+                            jnp.int32(count), jnp.asarray(q), k, bw, True)
+    vp, ip = pb.rescan_call(_t(E).to(getattr(torch, store)), _t(bins), count, _t(q), k, bw)
+    vj, ij = np.asarray(vj), np.asarray(ij)
+    fin = np.isfinite(vj)
+    np.testing.assert_array_equal(fin, np.isfinite(vp.numpy()))
+    np.testing.assert_array_equal(ij[fin], ip.numpy()[fin])
+    _close(vj[fin], vp.numpy()[fin], case == "ties")
+    assert (ip.numpy()[~fin] == -1).all()
+    if count < k:
+        assert (fin.sum(axis=1) <= count).all()
+
+
+def test_rescan_fewer_candidates_than_k(rng):
+    E, q = _float_case(rng, "unit", 1024, 64, 3)
+    bins = np.array([[3, 1], [0, 31], [7, 8]], np.int32)
+    vals, ids = pb.rescan_call(_t(E), _t(bins), 1024, _t(q), 100, 32)
+    assert vals.shape == (3, 100) and torch.isfinite(vals[:, :64]).all()
+    assert torch.isinf(vals[:, 64:]).all() and (ids[:, 64:] == -1).all()
+    assert sorted(ids[0, :64].tolist()) == list(range(32, 64)) + list(range(96, 128))
+
+
+@pytest.mark.parametrize("store,k", [("float32", 10), ("bfloat16", 10), ("float32", 100)])
+def test_twopass_kernel_rescan_matches_jax(rng, store, k):
+    cap, d, bw, count = 8192, 64, 32, 8000
+    E, q = _float_case(rng, "unit", cap, d, 6)
+    E[count:] = 0
+    E[100] = E[7]  # an exact tie across bins: the lower id first
+    vj, ij = jax.jit(jb.twopass_topk_raw, static_argnums=(3, 4, 5, 6, 7))(
+        jnp.asarray(E).astype(store), jnp.int32(count), jnp.asarray(q), k, 4096, bw, True,
+        True)
+    Ep = _t(E).to(getattr(torch, store))
+    vp, ip = pb.twopass_topk_raw(Ep, count, _t(q), k, bw, kernel_rescan=True)
+    np.testing.assert_array_equal(np.asarray(ij), ip.numpy())
+    np.testing.assert_allclose(np.asarray(vj), vp.numpy(), rtol=0, atol=1e-6)
+    # and the gather path it replaces: the same scoring space
+    vg, ig = pb.twopass_topk_raw(Ep, count, _t(q), k, bw)
+    assert torch.equal(ig, ip)
+    np.testing.assert_allclose(vg.numpy(), vp.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("master_dtype", ["float32", "bfloat16"])
+def test_twopass_int8_master_kernel_rescan_matches_jax(rng, master_dtype):
+    cap, d, count, k, bw = 8192, 64, 8000, 10, 32
+    E, q = _float_case(rng, "unit", cap, d, 5)
+    E[count:] = 0
+    qv, sc = jquant(jnp.asarray(E))
+    sc = np.asarray(sc).reshape(-1)
+    vj, ij = jax.jit(jb.twopass_topk_int8_master_raw,
+                     static_argnums=(5, 6, 7, 8, 9, 10))(
+        qv, jnp.asarray(sc), jnp.asarray(E).astype(master_dtype), jnp.int32(count),
+        jnp.asarray(q), k, 4096, bw, True, 2, True)
+    args = (_t(np.asarray(qv)), _t(sc), _t(E).to(getattr(torch, master_dtype)), count,
+            _t(q), k, bw)
+    vp, ip = pb.twopass_topk_int8_master_raw(*args, kernel_rescan=True)
+    np.testing.assert_array_equal(np.asarray(ij), ip.numpy())
+    np.testing.assert_allclose(np.asarray(vj), vp.numpy(), rtol=0, atol=1e-6)
+    vg, ig = pb.twopass_topk_int8_master_raw(*args)
+    assert torch.equal(ig, ip)
+    np.testing.assert_allclose(vg.numpy(), vp.numpy(), rtol=0, atol=1e-6)
