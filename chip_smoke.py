@@ -14,7 +14,7 @@ Phases (any failure exits non-zero and prints no result line):
    (crafted ties and integer-valued inputs that make the sums exact, a
    count that is no multiple of the bin width, count < k, dead and
    partial fine-stage slots in all three fine-copy modes, attention with
-   ragged padding and an all-padding row at L = 40 to 2048);
+   ragged padding and an all-padding row at L = 1 to 2048);
 3. engine: ``create_engine`` with the bundled hybrid encoder (dim 768),
    ``index.tier="auto"``: ingests the bundled knowledge sentences and QA
    passages as text (single-pass ``fused_topk_int8`` route), queries,
@@ -440,15 +440,16 @@ def check_binmax_float(g, dev):
 
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for cap, bw, crafted in ((16384, 32, False), (65536, 64, False), (8192, 32, True)):
+        for cap, bw, crafted in ((16384, 32, False), (65536, 64, False), (8192, 32, True),
+                                 (16384, 8, False), (16384, 128, True)):
             E = float_rows(g, cap, cap - 13, dev, dtype, crafted)
-            for Q in (1, 16, 256):
+            for Q in (1, 16, 256, 300):
                 q = (torch.randint(-1, 2, (Q, D), generator=g, device=dev).float()
                      if crafted else unit_queries(g, Q, dev))
                 worst = max(worst, _check_dense(B.binmax_call(E, q, bw),
                                                 B.binmax_reference(E, q, bw), crafted,
                                                 f"binmax {dtype} cap={cap} Q={Q}"))
-        log(f"kernel binmax {dtype}: caps 8192..65536, Q=1,16,256, bw 32/64 match "
+        log(f"kernel binmax {dtype}: caps 8192..65536, Q=1,16,256,300, bw 8..128 match "
             f"(integer rows bit-exact; max |err| {worst:.2e})")
     return worst
 
@@ -678,7 +679,8 @@ def check_mea(g, dev):
     for dtype in (torch.float32, torch.bfloat16):
         w = 0.0
         for B_, L, H, dh in ((3, 40, 12, 32), (3, 128, 12, 32), (2, 600, 4, 64),
-                             (2, 2048, 12, 32), (2, 2048, 2, 64)):
+                             (2, 2048, 12, 32), (2, 2048, 2, 64), (4, 1, 12, 32),
+                             (256, 32, 12, 32), (2, 100, 3, 40)):
             q, k, v = (torch.randn((B_, L, H, dh), generator=g, device=dev).to(dtype)
                        for _ in range(3))
             pad = torch.ones((B_, L), dtype=torch.int32, device=dev)
@@ -688,7 +690,7 @@ def check_mea(g, dev):
                                   FA.mea_attention_reference(q, k, v, pad),
                                   f"mea_attention {dtype} L={L} dh={dh}"))
         worst[dtype] = w
-    log(f"kernel mea_attention: L 40..2048, dh 32/64, ragged and all-padding rows finite; "
+    log(f"kernel mea_attention: L 1..2048, dh 32/40/64, ragged and all-padding rows finite; "
         f"max |err| f32 {worst[torch.float32]:.2e} (tolerance 1e-5), bf16 "
         f"{worst[torch.bfloat16]:.2e} (tolerance one bf16 step, 2^-7 |ref| + 1e-5)")
     return worst
@@ -696,9 +698,11 @@ def check_mea(g, dev):
 
 def time_binmax_float(idx, q, spec):
     """binmax at the ivf tier's k > 64 route's inputs (the engine's f32
-    master at its capacity, bin width 64): held against its plain version
-    within 1e-5, then timed.  Returns the timings at Q=len(q) and the max
-    |error|."""
+    master at its capacity, bin width 64), and over a bf16 copy of it (the
+    bf16 tier's pass 1): held against its plain version within 1e-5, then
+    timed beside one cuBLAS bf16 GEMM + bin max on the bf16 copy.  Returns
+    the timings at Q=len(q) over the f32 rows (with those over the bf16
+    rows under "bf16_rows") and the max |error|."""
     import torch
 
     from modular_rag_system_tpu_torch.ops import binmax_topk as B
@@ -706,33 +710,35 @@ def time_binmax_float(idx, q, spec):
     E = idx.E
     cap, bw = E.shape[0], B.auto_bin_width(E.shape[0])
     nb = cap // bw
+    E_bf = E.to(torch.bfloat16)
     res, worst = {}, 0.0
-    for Q in (q.shape[0], 1):
-        qq = q[:Q]
-        qb = qq.to(torch.bfloat16)
-        err = _check_dense(B.binmax_call(E, qq, bw), B.binmax_reference(E, qq, bw), False,
-                           f"binmax at the k > 64 route's inputs, Q={Q}")
-        worst = max(worst, err)
-        ms = cuda_ms(lambda: B.binmax_call(E, qq, bw))
-        queued = queued_ms(lambda: B.binmax_call(E, qq, bw))
-        plain = cuda_ms(lambda: B.binmax_reference(E, qq, bw), reps=3)
+    for rows, M in (("f32", E), ("bf16", E_bf)):
+        for Q in (q.shape[0], 1):
+            qq = q[:Q]
+            qb = qq.to(torch.bfloat16)
+            err = _check_dense(B.binmax_call(M, qq, bw), B.binmax_reference(M, qq, bw), False,
+                               f"binmax at the k > 64 route's inputs, {rows} rows, Q={Q}")
+            worst = max(worst, err)
+            ms = cuda_ms(lambda: B.binmax_call(M, qq, bw))
+            queued = queued_ms(lambda: B.binmax_call(M, qq, bw))
+            plain = cuda_ms(lambda: B.binmax_reference(M, qq, bw), reps=3)
 
-        E_bf = E.to(torch.bfloat16)
+            def library():  # one cuBLAS bf16 GEMM + the bin max
+                return (E_bf @ qb.T).view(nb, bw, Q).amax(1).T
 
-        def library():  # one cuBLAS bf16 GEMM + the bin max
-            return (E_bf @ qb.T).view(nb, bw, Q).amax(1).T
-
-        lib = cuda_ms(library, reps=5)
-        del E_bf
-        torch.cuda.empty_cache()
-        b_ms, b_by = bound(cap * D * 4 + Q * D * 2 + Q * nb * 4, 2 * cap * Q * D,
-                           spec[2], spec)
-        log(f"time binmax cap={cap} bw={bw} Q={Q}: {ms:.4f} ms (queued {queued:.4f} ms; "
-            f"plain {plain:.4f} ms, library {lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}); "
-            f"max |err| vs plain {err:.2e}")
-        res[Q] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                  "bound_by": b_by}
-    return res[q.shape[0]], worst
+            lib = cuda_ms(library, reps=5)
+            b_ms, b_by = bound(cap * D * M.element_size() + Q * D * 2 + Q * nb * 4,
+                               2 * cap * Q * D, spec[2], spec)
+            log(f"time binmax {rows} rows cap={cap} bw={bw} Q={Q}: {ms:.4f} ms (queued "
+                f"{queued:.4f} ms; plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+                f"{b_ms:.4f} ms by {b_by}); max |err| vs plain {err:.2e}")
+            res[rows, Q] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                            "bound_by": b_by}
+    del E_bf
+    torch.cuda.empty_cache()
+    entry = dict(res["f32", q.shape[0]])
+    entry["bf16_rows"] = res["bf16", q.shape[0]]
+    return entry, worst
 
 
 def time_fused_float(idx, q, spec):
@@ -967,7 +973,9 @@ def time_mea(q, k, v, pad, spec, what):
     """mea_attention at the given inputs: held against its plain version,
     then timed beside it and one ``scaled_dot_product_attention`` call
     with the key-padding mask.  Bound: q, k, v and the output once each
-    against 4 B H L^2 dh operations."""
+    against the kernel's 6 B H L^2 dh operations (two sweeps over k: the
+    TPU kernel's rounding needs the row's final maximum before p v); the
+    one-sweep count, 4 B H L^2 dh, is reported beside it."""
     import torch
     import torch.nn.functional as F
 
@@ -983,14 +991,15 @@ def time_mea(q, k, v, pad, spec, what):
     mask = (pad > 0)[:, None, None, :]
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=10)
     peak = spec[2] if q.dtype == torch.bfloat16 else 67e12
-    b_ms, b_by = bound(4 * q.numel() * q.element_size() + pad.numel() * 4,
-                       4 * B_ * H * L * L * dh, peak, spec)
+    nbytes = 4 * q.numel() * q.element_size() + pad.numel() * 4
+    b_ms, b_by = bound(nbytes, 6 * B_ * H * L * L * dh, peak, spec)
+    b4_ms, b4_by = bound(nbytes, 4 * B_ * H * L * L * dh, peak, spec)
     log(f"time mea_attention {what} B={B_} L={L} H={H} dh={dh} {q.dtype}: {ms:.4f} ms "
         f"(queued {queued:.4f} ms; plain {plain:.4f} ms, library {lib:.4f} ms "
-        f"(scaled_dot_product_attention with the key mask), bound {b_ms:.4f} ms by {b_by}); "
-        f"max |err| vs plain {err:.2e}")
+        f"(scaled_dot_product_attention with the key mask), bound {b_ms:.4f} ms by {b_by} "
+        f"(two sweeps; one sweep {b4_ms:.4f} ms by {b4_by})); max |err| vs plain {err:.2e}")
     return ({"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-             "bound_by": b_by}, err)
+             "bound_by": b_by, "bound_ms_one_sweep": b4_ms}, err)
 
 
 # ---------------------------------------------------------------------------
@@ -1251,14 +1260,15 @@ def flash_engine(work, kernels, dense_eng, know, questions, passages, r_int8, sp
     entry, err = time_mea(*captured[0], spec, "at the engine's first layer, Q=256")
     eng.shutdown()
 
-    # alone, at the lengths the TPU kernel was written for
+    # alone: a 256-row batch at the bundled encoder's max_len, and the
+    # lengths the TPU kernel was written for
     g = torch.Generator(device=dev).manual_seed(2)
-    for L in (2048, 4096):
-        q, k, v = (torch.randn((8, L, 12, 32), generator=g, device=dev).to(torch.bfloat16)
+    for B_, L in ((256, 128), (8, 2048), (8, 4096)):
+        q, k, v = (torch.randn((B_, L, 12, 32), generator=g, device=dev).to(torch.bfloat16)
                    for _ in range(3))
-        pad = torch.ones((8, L), dtype=torch.int32, device=dev)
+        pad = torch.ones((B_, L), dtype=torch.int32, device=dev)
         pad[0, L * 3 // 4:] = 0
-        _, e = time_mea(q, k, v, pad, spec, "alone (B x H = 96)")
+        _, e = time_mea(q, k, v, pad, spec, f"alone (B x H = {B_ * 12})")
         err = max(err, e)
     del q, k, v
     torch.cuda.empty_cache()

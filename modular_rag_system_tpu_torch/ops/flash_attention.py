@@ -13,10 +13,13 @@ at a finite -1e9 (a batch row that is all padding softmaxes uniformly and
 stays finite, where -inf would give NaN and poison the mean pool), the
 softmax runs in f32, exp(s - m) is rounded to the model dtype before it
 multiplies v, that product accumulates in f32, and the f32 row sum,
-floored at 1e-30, divides at the end.  The JAX kernel pads L to a multiple
-of 128 with masked keys, so its all-padding rows average over the padded
-length; here they average over L.  Such rows are dropped by the pooling
-mask either way.
+floored at 1e-30, divides at the end.  The JAX kernel pads L to Lp
+(``padded_length``) with keys that score -1e9 and carry zero rows of v,
+so a row whose keys are all padding sums exp(0) = 1 over all Lp keys but
+only the first L add to P.V: its output is sum(v[:L]) / Lp.  Both
+versions here add Lp - L to the row sum of such a row (its maximum is
+the masked -1e9), which gives the same value; the pooling mask drops
+such rows either way.
 
 On a CUDA device the wrapper launches ``kernels/mea_attention.cu``; on
 the CPU it runs the plain version.
@@ -34,11 +37,23 @@ _REF_CHUNK_BYTES = 1 << 30
 _MAX_DH = 128
 
 
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def padded_length(L: int) -> int:
+    """The key length the JAX kernel pads L to: L up to 128, then up to
+    its query block, min(512, that)."""
+    lp = _round_up(L, 128)
+    return _round_up(lp, min(512, lp))
+
+
 def mea_attention_reference(q, k, v, pad_mask):
     """Plain PyTorch version of ``mea_attention``, a few batch rows at a
     time so the (c, H, L, L) f32 scores stay bounded."""
     B, L, H, dh = q.shape
     scale = 1.0 / (dh ** 0.5)
+    extra = float(padded_length(L) - L)
     out = torch.empty_like(q)
     live = pad_mask.to(torch.float32) > 0.5
     step = max(_REF_CHUNK_BYTES // max(H * L * L * 4, 1), 1)
@@ -49,7 +64,8 @@ def mea_attention_reference(q, k, v, pad_mask):
         s = torch.where(live[sl, None, None, :], s, _NEG)
         m = s.amax(dim=3, keepdim=True)
         e = torch.exp(s - m)
-        denom = e.sum(dim=3, keepdim=True)
+        # the JAX kernel's padded keys: exp(0) = 1 each in an all-padding row
+        denom = e.sum(dim=3, keepdim=True) + torch.where(m == _NEG, extra, 0.0)
         o = e.to(v.dtype).float() @ vf
         out[sl] = (o / torch.clamp(denom, min=1e-30)).permute(0, 2, 1, 3).to(q.dtype)
     return out

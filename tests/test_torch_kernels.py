@@ -48,8 +48,8 @@ def _rows(seed, cap, count, dev):
     return E_q, sc.reshape(-1)
 
 
-def _queries(seed, Q, dev):
-    q = np.random.default_rng(seed).standard_normal((Q, D)).astype(np.float32)
+def _queries(seed, Q, dev, d=D):
+    q = np.random.default_rng(seed).standard_normal((Q, d)).astype(np.float32)
     return torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)).to(dev)
 
 
@@ -82,12 +82,12 @@ def test_fused_topk_int8_kernel_matches_plain(cuda_device, cap, count, k, bw):
         assert (exact - v2[bad].double()).abs().max().item() <= 2e-5
 
 
-def _float_rows(seed, cap, count, dev, dtype, crafted=False):
+def _float_rows(seed, cap, count, dev, dtype, crafted=False, d=D):
     rng = np.random.default_rng(seed)
     if crafted:  # small integers: every partial sum exact
-        E = rng.integers(-2, 3, (cap, D)).astype(np.float32)
+        E = rng.integers(-2, 3, (cap, d)).astype(np.float32)
     else:
-        E = rng.standard_normal((cap, D)).astype(np.float32)
+        E = rng.standard_normal((cap, d)).astype(np.float32)
         E /= np.linalg.norm(E, axis=1, keepdims=True)
     E[count:] = 0
     return torch.from_numpy(E).to(dev, dtype)
@@ -95,13 +95,20 @@ def _float_rows(seed, cap, count, dev, dtype, crafted=False):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cap,Q,bw,crafted", [
-    (8192, 1, 32, False), (8192, 70, 64, False), (16384, 256, 32, False),
-    (8192, 9, 32, True)])
-def test_binmax_kernel_matches_plain(cuda_device, dtype, cap, Q, bw, crafted):
-    E = _float_rows(4, cap, cap - 13, cuda_device, dtype, crafted)
-    q = (torch.randint(-1, 2, (Q, D), device=cuda_device).float() if crafted
-         else _queries(5, Q, cuda_device))
+@pytest.mark.parametrize("cap,Q,d,bw,crafted", [
+    (8192, 1, D, 32, False), (8192, 70, D, 64, False), (16384, 256, D, 32, False),
+    (8192, 9, D, 32, True),
+    # each query-tile width, and past one 256-wide tile
+    (8192, 8, D, 8, False), (8192, 100, D, 128, False), (8192, 300, D, 64, False),
+    (8192, 300, D, 32, True),
+    # d no multiple of the 32-deep k-step; bins below 8 rows
+    (4096, 16, 200, 8, False), (4096, 256, 200, 128, True), (4096, 20, D, 4, True),
+    # 1,000 row tiles: no multiple of the persistent grid's stride
+    (128000, 256, D, 64, False), (128000, 1, D, 16, False)])
+def test_binmax_kernel_matches_plain(cuda_device, dtype, cap, Q, d, bw, crafted):
+    E = _float_rows(4, cap, cap - 13, cuda_device, dtype, crafted, d)
+    q = (torch.randint(-1, 2, (Q, d), device=cuda_device).float() if crafted
+         else _queries(5, Q, cuda_device, d))
     out, ref = pb.binmax_call(E, q, bw), pb.binmax_reference(E, q, bw)
     if crafted:
         assert torch.equal(out, ref)
@@ -222,12 +229,22 @@ def test_rescan_kernel_matches_plain(cuda_device, dtype, cap, count, k, kb, bw, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,L,H,dh", [(3, 40, 3, 32), (2, 128, 12, 32), (2, 600, 2, 64),
-                                      (1, 70, 2, 128), (2, 33, 4, 8)])
+                                      (1, 70, 2, 128), (2, 33, 4, 8),
+                                      # one key, one or two 32-key tiles, a tile and one
+                                      (2, 1, 3, 32), (3, 32, 4, 32), (2, 64, 3, 32),
+                                      (2, 65, 3, 64), (2, 2048, 4, 32),
+                                      # dh no multiple of 16; short rows at dh 8 and 128
+                                      (2, 100, 3, 40), (5, 16, 3, 8), (2, 20, 3, 128),
+                                      # the engine's shape
+                                      (256, 32, 12, 32)])
 def test_mea_attention_kernel_matches_plain(cuda_device, dtype, B, L, H, dh):
     g = torch.Generator(device=cuda_device).manual_seed(14)
     q, k, v = (torch.randn((B, L, H, dh), generator=g, device=cuda_device).to(dtype)
                for _ in range(3))
     pad = torch.ones((B, L), dtype=torch.int32, device=cuda_device)
+    if B > 3:  # ragged lengths, as the engine's batches have them
+        lengths = torch.randint(1, L + 1, (B, 1), generator=g, device=cuda_device)
+        pad = (torch.arange(L, device=cuda_device) < lengths).to(torch.int32)
     pad[0, L * 5 // 8:] = 0  # ragged padding
     pad[-1] = 0 if B > 1 else pad[-1]  # an all-padding batch row
     out = pfa.mea_attention(q, k, v, pad)
