@@ -69,11 +69,13 @@ FULL_ROWS = 1_048_576
 IVF_ROWS = 4_718_592      # past the auto promotion at 4,194,304 rows
 REBUILD_ROWS = 5_636_096  # the tail passes 25%: the int8 rebuild
 FILL_BATCH = 65_536
-# the device kernel each launch of a port kernel runs (fine_topk's merge
-# is its second kernel and not counted)
+# the device kernels the port's wrappers launch (a fused_topk call over
+# several row splits runs fused_topk_merge_kernel after fused_topk_kernel;
+# mea_attention runs mea_bf16_kernel or mea_f32_kernel)
 _PORT_KERNELS = ("binmax_int8_kernel", "fused_topk_int8_kernel", "binmax_kernel",
-                 "fused_topk_kernel", "fine_scores_kernel", "fine_topk_kernel",
-                 "fine_binmax_kernel", "rescan_kernel", "mea_attention_kernel")
+                 "fused_topk_kernel", "fused_topk_merge_kernel", "fine_scores_kernel",
+                 "fine_topk_kernel", "fine_binmax_kernel", "rescan_kernel",
+                 "mea_bf16_kernel", "mea_f32_kernel")
 FINE_MODES = ("bf16", "int8", "int4")
 
 # published dense peaks of the card variants nvidia-smi may name:
@@ -248,15 +250,16 @@ def check_binmax(g, dev):
 
     from modular_rag_system_tpu_torch.ops import binmax_topk as B
 
-    for cap in (8192, FULL_ROWS):
+    for cap, Qs in ((8192, (1, 8, 16, 17, 129, 256, 300)), (FULL_ROWS, (1, 17, 256, 300))):
         count = cap - 13  # not a multiple of the bin width
         E_q, sc = quantized_rows(g, cap, count, dev)
-        for Q in (1, 16, 256):
+        for Q in Qs:  # each query tile of the launch plan, and past 256
             q_i8, q_scale = B.quantize_queries(unit_queries(g, Q, dev))
-            args = (E_q, sc, q_i8, q_scale, 32)
-            _check_dense(B.binmax_int8_call(*args), B.binmax_int8_reference(*args), True,
-                         f"binmax_int8 cap={cap} Q={Q}")
-        log(f"kernel binmax_int8 cap={cap} count={count} Q=1,16,256: bit-exact")
+            for bw in (32, 64):
+                args = (E_q, sc, q_i8, q_scale, bw)
+                _check_dense(B.binmax_int8_call(*args), B.binmax_int8_reference(*args), True,
+                             f"binmax_int8 cap={cap} Q={Q} bw={bw}")
+        log(f"kernel binmax_int8 cap={cap} count={count} Q={Qs}, bw 32 and 64: bit-exact")
         del E_q, sc
         torch.cuda.empty_cache()
     return 0.0
@@ -298,7 +301,8 @@ def time_binmax(eng, q, spec):
         lib = cuda_ms(library)
         b_ms, b_by = bound(cap * D + cap * 4 + Q * D + Q * 4 + Q * nb * 4,
                            2 * cap * Q * D, spec[1], spec)
-        log(f"time binmax_int8 cap={cap} Q={Q}: {ms:.4f} ms (queued {queued:.4f} ms; "
+        log(f"time binmax_int8 cap={cap} Q={Q} (query tile {B.binmax_int8_plan(Q, D)}): "
+            f"{ms:.4f} ms (queued {queued:.4f} ms; "
             f"plain {plain:.4f} ms, library {lib:.4f} ms (Q padded to {Qp}), "
             f"bound {b_ms:.4f} ms by {b_by}); bit-exact against its plain version")
         res[Q] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
@@ -486,8 +490,29 @@ def check_fused_float(g, dev):
             v1, i1 = F.fused_topk_raw(E_t, 3000, q_t, k, bw)
             v2, i2 = F.fused_topk_reference(E_t, 3000, q_t, k, bw)
             _check_topk(v1, i1, v2, i2, None, True, f"fused_topk {dtype} ties k={k} bw={bw}")
-        log(f"kernel fused_topk {dtype}: k 1..1024, bw None/128, count<k, crafted ties "
-            f"match (max |err| so far {worst:.2e})")
+        # the launch plan's edges: each query tile, a count below one
+        # 128-row split or no multiple of 128 with bins, bins of several
+        # chunks, k > count, k = 8192 over one and two splits (crafted:
+        # integer-valued, every tie exact)
+        for cap, count, Qn, k, bw, crafted in (
+                (4096, 1939, 1, 10, None, False), (4096, 1939, 17, 10, None, False),
+                (4096, 1939, 256, 10, None, False), (4096, 1939, 300, 10, None, False),
+                (4096, 3001, 300, 16, None, True), (1024, 50, 17, 10, None, False),
+                (4096, 1000, 17, 10, 128, False), (4096, 3001, 256, 8, 128, True),
+                (8192, 7000, 40, 10, 512, True), (1024, 700, 20, 1000, None, False),
+                (16384, 16000, 1, 8192, None, True), (16384, 9000, 3, 8192, None, True)):
+            E_e = float_rows(g, cap, count, dev, dtype, crafted)
+            q_e = (torch.randint(-1, 2, (Qn, D), generator=g, device=dev).float() if crafted
+                   else unit_queries(g, Qn, dev))
+            v1, i1 = F.fused_topk_raw(E_e, count, q_e, k, bw)
+            v2, i2 = F.fused_topk_reference(E_e, count, q_e, k, bw)
+            torch.cuda.synchronize()
+            err = _check_topk(v1, i1, v2, i2, float_rescorer(E_e, q_e), crafted,
+                              f"fused_topk {dtype} cap={cap} count={count} Q={Qn} k={k} "
+                              f"bw={bw}")
+            worst = max(worst, err)
+        log(f"kernel fused_topk {dtype}: k 1..8192, Q 1..300, bw None/128/512, count<k, "
+            f"crafted ties match (max |err| so far {worst:.2e})")
     return worst
 
 
@@ -743,8 +768,10 @@ def time_binmax_float(idx, q, spec):
 
 def time_fused_float(idx, q, spec):
     """fused_topk at the unbuilt ivf tier's inputs (the small engine's f32
-    master, k = 10): held against its plain version, then timed.  Returns
-    the timings at Q=len(q) and the max |error|."""
+    master, k = 10), and over a bf16 copy of its live rows (the bf16
+    tier's rows): held against its plain version, then timed.  Returns
+    the timings at Q=len(q) over the f32 rows (with those over the bf16
+    rows under "bf16_rows") and the max |error|."""
     import torch
 
     from modular_rag_system_tpu_torch.ops import fused_topk as F
@@ -752,29 +779,35 @@ def time_fused_float(idx, q, spec):
     E, count, k = idx.E, idx.count, 10
     E_bf = E[:count].to(torch.bfloat16)
     res, worst = {}, 0.0
-    for Q in (q.shape[0], 1):
-        qq = q[:Q]
-        v1, i1 = F.fused_topk_raw(E, count, qq, k)
-        v2, i2 = F.fused_topk_reference(E, count, qq, k)
-        err = _check_topk(v1, i1, v2, i2, float_rescorer(E, qq), False,
-                          f"fused_topk at the unbuilt ivf route's inputs, Q={Q}")
-        worst = max(worst, err)
-        ms = cuda_ms(lambda: F.fused_topk_raw(E, count, qq, k))
-        queued = queued_ms(lambda: F.fused_topk_raw(E, count, qq, k))
-        plain = cuda_ms(lambda: F.fused_topk_reference(E, count, qq, k))
+    for rows, M in (("f32", E), ("bf16", E_bf)):
+        for Q in (q.shape[0], 1):
+            qq = q[:Q]
+            v1, i1 = F.fused_topk_raw(M, count, qq, k)
+            v2, i2 = F.fused_topk_reference(M, count, qq, k)
+            err = _check_topk(v1, i1, v2, i2, float_rescorer(M, qq), False,
+                              f"fused_topk at the unbuilt ivf route's inputs, {rows} rows, "
+                              f"Q={Q}")
+            worst = max(worst, err)
+            ms = cuda_ms(lambda: F.fused_topk_raw(M, count, qq, k))
+            queued = queued_ms(lambda: F.fused_topk_raw(M, count, qq, k))
+            plain = cuda_ms(lambda: F.fused_topk_reference(M, count, qq, k))
 
-        def library():  # bf16 matmul + torch.topk
-            return torch.topk((qq.to(torch.bfloat16) @ E_bf.T).float(), k, dim=1)
+            def library():  # bf16 matmul + torch.topk
+                return torch.topk((qq.to(torch.bfloat16) @ E_bf.T).float(), k, dim=1)
 
-        lib = cuda_ms(library)
-        b_ms, b_by = bound(count * D * 4 + Q * D * 2 + Q * k * 8, 2 * Q * count * D,
-                           spec[2], spec)
-        log(f"time fused_topk cap={E.shape[0]} count={count} Q={Q} k={k}: {ms:.4f} ms "
-            f"(queued {queued:.4f} ms; plain {plain:.4f} ms, library {lib:.4f} ms, "
-            f"bound {b_ms:.4f} ms by {b_by}); max |err| vs plain {err:.2e}")
-        res[Q] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                  "bound_by": b_by}
-    return res[q.shape[0]], worst
+            lib = cuda_ms(library)
+            b_ms, b_by = bound(count * D * M.element_size() + Q * D * 2 + Q * k * 8,
+                               2 * Q * count * D, spec[2], spec)
+            plan = F.fused_topk_plan(Q, k, count, D, rows == "bf16")
+            log(f"time fused_topk {rows} rows cap={M.shape[0]} count={count} Q={Q} k={k} "
+                f"(plan cfg, QB, S, R = {plan}): {ms:.4f} ms (queued {queued:.4f} ms; "
+                f"plain {plain:.4f} ms, library {lib:.4f} ms, bound {b_ms:.4f} ms by "
+                f"{b_by}); max |err| vs plain {err:.2e}")
+            res[rows, Q] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                            "bound_by": b_by}
+    entry = dict(res["f32", q.shape[0]])
+    entry["bf16_rows"] = res["bf16", q.shape[0]]
+    return entry, worst
 
 
 def probe_lists(idx, q, nprobe, sort):
@@ -1081,8 +1114,8 @@ def query_breakdown(eng, questions, route):
     recorded = sum(1 for ev in prof.events() if ev.device_type == DeviceType.CUDA
                    and any(name in ev.name for name in _PORT_KERNELS))
     log(f"{route} Q=256 query_batch under the profiler: wall {wall:.2f} ms, device "
-        f"busy {busy:.2f} ms, device idle share {1 - busy / wall:.3f} ({recorded} of "
-        f"{launched} launches of the port's kernels recorded)")
+        f"busy {busy:.2f} ms, device idle share {1 - busy / wall:.3f} ({recorded} device "
+        f"kernels of the port recorded for {launched} wrapper launches)")
 
 
 def drive(kernels, name, expect, fn):

@@ -33,6 +33,10 @@ BUILD_DIR = KERNEL_DIR / "_build"
 SOURCES = ("binmax_int8", "fused_topk_int8", "binmax", "fused_topk", "fine_scores",
            "fine_topk", "fine_binmax", "rescan", "mea_attention")
 
+# dynamic shared memory one CTA may use on Hopper (227 KB); the launch
+# plans in ``ops/`` size their tiles within it
+SMEM_BYTES = 232_448
+
 launches: Dict[str, int] = {name: 0 for name in SOURCES}
 build_logs: Dict[str, str] = {}
 
@@ -44,14 +48,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: every entry point returns a cudaError_t as int
 _ARGTYPES = {
-    # E_q, q_i8, scales, q_scale, cap, Q, d, bin_width, out, stream
-    "binmax_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # E_q, q_i8, scales, q_scale, cap, Q, d, bin_width, query tile, out, stream
+    "binmax_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # E_q, scales, q_bf16, Q, cap, d, count, k, bin_width, vals, ids, stream
     "fused_topk_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # E, is_bf16, q_bf16, cap, Q, d, bin_width, out, stream
     "binmax": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
-    # E, is_bf16, q_bf16, Q, cap, d, count, k, bin_width, vals, ids, stream
-    "fused_topk": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # E, is_bf16, q_bf16, Q, d, count, k, bin_width, cfg, QB, S, R, ws,
+    # vals, ids, stream
+    "fused_topk": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # E_c3, mode (0 bf16, 1 int8, 2 int4), scales3, q_bf16, blk, vcnt, Q, L,
     # d, out, stream
     "fine_scores": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],

@@ -25,6 +25,7 @@ route (kf over-selection, ``int8_refine_kf``).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -85,6 +86,33 @@ def binmax_int8_reference(E_q, scales, q_i8, q_scale, bin_width: int):
     return s.view(cap // bin_width, bin_width, -1).amax(dim=1).T.contiguous()
 
 
+# the binmax_int8 kernel's query tiles (queries, ring stages), narrowest
+# first: a CTA keeps its query tile in shared memory beside a ring of
+# 128-row x 128-byte k-steps (kernels/binmax_int8.cu Cfg)
+_BINMAX_INT8_TILES = ((16, 6), (64, 6), (128, 6), (256, 2))
+_BINMAX_INT8_BK = 128
+
+
+def binmax_int8_smem(bq: int, d: int) -> int:
+    """Shared-memory bytes of a ``binmax_int8`` CTA with a query tile of
+    ``bq``: 1 KB to align the ring, the ring, the queries (d padded to
+    the k-step), their scales and a barrier per ring slot."""
+    stages = dict(_BINMAX_INT8_TILES)[bq]
+    dpad = -(-d // _BINMAX_INT8_BK) * _BINMAX_INT8_BK
+    return (1024 + stages * _BINMAX_ROWS * _BINMAX_INT8_BK + bq * dpad + bq * 4
+            + stages * 8)
+
+
+@functools.lru_cache(maxsize=1024)
+def binmax_int8_plan(Q: int, d: int) -> int:
+    """The query tile of the ``binmax_int8`` kernel: the narrowest that
+    holds all Q queries, else the widest that fits shared memory (the
+    queries then take ceil(Q / tile) tiles)."""
+    fits = [t[0] for t in _BINMAX_INT8_TILES
+            if binmax_int8_smem(t[0], d) <= kernels.SMEM_BYTES]
+    return next((bq for bq in fits if bq >= Q), fits[-1])
+
+
 def binmax_int8_call(E_q, scales, q_i8, q_scale, bin_width: int):
     """(cap, d) int8 rows x (Q, d) int8 queries -> (Q, nb) per-bin maxima
     of ``float(E_q . q_i8) * scales[r] * q_scale[q]``.
@@ -109,7 +137,7 @@ def binmax_int8_call(E_q, scales, q_i8, q_scale, bin_width: int):
         return out
     kernels.launch(
         "binmax_int8", E_q.data_ptr(), q_i8.data_ptr(), scales.data_ptr(),
-        q_scale.data_ptr(), cap, Q, d, bin_width, out.data_ptr(),
+        q_scale.data_ptr(), cap, Q, d, bin_width, binmax_int8_plan(Q, d), out.data_ptr(),
         torch.cuda.current_stream(E_q.device).cuda_stream)
     return out
 

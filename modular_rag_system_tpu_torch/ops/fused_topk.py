@@ -15,6 +15,7 @@ up to f32 summation order; slots left at -inf carry arbitrary ids.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -91,6 +92,67 @@ def fused_topk_reference(E, count: int, q, k: int, bin_width: Optional[int] = No
     return _topk_of_scores(scores, count, k, bin_width)
 
 
+# launch configurations of the fused_topk kernel (kernels/fused_topk.cu
+# ``dispatch``): (query columns of the tensor-core tile, ring stages)
+_FUSED_CFGS = ((8, 6), (8, 2), (32, 6))
+_FUSED_CHUNK = 128       # rows a CTA scores at a time
+_FUSED_BK = 32           # depth of a k-step
+_FUSED_TARGET_CTAS = 132  # one CTA per SM of an H100
+_FUSED_MERGE_KEYS = 16384  # S x k keys of one query's merge
+
+
+def fused_topk_keys(k: int):
+    """(KP, T): a query's best-key slots (the next power of two >= k) and
+    its whole key buffer: up to 32 keys the kernel selects by warp
+    minima and keeps no candidates; above, room for one chunk of
+    candidates beside them."""
+    kp = 1 << (k - 1).bit_length()
+    if kp <= 32:
+        return kp, kp
+    return kp, (2 * kp if kp >= _FUSED_CHUNK else 2 * _FUSED_CHUNK)
+
+
+def fused_topk_smem(cfg: int, d: int, is_bf16: bool, qb: int, k: int) -> int:
+    """Shared-memory bytes of a ``fused_topk`` CTA: the row ring, the
+    query tile (bf16, rows padded by 16 bytes), the score tile, the key
+    buffers of ``qb`` queries and the per-query carry and count."""
+    qt, stages = _FUSED_CFGS[cfg]
+    dpad = -(-d // _FUSED_BK) * _FUSED_BK
+    ring = stages * _FUSED_CHUNK * (_FUSED_BK + 8) * (2 if is_bf16 else 4)
+    _, T = fused_topk_keys(k)
+    return (ring + qt * (dpad + 8) * 2 + qt * (_FUSED_CHUNK + 4) * 4 + qb * T * 8
+            + qt * 8 + qt * 4)
+
+
+@functools.lru_cache(maxsize=1024)
+def fused_topk_plan(Q: int, k: int, count: int, d: int, is_bf16: bool,
+                    bin_width: int = 1):
+    """The ``fused_topk`` kernel's launch plan -> (cfg, QB, S, R).
+
+    QB queries a CTA: the configuration with 8 query columns and a deep
+    ring for Q <= 8, 32 columns above, each where all its queries' key
+    buffers fit shared memory, else 8 columns and a short ring (larger
+    k).  S splits of R live rows, R a multiple of 128 and of the bin
+    width, so that about one CTA lands on each SM and each query merges
+    at most 16,384 keys."""
+    _, T = fused_topk_keys(k)
+    order = (0, 1) if Q <= 8 else (2, 1)
+    for cfg in order:
+        room = kernels.SMEM_BYTES - fused_topk_smem(cfg, d, is_bf16, 0, k)
+        qb = min(_FUSED_CFGS[cfg][0], Q, room // (T * 8))
+        if qb >= min(_FUSED_CFGS[cfg][0], Q):
+            break
+    if qb < 1:
+        raise ValueError(f"fused_topk: k={k} at d={d} does not fit shared memory")
+    align = max(_FUSED_CHUNK, bin_width)
+    units = -(-count // align) if count > 0 else 0
+    tiles = -(-Q // qb)
+    S = max(1, min(units, -(-_FUSED_TARGET_CTAS // tiles), _FUSED_MERGE_KEYS // k))
+    R = max(1, -(-units // S)) * align
+    S = max(1, -(-count // R))
+    return cfg, qb, S, R
+
+
 def fused_topk_raw(E, count: int, q, k: int, bin_width: Optional[int] = None):
     """Single-pass top-k over f32 or bf16 rows: E (cap, d), q (Q, d) f32
     -> (vals (Q, k) f32, ids (Q, k) int32), scores bf16(q) . bf16(row)
@@ -109,15 +171,25 @@ def fused_topk_raw(E, count: int, q, k: int, bin_width: Optional[int] = None):
                          f"bin_width == 0; got d={d}, cap={cap}, bin_width={bw}")
     if not 1 <= k <= _KERNEL_MAX_K:
         raise ValueError(f"fused_topk kernel supports 1 <= k <= {_KERNEL_MAX_K}; got k={k}")
+    if 128 % bw and bw % 128:
+        raise ValueError(f"fused_topk kernel needs bin_width dividing 128 or a "
+                         f"multiple of 128; got {bw}")
     qb = q.to(torch.bfloat16).contiguous()
+    if qb.data_ptr() % 16:  # the kernel reads the queries 16 bytes at a time
+        qb = qb.clone()
     Q = qb.shape[0]
     vals = torch.empty((Q, k), dtype=torch.float32, device=E.device)
     ids = torch.empty((Q, k), dtype=torch.int32, device=E.device)
     if Q == 0:
         return vals, ids
+    is_bf16 = E.dtype == torch.bfloat16
+    count = max(0, min(int(count), cap))
+    cfg, QB, S, R = fused_topk_plan(Q, k, count, d, is_bf16, bw)
+    # each split's best k keys of each query, merged by a second kernel
+    ws = torch.empty((Q, S, k) if S > 1 else (0,), dtype=torch.int64, device=E.device)
     kernels.launch(
-        "fused_topk", E.data_ptr(), int(E.dtype == torch.bfloat16), qb.data_ptr(),
-        Q, cap, d, int(count), k, bw, vals.data_ptr(), ids.data_ptr(),
+        "fused_topk", E.data_ptr(), int(is_bf16), qb.data_ptr(), Q, d, count, k, bw,
+        cfg, QB, S, R, ws.data_ptr(), vals.data_ptr(), ids.data_ptr(),
         torch.cuda.current_stream(E.device).cuda_stream)
     return vals, ids
 

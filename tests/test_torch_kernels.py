@@ -63,6 +63,22 @@ def test_binmax_int8_kernel_bit_exact(cuda_device, cap, Q):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bw", [32, 64])
+@pytest.mark.parametrize("Q", [1, 8, 17, 129, 256, 300])
+@pytest.mark.parametrize("cap,d", [(8192, D), (8192 + 64, D), (4096, 196)])
+def test_binmax_int8_kernel_query_tiles(cuda_device, cap, d, Q, bw):
+    # each query tile of the launch plan, past one 256-query tile, a last
+    # row tile of 64 rows, and d no multiple of 16 (4-byte row copies)
+    rng = np.random.default_rng(11)
+    E = rng.standard_normal((cap, d)).astype(np.float32)
+    E[cap - 9:] = 0
+    E_q, sc = quantize_rows(torch.from_numpy(E).to(cuda_device))
+    q_i8, q_scale = pb.quantize_queries(_queries(12, Q, cuda_device, d))
+    args = (E_q, sc.reshape(-1), q_i8, q_scale, bw)
+    assert torch.equal(pb.binmax_int8_call(*args), pb.binmax_int8_reference(*args))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cap,count,k,bw", [
     (1024, 1000, 10, None), (4096, 4000, 2048, None), (32768, 32000, 1024, None),
     (1024, 5, 10, None), (4096, 4000, 20, 128)])
@@ -253,3 +269,27 @@ def test_mea_attention_kernel_matches_plain(cuda_device, dtype, B, L, H, dh):
     d = (out.float() - ref.float()).abs()
     tol = 1e-5 if dtype == torch.float32 else 2.0**-7 * ref.float().abs() + 1e-5
     assert (d <= tol).all(), d.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap,count,Q,k,bw,crafted", [
+    # the engine's size at each query tile of the launch plan
+    (4096, 1939, 1, 10, None, False), (4096, 1939, 17, 10, None, False),
+    (4096, 1939, 256, 10, None, False), (4096, 1939, 300, 10, None, False),
+    (4096, 3001, 300, 16, None, True),
+    # count below one 128-row split; count no multiple of 128 with bins
+    (1024, 50, 17, 10, None, False), (4096, 1000, 17, 10, 128, False),
+    (4096, 3001, 256, 8, 128, True), (4096, 4001, 9, 20, 32, False),
+    # bins of several chunks (a carried bin minimum)
+    (8192, 7000, 40, 10, 512, True),
+    # k > count: empty slots; k = 8192 over one and two splits
+    (1024, 700, 20, 1000, None, False), (16384, 16000, 1, 8192, None, True),
+    (16384, 9000, 3, 8192, None, True), (16384, 16000, 4, 2048, None, False)])
+def test_fused_topk_kernel_launch_plans(cuda_device, dtype, cap, count, Q, k, bw, crafted):
+    E = _float_rows(8, cap, count, cuda_device, dtype, crafted)
+    q = (torch.randint(-1, 2, (Q, D), device=cuda_device).float() if crafted
+         else _queries(9, Q, cuda_device))
+    v1, i1 = pf.fused_topk_raw(E, count, q, k, bw)
+    v2, i2 = pf.fused_topk_reference(E, count, q, k, bw)
+    _assert_topk_close(v1, i1, v2, i2, crafted)

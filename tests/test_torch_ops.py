@@ -416,3 +416,61 @@ def test_twopass_int8_master_kernel_rescan_matches_jax(rng, master_dtype):
     vg, ig = pb.twopass_topk_int8_master_raw(*args)
     assert torch.equal(ig, ip)
     np.testing.assert_allclose(vg.numpy(), vp.numpy(), rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# launch plans of the fused_topk and binmax_int8 kernels (pure Python: the
+# kernels themselves run only on the card)
+_SMEM = 232_448
+
+
+@pytest.mark.parametrize("Q,k,count,bw", [
+    (256, 10, 1939, 1), (1, 10, 1939, 1), (17, 10, 50, 1), (300, 16, 3001, 1),
+    (17, 10, 1000, 128), (9, 20, 4001, 32), (40, 10, 7000, 512), (20, 1000, 700, 1),
+    (1, 8192, 16000, 1), (3, 8192, 9000, 1), (4, 2048, 16000, 1), (5, 10, 0, 1),
+    (1024, 100, 1_000_000, 256), (1, 1, 127, 1), (8, 4096, 8191, 128)])
+@pytest.mark.parametrize("is_bf16", [False, True])
+def test_fused_topk_plan_splits_cover_live_rows(Q, k, count, bw, is_bf16):
+    cfg, QB, S, R = pf.fused_topk_plan(Q, k, count, 768, is_bf16, bw)
+    assert R % 128 == 0 and R % bw == 0  # no bin straddles two splits
+    assert S * k <= 16384  # one query's merge fits shared memory
+    owner = np.zeros(count, dtype=np.int64)
+    for s in range(S):
+        lo, hi = s * R, min((s + 1) * R, count)
+        assert hi > lo or count == 0  # no empty split
+        owner[lo:hi] += 1
+    assert (owner == 1).all()  # every live row in exactly one split
+    assert pf.fused_topk_smem(cfg, 768, is_bf16, QB, k) <= _SMEM
+
+
+@pytest.mark.parametrize("d", [8, 768, 1024])
+@pytest.mark.parametrize("is_bf16", [False, True])
+def test_fused_topk_plan_smem_every_k(d, is_bf16):
+    for Q in (1, 8, 9, 256, 1024):
+        for k in range(1, 8193):
+            cfg, QB, S, R = pf.fused_topk_plan(Q, k, 16384, d, is_bf16)
+            assert 1 <= QB <= Q
+            assert pf.fused_topk_smem(cfg, d, is_bf16, QB, k) <= _SMEM, (Q, k)
+
+
+@pytest.mark.parametrize("k", [1, 10, 100, 128, 129, 1000, 4096, 8192])
+def test_fused_topk_plan_query_tiles_cover_q(k):
+    for Q in range(1, 1025):
+        cfg, QB, S, R = pf.fused_topk_plan(Q, k, 4096, 1024, False)
+        tiles = -(-Q // QB)
+        assert (tiles - 1) * QB < Q <= tiles * QB
+        assert QB <= (8 if cfg in (0, 1) else 32)  # the configuration's columns
+        assert pf.fused_topk_smem(cfg, 1024, False, QB, k) <= _SMEM
+
+
+@pytest.mark.parametrize("d", [4, 196, 384, 768, 1036])
+def test_binmax_int8_plan_query_tiles(d):
+    for Q in range(1, 1025):
+        bq = pb.binmax_int8_plan(Q, d)
+        assert bq in (16, 64, 128, 256)
+        assert pb.binmax_int8_smem(bq, d) <= _SMEM
+        # the narrowest tile that holds Q, unless shared memory forbids it
+        if Q <= bq:
+            assert all(t < Q for t in (16, 64, 128, 256) if t < bq)
+        else:
+            assert all(pb.binmax_int8_smem(t, d) > _SMEM for t in (128, 256) if t > bq)
