@@ -12,9 +12,11 @@ Phases (any failure exits non-zero and prints no result line):
    kernels/*.cu`` (one ``nvcc`` per source, in parallel) and holds each
    of the nine against its plain PyTorch version on seeded inputs at d=768
    (crafted ties and integer-valued inputs that make the sums exact, a
-   count that is no multiple of the bin width, count < k, dead and
-   partial fine-stage slots in all three fine-copy modes, attention with
-   ragged padding and an all-padding row at L = 1 to 2048);
+   count that is no multiple of the bin width, count < k, each query tile
+   of the single-pass launch plan, k up to 8192, dead and partial
+   fine-stage slots in all three fine-copy modes, blocks shared by many
+   queries with per-pair counts, attention with ragged padding and an
+   all-padding row at L = 1 to 2048);
 3. engine: ``create_engine`` with the bundled hybrid encoder (dim 768),
    ``index.tier="auto"``: ingests the bundled knowledge sentences and QA
    passages as text (single-pass ``fused_topk_int8`` route), queries,
@@ -34,7 +36,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``fine_topk`` kernel), then on to 5,636,096 rows (the rebuild with an
    int8 fine copy), each held against the exact tier; kernel times at
    the engine's own inputs, ``fine_binmax`` (the fine stage's streaming
-   floor) among them; shutdown (a 17.3 GB snapshot) and a restart whose
+   floor) among them; a filtered Q = 256 batch whose deep refill runs the
+   exact top-k at k > 1,024 (its ids held against 16-query calls, its
+   device memory logged); shutdown (a 17.3 GB snapshot) and a restart whose
    rebuild takes the saved clustering (no k-means); a second restart
    with ``index.ivf_fine_dtype="int4"``: the packed fine copy at half the
    int8 copy's bytes, the route at Q = 128, the refusal of Q = 256 (its
@@ -69,13 +73,15 @@ FULL_ROWS = 1_048_576
 IVF_ROWS = 4_718_592      # past the auto promotion at 4,194,304 rows
 REBUILD_ROWS = 5_636_096  # the tail passes 25%: the int8 rebuild
 FILL_BATCH = 65_536
-# the device kernels the port's wrappers launch (a fused_topk call over
-# several row splits runs fused_topk_merge_kernel after fused_topk_kernel;
-# mea_attention runs mea_bf16_kernel or mea_f32_kernel)
-_PORT_KERNELS = ("binmax_int8_kernel", "fused_topk_int8_kernel", "binmax_kernel",
-                 "fused_topk_kernel", "fused_topk_merge_kernel", "fine_scores_kernel",
-                 "fine_topk_kernel", "fine_binmax_kernel", "rescan_kernel",
-                 "mea_bf16_kernel", "mea_f32_kernel")
+# the device kernels the port's wrappers launch (fused_topk and
+# fused_topk_int8 both run fused_topk_kernel, and over several row splits
+# fused_topk_merge_kernel after it; fine_topk over several CTAs a query
+# tile runs fine_topk_merge; mea_attention runs mea_bf16_kernel or
+# mea_f32_kernel)
+_PORT_KERNELS = ("binmax_int8_kernel", "binmax_kernel", "fused_topk_kernel",
+                 "fused_topk_merge_kernel", "fine_scores_kernel", "fine_topk_kernel",
+                 "fine_topk_merge", "fine_binmax_kernel", "rescan_kernel", "mea_bf16_kernel",
+                 "mea_f32_kernel")
 FINE_MODES = ("bf16", "int8", "int4")
 
 # published dense peaks of the card variants nvidia-smi may name:
@@ -349,6 +355,30 @@ def check_fused(g, dev):
         v2, i2 = F.fused_topk_int8_reference(E_t, sc_t, 3000, q_t, k, bw)
         _check_topk(v1, i1, v2, i2, None, True, f"fused_topk_int8 ties k={k} bw={bw}")
     log("kernel fused_topk_int8 crafted ties and count<k: exact match")
+    # the launch plan's edges: each query tile at the single-pass route's
+    # size, bins of one and of several 128-row chunks, k = 8192 over one
+    # and two splits (crafted: integer-valued, every tie exact)
+    for cap, count, Qn, k, bw, crafted in (
+            (4096, 1939, 1, 20, None, False), (4096, 1939, 17, 20, None, False),
+            (4096, 1939, 256, 20, None, False), (4096, 1939, 300, 20, None, False),
+            (4096, 3001, 256, 8, 128, True), (8192, 7000, 40, 10, 512, True),
+            (16384, 16000, 1, 8192, None, True), (16384, 9000, 3, 8192, None, True)):
+        if crafted:
+            E_e = torch.randint(-2, 3, (cap, D), generator=g, device=dev).to(torch.int8)
+            E_e[count:] = 0
+            sc_e = torch.ones(cap, device=dev)
+            q_e = torch.randint(-1, 2, (Qn, D), generator=g, device=dev).float()
+        else:
+            E_e, sc_e = quantized_rows(g, cap, count, dev)
+            q_e = unit_queries(g, Qn, dev)
+        v1, i1 = F.fused_topk_int8_raw(E_e, sc_e, count, q_e, k, bw)
+        v2, i2 = F.fused_topk_int8_reference(E_e, sc_e, count, q_e, k, bw)
+        torch.cuda.synchronize()
+        worst = max(worst, _check_topk(v1, i1, v2, i2, int8_rescorer(E_e, sc_e, q_e), crafted,
+                                       f"fused_topk_int8 cap={cap} count={count} Q={Qn} "
+                                       f"k={k} bw={bw} (plan {F.fused_topk_plan(Qn, k, count, D, 1, bw or 1)})"))
+    log(f"kernel fused_topk_int8: Q 1..300, k up to 8192, bw None/128/512 match "
+        f"(max |err| so far {worst:.2e})")
     return worst
 
 
@@ -386,7 +416,9 @@ def time_fused(eng, q, spec):
         lib = cuda_ms(library)
         b_ms, b_by = bound(count * D + count * 4 + Q * D * 2 + Q * kf * 8,
                            2 * Q * count * D, spec[2], spec)
-        log(f"time fused_topk_int8 cap={cap} count={count} Q={Q} k={kf}: {ms:.4f} ms "
+        plan = F.fused_topk_plan(Q, kf, count, D, 1)
+        log(f"time fused_topk_int8 cap={cap} count={count} Q={Q} k={kf} (plan cfg, QB, S, R "
+            f"= {plan}): {ms:.4f} ms "
             f"(queued {queued:.4f} ms; plain {plain:.4f} ms, library {lib:.4f} ms, "
             f"bound {b_ms:.4f} ms by {b_by}); max |err| vs plain {err:.2e}")
         res[Q] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
@@ -516,11 +548,14 @@ def check_fused_float(g, dev):
     return worst
 
 
-def fine_case(g, dev, fine_dtype, nblocks, Q, L, dup=False):
+def fine_case(g, dev, fine_dtype, nblocks, Q, L, dup=False, shared=0):
     """A fine copy of seeded unit rows and per-query lists of distinct
     blocks with dead (vcnt 0) and partial slots; with ``dup`` block 1 is
     a copy of block 3 and the lists are just those two, so every row ties
-    with its copy and the lower slot must win."""
+    with its copy and the lower slot must win; with ``shared`` > 0 the
+    lists draw from the first ``shared`` blocks (several queries probe each
+    block, each pair with its own vcnt) and dead slots point at block 0,
+    as ``block_lists`` writes them."""
     import torch
 
     from modular_rag_system_tpu_torch.ops.ivf2 import SLAB
@@ -537,11 +572,13 @@ def fine_case(g, dev, fine_dtype, nblocks, Q, L, dup=False):
         E_c3, sc3 = quantize_int4_blocks(x, nblocks, SLAB)
     else:
         E_c3, sc3 = x.to(torch.bfloat16).view(nblocks, SLAB, D), None
-    blk = torch.stack([torch.randperm(nblocks, generator=g, device=dev)[:L]
+    blk = torch.stack([torch.randperm(shared or nblocks, generator=g, device=dev)[:L]
                        for _ in range(Q)]).to(torch.int32)
     # dead, partial (odd, below and above half a slab) and full slots
     choices = torch.tensor([0, 1, 77, 129, SLAB, SLAB], device=dev, dtype=torch.int32)
     vcnt = choices[torch.randint(0, 6, (Q, L), generator=g, device=dev)]
+    if shared:
+        blk[vcnt == 0] = 0
     if dup:  # the list is the two copies, full
         blk = torch.tensor([[3, 1]] * Q, dtype=torch.int32, device=dev)
         vcnt = torch.full((Q, 2), SLAB, dtype=torch.int32, device=dev)
@@ -588,17 +625,20 @@ def check_fine_binmax(g, dev):
     return worst
 
 
-def _check_dump_ids(E_c3, sc3, q, blk, vcnt, k, slots, what):
+def _check_dump_ids(E_c3, sc3, q, blk, vcnt, k, slots, vals, what):
     """The dump path on the same lists selects the same slots as the
-    selecting kernel: both score a row with the same code, in the same
-    order (the JAX package's invariant, ``tests/test_ivf.py``)."""
+    selecting kernel, with the same scores bit for bit: the selecting
+    kernel's returned scores are fine_scores' own arithmetic (the JAX
+    package's invariant, ``tests/test_ivf.py``)."""
     import torch
 
     from modular_rag_system_tpu_torch.ops import ivf2 as V
 
-    _, xs = V.fine_call_xla(E_c3, sc3, q, blk, vcnt, k)
+    xv, xs = V.fine_call_xla(E_c3, sc3, q, blk, vcnt, k)
     if not torch.equal(xs, slots):
         raise AssertionError(f"{what}: ids differ from the dump path's")
+    if not torch.equal(xv, vals):
+        raise AssertionError(f"{what}: scores differ from the dump path's")
 
 
 def check_fine_topk(g, dev):
@@ -608,22 +648,28 @@ def check_fine_topk(g, dev):
 
     worst = dict.fromkeys(FINE_MODES, 0.0)
     for fdt in FINE_MODES:
-        for nblocks, Q, L, k, dup in ((512, 16, 64, 20, False), (2048, 4, 1500, 128, False),
-                                      (512, 16, 2, 40, True), (2048, 2, 1500, 20, False)):
-            E_c3, sc3, q, blk, vcnt = fine_case(g, dev, fdt, nblocks, Q, L, dup)
+        # L 2..1500; more queries than one tile over blocks shared by many
+        # queries with per-pair vcnt and dead slots at block 0; k to 8192
+        for nblocks, Q, L, k, dup, shared in (
+                (512, 16, 64, 20, False, 0), (2048, 4, 1500, 128, False, 0),
+                (512, 16, 2, 40, True, 0), (2048, 2, 1500, 20, False, 0),
+                (512, 40, 40, 20, False, 60), (512, 300, 24, 20, False, 48),
+                (512, 20, 100, 300, False, 120), (512, 3, 300, 8192, False, 0)):
+            E_c3, sc3, q, blk, vcnt = fine_case(g, dev, fdt, nblocks, Q, L, dup, shared)
             v1, s1 = V.fine_call(E_c3, sc3, q, blk, vcnt, k)
             v2, s2 = V.fine_topk_reference(E_c3, sc3, q, blk, vcnt, k)
             worst[fdt] = max(worst[fdt], _check_topk(
                 v1, s1, v2, s2, fine_rescorer(E_c3, sc3, q), False,
                 f"fine_topk {fdt} L={L} k={k}"))
-            _check_dump_ids(E_c3, sc3, q, blk, vcnt, k, s1, f"fine_topk {fdt} L={L}")
+            _check_dump_ids(E_c3, sc3, q, blk, vcnt, k, s1, v1, f"fine_topk {fdt} L={L}")
             if dup:  # tied pairs: the block-1 slot first
                 fin = torch.isfinite(v1)
                 pairs = s1[:, 0::2][fin[:, 0::2]] // V.SLAB
                 if not (pairs == 1).all():
                     raise AssertionError(f"fine_topk {fdt}: ties not broken by lowest slot")
-    log(f"kernel fine_topk bf16/int8/int4: L 2..1500, k 20..128, ties by slot, ids "
-        f"equal to the dump path's, max |err| {worst}")
+    log(f"kernel fine_topk bf16/int8/int4: L 2..1500, Q 2..300 (shared blocks, per-pair "
+        f"vcnt, dead slots at block 0), k 20..8192, ties by slot, ids and scores equal to "
+        f"the dump path's, max |err| {worst}")
     return worst
 
 
@@ -798,7 +844,7 @@ def time_fused_float(idx, q, spec):
             lib = cuda_ms(library)
             b_ms, b_by = bound(count * D * M.element_size() + Q * D * 2 + Q * k * 8,
                                2 * Q * count * D, spec[2], spec)
-            plan = F.fused_topk_plan(Q, k, count, D, rows == "bf16")
+            plan = F.fused_topk_plan(Q, k, count, D, M.element_size())
             log(f"time fused_topk {rows} rows cap={M.shape[0]} count={count} Q={Q} k={k} "
                 f"(plan cfg, QB, S, R = {plan}): {ms:.4f} ms (queued {queued:.4f} ms; "
                 f"plain {plain:.4f} ms, library {lib:.4f} ms, bound {b_ms:.4f} ms by "
@@ -893,7 +939,7 @@ def time_fine(idx, q, nprobe, k, spec, name):
             (v1, s1), (v2, s2) = fn(), plain_fn()
             err = _check_topk(v1, s1, v2, s2, fine_rescorer(iv.E_c3, iv.scales3, qq), False,
                               what)
-            _check_dump_ids(iv.E_c3, iv.scales3, qq, blk, vcnt, k, s1, what)
+            _check_dump_ids(iv.E_c3, iv.scales3, qq, blk, vcnt, k, s1, v1, what)
         else:
             out = fn()
             err = _check_dense(out, plain_fn(), False, what)
@@ -905,6 +951,16 @@ def time_fine(idx, q, nprobe, k, spec, name):
         queued = queued_ms(fn, reps=10)
         plain = cuda_ms(plain_fn, reps=2)
         b_ms, b_by, uniq, per_query = _fine_bound(iv, blk, vcnt, out_bytes, spec)
+        if selecting:  # the launch plan, and the slab reads of its query tiles
+            cfg, QB, G = V.fine_topk_plan(Q, blk.shape[1], k, D, iv.fine_dtype,
+                                          V._sm_count(qq.device))
+            keys, _ = V.fine_pair_keys(blk, vcnt, QB, iv.E_c3.shape[0])
+            live = keys % (iv.E_c3.shape[0] + 1) < iv.E_c3.shape[0]
+            log(f"fine_topk plan at nprobe={nprobe} Q={Q} k={k}: cfg {cfg} "
+                f"({V._FINE_STAGES[cfg]} ring stages), {QB} queries a tile, "
+                f"{-(-Q // QB)} tiles x {G} CTAs; {int(live.sum())} live pairs in "
+                f"{int(torch.unique(keys[live]).numel())} work items (slab reads; "
+                f"{uniq} unique slabs)")
         log(f"time {name} {iv.fine_dtype} nprobe={nprobe} Q={Q} L={blk.shape[1]}: "
             f"{ms:.4f} ms (queued {queued:.4f} ms; plain {plain:.4f} ms, library none: "
             f"no single call; bound {b_ms:.4f} ms by {b_by}: {uniq} unique slabs; "
@@ -1138,9 +1194,10 @@ def run_route(eng, kernels, questions, name, expect):
 
 
 def exact_topk_chunked(idx, q, k, chunk=16):
-    """The exact tier's top-k over the index, 16 queries at a time (the
-    (Q, capacity) score matrix of a whole batch would not fit beside an
-    8,388,608-row master)."""
+    """The exact tier's top-k over the index, 16 queries a call: a
+    reference for the routes, and for the exact path itself, since at 16
+    queries its block holds the whole live prefix (at 256 it walks
+    1,048,576-row blocks)."""
     import torch
 
     from modular_rag_system_tpu_torch.ops.exact import exact_topk_raw
@@ -1168,6 +1225,65 @@ def check_against_exact(eng, q, k, tol, what):
     log(f"{what} vs exact tier: recall@{k} {recall:.4f}, returned scores within "
         f"{err:.2e} of exact")
     return recall
+
+
+def exact_refill(eng, questions):
+    """A filtered Q=256 ``query_batch`` that only the QA passages' rows
+    pass, asking 300 results: the first pass already asks k = 1,200 > 1,024,
+    so the engine's deep refill serves it through ``exact_topk_raw`` (and
+    deepens to k = 16,384 while a query has too few matches).  Each exact
+    call's ids are held against ``exact_topk_chunked`` (16 queries a call:
+    one block over the whole index, where 256 queries walk it in blocks),
+    and the device memory the step needs beyond what the index holds is
+    logged beside what the whole (Q, capacity) selection would hold."""
+    import torch
+
+    from modular_rag_system_tpu_torch.ops import exact as X
+
+    idx, calls, raw = eng.index, [], X.exact_topk_raw
+
+    def spy(E, count, q, k, block_rows=None):
+        out = raw(E, count, q, k, block_rows)
+        calls.append((q.clone(), k, out))
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    X.exact_topk_raw = spy
+    t0 = time.perf_counter()
+    try:
+        res = eng.query_batch(questions[:256], max_results=300, source_filters=["qa"],
+                              similarity_threshold=0.0)
+    finally:
+        X.exact_topk_raw = raw
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    Q, cap = len(res), idx.capacity
+    whole = Q * cap * 4 * 4  # scores, their masked copy, sorted values, int64 positions
+    log(f"exact refill (Q={Q}, source filter 'qa', max_results 300) at {idx.count} rows: "
+        f"exact calls (Q, k) {[(c[0].shape[0], c[1]) for c in calls]}, {dt:.1f} s; "
+        f"device memory: resident {resident / 1e9:.2f} GB, peak {peak / 1e9:.2f} GB "
+        f"({(peak - resident) / 1e9:.2f} GB for the step; block rows "
+        f"{X.exact_block_rows(Q, idx.dim, idx.E.dtype != torch.float32, calls[-1][1] if calls else 0)}"
+        f"); the whole (Q, capacity) selection would add at least {whole / 1e9:.1f} GB "
+        f"before its sort's scratch; "
+        f"card {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB; "
+        f"matches returned per query {min(len(r.documents) for r in res)}.."
+        f"{max(len(r.documents) for r in res)}")
+    if not any(q.shape[0] == Q and k > 1024 for q, k, _ in calls):
+        raise AssertionError("the filtered batch did not reach the exact path at k > 1024")
+    for q, k, (v1, i1) in calls:
+        v2, i2 = exact_topk_chunked(idx, q, k)
+        E = idx.E
+        qd = q.double()
+        _check_topk(v1, i1, v2, i2,
+                    lambda qi, rows: (qd[qi] * E[rows].double()).sum(1), False,
+                    f"exact top-k (blocks) at Q={q.shape[0]}, k={k}, vs 16 queries a call")
+    return peak - resident, peak
 
 
 def fill(eng, g, target):
@@ -1387,7 +1503,8 @@ def int4_route(storage, kernels, V, questions, passages, spec, rec_int8, r_full,
             launches4[name] = drive(kernels, f"{name} (direct call, int4)", name, call)
         entries4[name], err = time_fine(idx, q128, idx.ivf_nprobe, 20, spec, name)
         errs4[name] = max(errs4[name], err)
-    log(f"peak device memory so far {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    log(f"peak device memory since the exact refill "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     eng.shutdown()
 
 
@@ -1623,8 +1740,13 @@ def smoke(work: Path) -> int:
     errs["fine_binmax"] = max(errs["fine_binmax"], err)
     int8_fine_bytes = iv.fine_bytes()
     tp = phase("4b (int8 rebuild, fine_scores and fine_binmax timing)", tp)
-
     log(f"peak device memory so far {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+
+    # the deep filtered refill: exact top-k per row block at Q=256 (the
+    # peak counter restarts here)
+    exact_refill(eng2, questions)
+    tp = phase("4b' (the exact path at Q=256)", tp)
+
     # restart: the snapshot's clustering warm-starts the rebuild
     free = shutil.disk_usage(storage).free
     log(f"storage {storage}: {free / 1e9:.1f} GB free for the "
@@ -1669,9 +1791,9 @@ def smoke(work: Path) -> int:
                 "fine_binmax": "modular_rag_system_tpu/ops/ivf2.py:664",
                 "rescan": "modular_rag_system_tpu/ops/binmax_topk.py:275",
                 "mea_attention": "modular_rag_system_tpu/ops/flash_attention.py:53"}
-    for kname in kernels.SOURCES:
+    for kname, src in kernels.KERNELS.items():
         entry = {"name": kname, "route": "cuda",
-                 "source": f"modular_rag_system_tpu_torch/kernels/{kname}.cu",
+                 "source": f"modular_rag_system_tpu_torch/kernels/{src}.cu",
                  "replaces": replaces[kname], "launches": launches[kname],
                  "max_abs_err": errs[kname], **entries[kname]}
         if kname in entries4:  # the same source's int4 mode, on the int4 route

@@ -1,15 +1,18 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``*.cu`` file here is one kernel with a plain C entry point; the
-``*.cuh`` headers hold device code that several of them share.  At
+Each ``*.cu`` file here holds a kernel's plain C entry point (``fused_topk.cu``
+holds two: ``fused_topk`` and ``fused_topk_int8``, one kernel template
+over three row types); the ``*.cuh`` headers hold device code that
+several of them share.  At
 first use every source is compiled by its own ``nvcc`` process, all
 started together, for ``sm_90a`` into a shared library under
 ``_build/`` (named by the hash of the source and the headers, so an
 edited source or header rebuilds), and loaded with ``ctypes``.  A build or load failure raises:
 there is no fallback to the plain PyTorch versions.
 
-``launches`` counts kernel launches per kernel name: each wrapper in
-``ops/`` adds one where it launches its kernel and nowhere else.
+``launches`` counts kernel launches per kernel name (``KERNELS``, the C
+entry points): each wrapper in ``ops/`` adds one where it launches its
+kernel and nowhere else.
 
 Build by hand (what ``build_all`` runs for each source):
 
@@ -30,14 +33,19 @@ from typing import Dict
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
-SOURCES = ("binmax_int8", "fused_topk_int8", "binmax", "fused_topk", "fine_scores",
-           "fine_topk", "fine_binmax", "rescan", "mea_attention")
+# kernel name (its C entry point and launch counter) -> the source file
+# that holds it
+KERNELS = {"binmax_int8": "binmax_int8", "fused_topk_int8": "fused_topk",
+           "binmax": "binmax", "fused_topk": "fused_topk", "fine_scores": "fine_scores",
+           "fine_topk": "fine_topk", "fine_binmax": "fine_binmax", "rescan": "rescan",
+           "mea_attention": "mea_attention"}
+SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 
 # dynamic shared memory one CTA may use on Hopper (227 KB); the launch
 # plans in ``ops/`` size their tiles within it
 SMEM_BYTES = 232_448
 
-launches: Dict[str, int] = {name: 0 for name in SOURCES}
+launches: Dict[str, int] = {name: 0 for name in KERNELS}
 build_logs: Dict[str, str] = {}
 
 _lock = threading.Lock()
@@ -50,8 +58,9 @@ _F = ctypes.c_float
 _ARGTYPES = {
     # E_q, q_i8, scales, q_scale, cap, Q, d, bin_width, query tile, out, stream
     "binmax_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    # E_q, scales, q_bf16, Q, cap, d, count, k, bin_width, vals, ids, stream
-    "fused_topk_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # E_q, scales, q_bf16, Q, d, count, k, bin_width, cfg, QB, S, R, ws,
+    # vals, ids, stream
+    "fused_topk_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # E, is_bf16, q_bf16, cap, Q, d, bin_width, out, stream
     "binmax": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
     # E, is_bf16, q_bf16, Q, d, count, k, bin_width, cfg, QB, S, R, ws,
@@ -60,9 +69,10 @@ _ARGTYPES = {
     # E_c3, mode (0 bf16, 1 int8, 2 int4), scales3, q_bf16, blk, vcnt, Q, L,
     # d, out, stream
     "fine_scores": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # E_c3, mode, scales3, q_bf16, blk, vcnt, Q, L, d, k, G, part, vals,
-    # slots, stream
-    "fine_topk": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # E_c3, mode, scales3, q_bf16, keys, perm, pvc, P, L, nblocks, Q, d, k,
+    # cfg, QB, G, part, vals, slots, stream
+    "fine_topk": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                  _P, _P, _P, _P],
     # as fine_scores, out (Q, L)
     "fine_binmax": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # E, is_bf16, q_bf16, bins, Q, d, count, kb, bin_width, k, vals, ids, stream
@@ -116,17 +126,18 @@ def build_all() -> Dict[str, Path]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (building all at first use)."""
+    """The loaded library that holds kernel ``name`` (building all at
+    first use)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             paths = build_all()
-            for n, path in paths.items():
-                loaded = ctypes.CDLL(str(path))
-                fn = getattr(loaded, n)
+            loaded = {src: ctypes.CDLL(str(path)) for src, path in paths.items()}
+            for n, src in KERNELS.items():
+                fn = getattr(loaded[src], n)
                 fn.argtypes = _ARGTYPES[n]
                 fn.restype = ctypes.c_int
-                _libs[n] = loaded
+                _libs[n] = loaded[src]
             lib = _libs[name]
         return lib
 

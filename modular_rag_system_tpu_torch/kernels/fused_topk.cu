@@ -1,17 +1,23 @@
-// fused_topk: single-pass top-k over f32 or bf16 rows on Hopper.
+// fused_topk and fused_topk_int8: single-pass top-k over f32, bf16 or
+// int8 rows on Hopper.
 //
 // Replaces modular_rag_system_tpu/ops/fused_topk.py:_fused_kernel (via
-// fused_topk_raw).  For each query q it scores every live row of E as
-// bf16(q) . bf16(E[r]) with f32 accumulation (the TPU kernel's default
-// precision: an f32 row is rounded to bf16 first, and every bf16 x bf16
-// product is exact in f32), never scores rows >= count, optionally
-// reduces each bin of bin_width rows to its best (score, lowest row id),
-// and keeps the top k by (score desc, id asc).
+// fused_topk_raw; f32 and bf16 rows) and :_fused_kernel_int8 (via
+// fused_topk_int8_raw; int8 rows with a per-row scale).  For each query q
+// it scores every live row of E as bf16(q) . bf16(E[r]) with f32
+// accumulation (the TPU kernel's default precision: an f32 row is rounded
+// to bf16 first, and every bf16 x bf16 product is exact in f32), or, over
+// int8 rows, as (bf16(q) . float(E_q[r])) * scale[r], the dot first and
+// the scale after (an int8 value is exact in bf16, so the products are
+// exact there too); it never scores rows >= count, optionally reduces
+// each bin of bin_width rows to its best (score, lowest row id), and
+// keeps the top k by (score desc, id asc).
 //
-// Bound: the card must read count*d*4 (f32) or *2 (bf16) bytes and do
-// 2*Q*count*d operations.  The tiers send it capacities below 8192 rows,
-// a few MB that L2 holds, so the bound is a few microseconds: what costs
-// is reading the rows once per query (one CTA per query) or on one SM, and
+// Bound: the card must read count*d*4 (f32), *2 (bf16) or *1 (int8, plus
+// 4 bytes of scale a row) bytes and do 2*Q*count*d operations.  The tiers
+// send it capacities below 8192 rows, a few MB that L2 holds, so the bound
+// is a few microseconds: what costs is reading the rows once per query
+// (one CTA per query, as an earlier int8 design did) or on one SM, and
 // sorting.
 //
 // Design: the grid is (row splits) x (query tiles); the launch plan in
@@ -24,8 +30,14 @@
 // a ring of 32-deep k-steps (6 stages; 2 with 8 query columns where
 // larger k's keys take the room), and each of 8 warps
 // scores 16 rows x QT queries with mma.sync m16n8k16 bf16 -> f32 (an f32
-// row rounded to bf16, ties to even, as its A fragment is formed).  The
-// chunk's scores go to shared memory; a warp per query turns its 128
+// row rounded to bf16, ties to even, and an int8 row widened exactly to
+// bf16, as its A fragment is formed: the ring carries the int8 bytes, a
+// quarter of f32's, and the widening is a byte permute and a subtract on
+// the CUDA cores).  Over int8 rows each score is multiplied by its row's
+// scale as the accumulators leave the tensor cores.  The query stays bf16,
+// as the TPU kernel keeps it: quantizing it for the int8 tensor cores
+// would change the results.  The chunk's scores go to shared memory; a
+// warp per query turns its 128
 // scores into packed (score, id) keys (topk_common.cuh), takes each bin's
 // minimum key by shuffles and drops the keys that cannot beat the query's
 // running k-th key.  Up to k = 32 the warp selects the best k of the
@@ -36,140 +48,59 @@
 // split's end, is it sorted (bitonic, by the warp, or by the whole CTA
 // when the tile is one query).  With one split the CTA writes the result; with several, each
 // writes its best k keys per query to a workspace and a second kernel
-// selects (k <= 32, S k <= 256) or sorts each query's S x k keys (at
+// selects (k <= 32, S k <= 512) or sorts each query's S x k keys (at
 // most 16,384) and keeps k.  Keys are unique, so the merge is exact.
 //
 // What bounds it now (PERF.md section 6): at the engine's 1,939 rows the
 // device time is a few microseconds of row stream per CTA and the two
-// launches; back-to-back calls are held by the wrapper's host work.
+// launches; back-to-back calls are held by the wrapper's host work.  Over
+// int8 rows the widening may set the pace of a k-step (measured, not
+// assumed: PERF.md).
 
 #include <cuda_bf16.h>
 
-#include "topk_common.cuh"
+#include "tile_common.cuh"
 
 namespace {
 
 using topk::EMPTY;
 using topk::key_score;
 using topk::make_key;
-typedef unsigned long long u64;
+using namespace tile;
 
 constexpr int NT = 256;     // 8 warps
 constexpr int NWARPS = NT / 32;
 constexpr int CH = 128;     // rows per chunk: 8 warps x 16
 constexpr int BK = 32;      // depth of a k-step
-constexpr int LDE = BK + 8; // staged values per row (rows padded by 16 or 32 bytes)
+constexpr int LDE = BK + 8; // staged values per f32/bf16 row (rows padded by 16 or 32 bytes)
 constexpr int SCW = CH + 4; // floats per query row of the score tile
 constexpr int MERGE_NT = 512;
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a CTA may use
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared, zero-filled where !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ u64 kmin(u64 a, u64 b) { return a < b ? a : b; }
-
-// the k smallest (k <= 32) of the warp's keys, N a lane, unique but for
-// EMPTY: each lane sorts its N in registers, then k rounds of a warp
-// minimum each take the smallest head; lane r returns the r-th smallest
-template <int N>
-__device__ __forceinline__ u64 warp_select(u64 (&v)[N], int k, int lane) {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-        for (int j = i & 1; j + 1 < N; j += 2) {
-            const u64 a = v[j], b = v[j + 1];
-            v[j] = kmin(a, b);
-            v[j + 1] = a < b ? b : a;
-        }
-    u64 mine = EMPTY;
-    for (int r = 0; r < k; ++r) {
-        u64 m = v[0];
-#pragma unroll
-        for (int sh = 16; sh > 0; sh >>= 1) m = kmin(m, __shfl_xor_sync(0xffffffffu, m, sh));
-        if (m == EMPTY) break;
-        if (lane == r) mine = m;
-        if (v[0] == m) {
-#pragma unroll
-            for (int j = 0; j + 1 < N; ++j) v[j] = v[j + 1];
-            v[N - 1] = EMPTY;
-        }
-    }
-    return mine;
-}
-
-// ascending sort of T (a power of two) keys by the 32 lanes of one warp
-__device__ void warp_sort(u64* keys, int T, int lane) {
-    for (int size = 2; size <= T; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-            for (int i = lane; i < T / 2; i += 32) {
-                const int lo = ((i & ~(stride - 1)) << 1) | (i & (stride - 1));
-                const int hi = lo + stride;
-                const bool up = (lo & size) == 0;
-                const u64 a = keys[lo], b = keys[hi];
-                if ((a > b) == up) {
-                    keys[lo] = b;
-                    keys[hi] = a;
-                }
-            }
-            __syncwarp();
-        }
-    }
-}
-
 // shared-memory bytes of a CTA (ops/fused_topk.py fused_topk_smem
-// computes the same)
-template <bool BF16, int QT, int STAGES>
+// computes the same); EB is a row value's bytes: 4 (f32), 2 (bf16) or 1
+// (int8)
+template <int EB, int QT, int STAGES>
 struct Cfg {
-    static constexpr int ESIZE = BF16 ? 2 : 4;
-    static constexpr int RING = STAGES * CH * LDE * ESIZE;
+    static constexpr int ESIZE = EB;
+    // bytes of a staged row of a k-step: padded by 16 or 32 bytes (int8:
+    // by 16, which keeps every row's 16-byte copies aligned)
+    static constexpr int RSTR = EB == 1 ? BK + 16 : LDE * EB;
+    static constexpr int RING = STAGES * CH * RSTR;
     static size_t smem(int dpad, int QB, int T) {
         return (size_t)RING + (size_t)QT * (dpad + 8) * 2 + (size_t)QT * SCW * 4 +
                (size_t)QB * T * 8 + QT * 8 + QT * 4;
     }
 };
 
-template <bool BF16, int QT, int STAGES>
+template <int EB, int QT, int STAGES>
 __global__ void __launch_bounds__(NT)
-fused_topk_kernel(const void* __restrict__ Ev, const uint16_t* __restrict__ qb, int Q, int d,
-                  int dpad, int count, int k, int KP, int T, int bw, int QB, int R, int S,
-                  u64* __restrict__ ws, float* __restrict__ out_vals,
-                  int32_t* __restrict__ out_ids) {
-    using C = Cfg<BF16, QT, STAGES>;
-    constexpr int EPV = BF16 ? 8 : 4;  // values per 16-byte copy
+fused_topk_kernel(const void* __restrict__ Ev, const float* __restrict__ scales,
+                  const uint16_t* __restrict__ qb, int Q, int d, int dpad, int count, int k,
+                  int KP, int T, int bw, int QB, int R, int S, u64* __restrict__ ws,
+                  float* __restrict__ out_vals, int32_t* __restrict__ out_ids) {
+    using C = Cfg<EB, QT, STAGES>;
+    constexpr int EPV = 16 / EB;       // values per 16-byte copy
     constexpr int CPR = BK / EPV;      // copies per row of a k-step
     constexpr int NJ = QT / 8;         // 8-query column tiles
     extern __shared__ __align__(128) unsigned char smem[];
@@ -208,7 +139,7 @@ fused_topk_kernel(const void* __restrict__ Ev, const uint16_t* __restrict__ qb, 
     const int total = nchunks * ks;
 
     auto load = [&](int step) {
-        unsigned char* slot = ring + (step % STAGES) * (CH * LDE * C::ESIZE);
+        unsigned char* slot = ring + (step % STAGES) * (CH * C::RSTR);
         const int row0 = rs + (step / ks) * CH;
         const int k0 = (step % ks) * BK;
         for (int i = tid; i < CH * CPR; i += NT) {
@@ -216,7 +147,7 @@ fused_topk_kernel(const void* __restrict__ Ev, const uint16_t* __restrict__ qb, 
             const bool ok = row0 + r < re && k0 + c < d;
             const unsigned char* src =
                 (const unsigned char*)Ev + (ok ? ((size_t)(row0 + r) * d + k0 + c) * C::ESIZE : 0);
-            cp_async16(slot + (r * LDE + c) * C::ESIZE, src, ok);
+            cp_async16(slot + r * C::RSTR + c * C::ESIZE, src, ok);
         }
     };
 
@@ -239,14 +170,23 @@ fused_topk_kernel(const void* __restrict__ Ev, const uint16_t* __restrict__ qb, 
         if (step + STAGES - 1 < total) load(step + STAGES - 1);
         cp_async_commit();
 
-        const unsigned char* slot = ring + (step % STAGES) * (CH * LDE * C::ESIZE);
+        const unsigned char* slot = ring + (step % STAGES) * (CH * C::RSTR);
         const int kq = (step % ks) * BK;
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
             uint32_t a[4];
-            if (BF16) {
+            if (EB == 2) {
                 const uint16_t* As = reinterpret_cast<const uint16_t*>(slot);
                 ldmatrix_x4(a, As + (rb + (mat & 1) * 8 + r8) * LDE + kk * 16 + (mat >> 1) * 8);
+            } else if (EB == 1) {
+                // int8 bytes (2t, 2t + 1) and (2t + 8, 2t + 9) of rows g and
+                // g + 8, widened to bf16 pairs
+                const unsigned char* As = slot + kk * 16 + 2 * t;
+                a[0] = int8x2_bf16(*reinterpret_cast<const uint16_t*>(As + (rb + g) * C::RSTR));
+                a[1] = int8x2_bf16(*reinterpret_cast<const uint16_t*>(As + (rb + g + 8) * C::RSTR));
+                a[2] = int8x2_bf16(*reinterpret_cast<const uint16_t*>(As + (rb + g) * C::RSTR + 8));
+                a[3] = int8x2_bf16(
+                    *reinterpret_cast<const uint16_t*>(As + (rb + g + 8) * C::RSTR + 8));
             } else {
                 const float* As = reinterpret_cast<const float*>(slot) + kk * 16 + 2 * t;
                 const float2 x0 = *reinterpret_cast<const float2*>(As + (rb + g) * LDE);
@@ -268,7 +208,21 @@ fused_topk_kernel(const void* __restrict__ Ev, const uint16_t* __restrict__ qb, 
         if (step % ks != ks - 1) continue;
 
         // the chunk is scored: accumulator e of column tile j holds row
-        // rb + g + 8 (e >> 1), query 8 j + 2t + (e & 1)
+        // rb + g + 8 (e >> 1), query 8 j + 2t + (e & 1); int8 rows take
+        // their scale after the dot
+        const int c0 = rs + (step / ks) * CH, c1 = min(c0 + CH, re);
+        if (EB == 1) {
+            const int r0 = c0 + rb + g;
+            const float s0 = r0 < re ? scales[r0] : 0.0f;
+            const float s1 = r0 + 8 < re ? scales[r0 + 8] : 0.0f;
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                acc[j][0] *= s0;
+                acc[j][1] *= s0;
+                acc[j][2] *= s1;
+                acc[j][3] *= s1;
+            }
+        }
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
 #pragma unroll
@@ -279,7 +233,6 @@ fused_topk_kernel(const void* __restrict__ Ev, const uint16_t* __restrict__ qb, 
         }
         __syncthreads();
 
-        const int c0 = rs + (step / ks) * CH, c1 = min(c0 + CH, re);
         const bool last = step == total - 1;
         // a warp per query: keys, bin minima, the k-th-key filter, append
         for (int qq = warp; qq < nq; qq += NWARPS) {
@@ -384,25 +337,36 @@ fused_topk_kernel(const void* __restrict__ Ev, const uint16_t* __restrict__ qb, 
     }
 }
 
-// each query's S sorted lists of k keys -> its best k: one sort of M (a
-// power of two >= S k) keys in shared memory
+// the best k (k <= 32) of one query's n <= 32 N merge keys, by the first
+// warp
+template <int N>
+__device__ __forceinline__ void merge_select(const u64* __restrict__ w, int n, int k,
+                                             float* __restrict__ vals, int32_t* __restrict__ ids) {
+    const int lane = threadIdx.x;
+    u64 v[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = lane + 32 * i < n ? w[lane + 32 * i] : EMPTY;
+    const u64 key = warp_select<N>(v, k, lane);
+    if (lane < k) {
+        vals[lane] = key == EMPTY ? -INFINITY : key_score(key);
+        ids[lane] = key == EMPTY ? 0x7FFFFFFF : (int32_t)(uint32_t)key;
+    }
+}
+
+// each query's S sorted lists of k keys -> its best k: a warp selection
+// (k <= 32, S k <= 512) or one sort of M (a power of two >= S k) keys in
+// shared memory
 __global__ void __launch_bounds__(MERGE_NT)
 fused_topk_merge_kernel(const u64* __restrict__ ws, int S, int k, int M,
                         float* __restrict__ out_vals, int32_t* __restrict__ out_ids) {
     extern __shared__ u64 keys[];
     const size_t qi = blockIdx.x;
     const int n = S * k;
-    if (k <= 32 && n <= 256) {
-        // a warp selection over at most 8 keys a lane
-        if (threadIdx.x >= 32) return;
-        const int lane = threadIdx.x;
-        u64 v[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] = lane + 32 * i < n ? ws[qi * n + lane + 32 * i] : EMPTY;
-        const u64 key = warp_select<8>(v, k, lane);
-        if (lane < k) {
-            out_vals[qi * k + lane] = key == EMPTY ? -INFINITY : key_score(key);
-            out_ids[qi * k + lane] = key == EMPTY ? 0x7FFFFFFF : (int32_t)(uint32_t)key;
+    if (k <= 32 && n <= 512) {
+        // a warp selection over at most 8 (or 16) keys a lane
+        if (threadIdx.x < 32) {
+            if (n <= 256) merge_select<8>(ws + qi * n, n, k, out_vals + qi * k, out_ids + qi * k);
+            else merge_select<16>(ws + qi * n, n, k, out_vals + qi * k, out_ids + qi * k);
         }
         return;
     }
@@ -416,16 +380,16 @@ fused_topk_merge_kernel(const u64* __restrict__ ws, int S, int k, int M,
     }
 }
 
-template <bool BF16, int QT, int STAGES>
-int launch(const void* E, const void* q, int Q, int d, int count, int k, int bw, int QB,
-           int S, int R, void* ws, void* vals, void* ids, cudaStream_t stream) {
-    using C = Cfg<BF16, QT, STAGES>;
+template <int EB, int QT, int STAGES>
+int launch(const void* E, const float* scales, const void* q, int Q, int d, int count, int k,
+           int bw, int QB, int S, int R, void* ws, void* vals, void* ids, cudaStream_t stream) {
+    using C = Cfg<EB, QT, STAGES>;
     int KP = 1;
     while (KP < k) KP <<= 1;
     const int T = KP <= 32 ? KP : (KP >= CH ? 2 * KP : 2 * CH);
     const int dpad = (d + BK - 1) / BK * BK;
     const size_t smem = C::smem(dpad, QB, T);
-    auto kern = fused_topk_kernel<BF16, QT, STAGES>;
+    auto kern = fused_topk_kernel<EB, QT, STAGES>;
     cudaError_t err;
     static bool ready = false;  // both kernels' shared-memory limits, once
     if (!ready) {
@@ -437,24 +401,25 @@ int launch(const void* E, const void* q, int Q, int d, int count, int k, int bw,
         ready = true;
     }
     const dim3 grid(S, (Q + QB - 1) / QB);
-    kern<<<grid, NT, smem, stream>>>(E, (const uint16_t*)q, Q, d, dpad, count, k, KP, T, bw, QB,
-                                     R, S, (u64*)ws, (float*)vals, (int32_t*)ids);
+    kern<<<grid, NT, smem, stream>>>(E, scales, (const uint16_t*)q, Q, d, dpad, count, k, KP, T,
+                                     bw, QB, R, S, (u64*)ws, (float*)vals, (int32_t*)ids);
     if ((err = cudaGetLastError()) != cudaSuccess || S == 1) return (int)err;
     int M = 1;
     while (M < S * k) M <<= 1;
-    const size_t msmem = k <= 32 && S * k <= 256 ? 0 : (size_t)M * sizeof(u64);
+    const size_t msmem = k <= 32 && S * k <= 512 ? 0 : (size_t)M * sizeof(u64);
     fused_topk_merge_kernel<<<Q, MERGE_NT, msmem, stream>>>((const u64*)ws, S, k, M,
                                                             (float*)vals, (int32_t*)ids);
     return (int)cudaGetLastError();
 }
 
-template <bool BF16>
-int dispatch(int cfg, const void* E, const void* q, int Q, int d, int count, int k, int bw,
-             int QB, int S, int R, void* ws, void* vals, void* ids, cudaStream_t s) {
+template <int EB>
+int dispatch(int cfg, const void* E, const float* sc, const void* q, int Q, int d, int count,
+             int k, int bw, int QB, int S, int R, void* ws, void* vals, void* ids,
+             cudaStream_t s) {
     switch (cfg) {
-        case 0: return launch<BF16, 8, 6>(E, q, Q, d, count, k, bw, QB, S, R, ws, vals, ids, s);
-        case 1: return launch<BF16, 8, 2>(E, q, Q, d, count, k, bw, QB, S, R, ws, vals, ids, s);
-        case 2: return launch<BF16, 32, 6>(E, q, Q, d, count, k, bw, QB, S, R, ws, vals, ids, s);
+        case 0: return launch<EB, 8, 6>(E, sc, q, Q, d, count, k, bw, QB, S, R, ws, vals, ids, s);
+        case 1: return launch<EB, 8, 2>(E, sc, q, Q, d, count, k, bw, QB, S, R, ws, vals, ids, s);
+        case 2: return launch<EB, 32, 6>(E, sc, q, Q, d, count, k, bw, QB, S, R, ws, vals, ids, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -475,8 +440,18 @@ extern "C" int fused_topk(const void* E, int is_bf16, const void* q_bf16, int Q,
                           void* ws, void* out_vals, void* out_ids, void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
     if (is_bf16)
-        return dispatch<true>(cfg, E, q_bf16, Q, d, count, k, bin_width, QB, S, R, ws, out_vals,
-                              out_ids, s);
-    return dispatch<false>(cfg, E, q_bf16, Q, d, count, k, bin_width, QB, S, R, ws, out_vals,
-                           out_ids, s);
+        return dispatch<2>(cfg, E, nullptr, q_bf16, Q, d, count, k, bin_width, QB, S, R, ws,
+                           out_vals, out_ids, s);
+    return dispatch<4>(cfg, E, nullptr, q_bf16, Q, d, count, k, bin_width, QB, S, R, ws,
+                       out_vals, out_ids, s);
+}
+
+// The int8 row type: E_q (cap, d) int8 (16-byte aligned, d % 16 == 0),
+// scales (cap,) f32; every other argument as fused_topk's, the plan for a
+// row of d bytes.
+extern "C" int fused_topk_int8(const void* E_q, const void* scales, const void* q_bf16, int Q,
+                               int d, int count, int k, int bin_width, int cfg, int QB, int S,
+                               int R, void* ws, void* out_vals, void* out_ids, void* stream) {
+    return dispatch<1>(cfg, E_q, (const float*)scales, q_bf16, Q, d, count, k, bin_width, QB,
+                       S, R, ws, out_vals, out_ids, (cudaStream_t)stream);
 }

@@ -1,14 +1,15 @@
 """Single-pass top-k: the ``fused_topk_int8`` and ``fused_topk`` CUDA
 kernels, their plain PyTorch versions, and the selection helpers.
 
-``fused_topk_int8_raw`` (``kernels/fused_topk_int8.cu``) computes, per
-query, the top-k of ``(bf16(q) . float(E_q[r])) * scale[r]`` over rows
-``r < count``; ``fused_topk_raw`` (``kernels/fused_topk.cu``) the top-k
-of ``bf16(q) . bf16(E[r])`` over f32 or bf16 rows, summed in f32 (the
-TPU kernel's default-precision products, the fused/bf16 tiers'
-similarity contract).  Both order by (score desc, row id asc), with the
-optional per-bin candidate reduction of the TPU kernels
-(``_bin_reduce``).  A wrapper launches its kernel for tensors on a CUDA
+``fused_topk_int8_raw`` computes, per query, the top-k of
+``(bf16(q) . float(E_q[r])) * scale[r]`` over rows ``r < count``;
+``fused_topk_raw`` the top-k of ``bf16(q) . bf16(E[r])`` over f32 or
+bf16 rows, summed in f32 (the TPU kernel's default-precision products,
+the fused/bf16 tiers' similarity contract).  Both launch one kernel
+template (``kernels/fused_topk.cu``) over the row type, with one launch
+plan (``fused_topk_plan``) that takes a row value's bytes.  Both order
+by (score desc, row id asc), with the optional per-bin candidate
+reduction of the TPU kernels (``_bin_reduce``).  A wrapper launches its kernel for tensors on a CUDA
 device and runs its plain version for tensors on the CPU.  Scores agree
 up to f32 summation order; slots left at -inf carry arbitrary ids.
 """
@@ -112,20 +113,29 @@ def fused_topk_keys(k: int):
     return kp, (2 * kp if kp >= _FUSED_CHUNK else 2 * _FUSED_CHUNK)
 
 
-def fused_topk_smem(cfg: int, d: int, is_bf16: bool, qb: int, k: int) -> int:
-    """Shared-memory bytes of a ``fused_topk`` CTA: the row ring, the
+def _ring_row_bytes(row_bytes: int) -> int:
+    """Bytes of one staged row of a k-step: f32 and bf16 rows padded by 8
+    values, int8 rows by 16 bytes (so their 16-byte copies stay aligned)."""
+    if row_bytes not in (1, 2, 4):
+        raise ValueError(f"row_bytes must be 1 (int8), 2 (bf16) or 4 (f32); got {row_bytes}")
+    return _FUSED_BK + 16 if row_bytes == 1 else (_FUSED_BK + 8) * row_bytes
+
+
+def fused_topk_smem(cfg: int, d: int, row_bytes: int, qb: int, k: int) -> int:
+    """Shared-memory bytes of a ``fused_topk`` CTA over rows of
+    ``row_bytes``-byte values (4 f32, 2 bf16, 1 int8): the row ring, the
     query tile (bf16, rows padded by 16 bytes), the score tile, the key
     buffers of ``qb`` queries and the per-query carry and count."""
     qt, stages = _FUSED_CFGS[cfg]
     dpad = -(-d // _FUSED_BK) * _FUSED_BK
-    ring = stages * _FUSED_CHUNK * (_FUSED_BK + 8) * (2 if is_bf16 else 4)
+    ring = stages * _FUSED_CHUNK * _ring_row_bytes(row_bytes)
     _, T = fused_topk_keys(k)
     return (ring + qt * (dpad + 8) * 2 + qt * (_FUSED_CHUNK + 4) * 4 + qb * T * 8
             + qt * 8 + qt * 4)
 
 
 @functools.lru_cache(maxsize=1024)
-def fused_topk_plan(Q: int, k: int, count: int, d: int, is_bf16: bool,
+def fused_topk_plan(Q: int, k: int, count: int, d: int, row_bytes: int,
                     bin_width: int = 1):
     """The ``fused_topk`` kernel's launch plan -> (cfg, QB, S, R).
 
@@ -138,7 +148,7 @@ def fused_topk_plan(Q: int, k: int, count: int, d: int, is_bf16: bool,
     _, T = fused_topk_keys(k)
     order = (0, 1) if Q <= 8 else (2, 1)
     for cfg in order:
-        room = kernels.SMEM_BYTES - fused_topk_smem(cfg, d, is_bf16, 0, k)
+        room = kernels.SMEM_BYTES - fused_topk_smem(cfg, d, row_bytes, 0, k)
         qb = min(_FUSED_CFGS[cfg][0], Q, room // (T * 8))
         if qb >= min(_FUSED_CFGS[cfg][0], Q):
             break
@@ -153,6 +163,40 @@ def fused_topk_plan(Q: int, k: int, count: int, d: int, is_bf16: bool,
     return cfg, qb, S, R
 
 
+def _check_kernel_args(what: str, cap: int, d: int, dmul: int, k: int, bw: int) -> None:
+    """Raise on shapes the fused_topk kernel does not take."""
+    if d % dmul or d > 1024 or cap % bw:
+        raise ValueError(f"{what} needs d % {dmul} == 0, d <= 1024 and cap % "
+                         f"bin_width == 0; got d={d}, cap={cap}, bin_width={bw}")
+    if not 1 <= k <= _KERNEL_MAX_K:
+        raise ValueError(f"{what} kernel supports 1 <= k <= {_KERNEL_MAX_K}; got k={k}")
+    if 128 % bw and bw % 128:
+        raise ValueError(f"{what} kernel needs bin_width dividing 128 or a "
+                         f"multiple of 128; got {bw}")
+
+
+def _launch(name: str, E, count: int, q, k: int, bw: int, head: tuple):
+    """Allocate the outputs, plan, and launch kernel ``name`` (``head``:
+    its leading row arguments) -> (vals (Q, k) f32, ids (Q, k) int32)."""
+    qb = q.to(torch.bfloat16).contiguous()
+    if qb.data_ptr() % 16:  # the kernel reads the queries 16 bytes at a time
+        qb = qb.clone()
+    Q = qb.shape[0]
+    cap, d = E.shape
+    vals = torch.empty((Q, k), dtype=torch.float32, device=E.device)
+    ids = torch.empty((Q, k), dtype=torch.int32, device=E.device)
+    if Q == 0:
+        return vals, ids
+    count = max(0, min(int(count), cap))
+    cfg, QB, S, R = fused_topk_plan(Q, k, count, d, E.element_size(), bw)
+    # each split's best k keys of each query, merged by a second kernel
+    ws = torch.empty((Q, S, k) if S > 1 else (0,), dtype=torch.int64, device=E.device)
+    kernels.launch(
+        name, *head, qb.data_ptr(), Q, d, count, k, bw, cfg, QB, S, R, ws.data_ptr(),
+        vals.data_ptr(), ids.data_ptr(), torch.cuda.current_stream(E.device).cuda_stream)
+    return vals, ids
+
+
 def fused_topk_raw(E, count: int, q, k: int, bin_width: Optional[int] = None):
     """Single-pass top-k over f32 or bf16 rows: E (cap, d), q (Q, d) f32
     -> (vals (Q, k) f32, ids (Q, k) int32), scores bf16(q) . bf16(row)
@@ -162,66 +206,31 @@ def fused_topk_raw(E, count: int, q, k: int, bin_width: Optional[int] = None):
     it runs the plain version."""
     if E.device.type == "cpu":
         return fused_topk_reference(E, count, q, k, bin_width)
-    cap, d = E.shape
     bw = 1 if bin_width is None else int(bin_width)
     if E.dtype not in (torch.float32, torch.bfloat16) or not E.is_contiguous():
         raise ValueError("E must be a contiguous float32 or bfloat16 tensor")
-    if d % 8 or d > 1024 or cap % bw:
-        raise ValueError(f"fused_topk needs d % 8 == 0, d <= 1024 and cap % "
-                         f"bin_width == 0; got d={d}, cap={cap}, bin_width={bw}")
-    if not 1 <= k <= _KERNEL_MAX_K:
-        raise ValueError(f"fused_topk kernel supports 1 <= k <= {_KERNEL_MAX_K}; got k={k}")
-    if 128 % bw and bw % 128:
-        raise ValueError(f"fused_topk kernel needs bin_width dividing 128 or a "
-                         f"multiple of 128; got {bw}")
-    qb = q.to(torch.bfloat16).contiguous()
-    if qb.data_ptr() % 16:  # the kernel reads the queries 16 bytes at a time
-        qb = qb.clone()
-    Q = qb.shape[0]
-    vals = torch.empty((Q, k), dtype=torch.float32, device=E.device)
-    ids = torch.empty((Q, k), dtype=torch.int32, device=E.device)
-    if Q == 0:
-        return vals, ids
-    is_bf16 = E.dtype == torch.bfloat16
-    count = max(0, min(int(count), cap))
-    cfg, QB, S, R = fused_topk_plan(Q, k, count, d, is_bf16, bw)
-    # each split's best k keys of each query, merged by a second kernel
-    ws = torch.empty((Q, S, k) if S > 1 else (0,), dtype=torch.int64, device=E.device)
-    kernels.launch(
-        "fused_topk", E.data_ptr(), int(is_bf16), qb.data_ptr(), Q, d, count, k, bw,
-        cfg, QB, S, R, ws.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-        torch.cuda.current_stream(E.device).cuda_stream)
-    return vals, ids
+    _check_kernel_args("fused_topk", E.shape[0], E.shape[1], 8, k, bw)
+    return _launch("fused_topk", E, count, q, k, bw,
+                   (E.data_ptr(), int(E.dtype == torch.bfloat16)))
 
 
 def fused_topk_int8_raw(E_q, scales, count: int, q, k: int,
                         bin_width: Optional[int] = None):
     """int8 single-pass top-k: E_q (cap, d) int8, scales (cap,) or
-    (cap, 1) f32, q (Q, d) f32 -> (vals (Q, k) f32, ids (Q, k) int32).
+    (cap, 1) f32, q (Q, d) f32 -> (vals (Q, k) f32, ids (Q, k) int32),
+    scores (bf16(q) . float(row)) x scale summed in f32.
 
-    On a CUDA device this launches the hand-written kernel; on the CPU
-    it runs the plain version."""
+    On a CUDA device this launches the hand-written kernel (the int8 row
+    type of ``fused_topk``'s); on the CPU it runs the plain version."""
     if E_q.device.type == "cpu":
         return fused_topk_int8_reference(E_q, scales, count, q, k, bin_width)
     cap, d = E_q.shape
     bw = 1 if bin_width is None else int(bin_width)
-    if E_q.dtype != torch.int8 or not E_q.is_contiguous():
-        raise ValueError("E_q must be a contiguous int8 tensor")
-    if d % 4 or d > 1024 or cap % bw:
-        raise ValueError(f"fused_topk_int8 needs d % 4 == 0, d <= 1024 and cap % "
-                         f"bin_width == 0; got d={d}, cap={cap}, bin_width={bw}")
-    if not 1 <= k <= _KERNEL_MAX_K:
-        raise ValueError(f"fused_topk_int8 kernel supports 1 <= k <= "
-                         f"{_KERNEL_MAX_K}; got k={k}")
-    scales = scales.reshape(cap).float().contiguous()
-    qb = q.to(torch.bfloat16).contiguous()
-    Q = qb.shape[0]
-    vals = torch.empty((Q, k), dtype=torch.float32, device=E_q.device)
-    ids = torch.empty((Q, k), dtype=torch.int32, device=E_q.device)
-    if Q == 0:
-        return vals, ids
-    kernels.launch(
-        "fused_topk_int8", E_q.data_ptr(), scales.data_ptr(), qb.data_ptr(),
-        Q, cap, d, int(count), k, bw, vals.data_ptr(), ids.data_ptr(),
-        torch.cuda.current_stream(E_q.device).cuda_stream)
-    return vals, ids
+    if E_q.dtype != torch.int8 or not E_q.is_contiguous() or E_q.data_ptr() % 16:
+        raise ValueError("E_q must be a contiguous, 16-byte aligned int8 tensor")
+    _check_kernel_args("fused_topk_int8", cap, d, 16, k, bw)
+    scales = scales.reshape(cap)
+    if scales.dtype != torch.float32 or not scales.is_contiguous():
+        scales = scales.float().contiguous()
+    return _launch("fused_topk_int8", E_q, count, q, k, bw,
+                   (E_q.data_ptr(), scales.data_ptr()))

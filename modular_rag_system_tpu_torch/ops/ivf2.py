@@ -44,6 +44,7 @@ and runs its plain version for tensors on the CPU.
 
 from __future__ import annotations
 
+import functools
 import logging
 from typing import Optional, Tuple
 
@@ -77,7 +78,7 @@ _RESCORE_MAX_BYTES = 1 << 30
 
 # the selecting kernel's largest running top-k
 _FINE_TOPK_MAX_K = 8192
-# candidate keys a query's partial lists may hold in the merge pass
+# candidate keys a query's partial lists may hold in the fine_topk merge
 _FINE_MERGE_KEYS = 4096
 # f32 bytes of one chunk of the plain fine versions' slab gather
 _REF_CHUNK_BYTES = 1 << 28
@@ -565,13 +566,72 @@ def fine_topk_reference(E_c3, scales3, q, blk, vcnt, k: int):
     return vals, torch.where(torch.isfinite(vals), slots, -1)
 
 
-def fine_split(Q: int, L: int, k: int, sms: int) -> int:
-    """CTAs per query of the selecting kernel: enough to fill the card
-    (two per SM), at least 8 slabs each, and at most
-    ``_FINE_MERGE_KEYS`` partial keys per query for the merge."""
+# ring stages of the fine_topk kernel's launch configurations
+# (kernels/fine_topk.cu ``dispatch``), and the pairs its tensor-core tile
+# scores at a time
+_FINE_STAGES = (6, 2)
+_FINE_COLS = 8
+
+
+def fine_topk_keys(k: int):
+    """(KP, T): a query's best-key slots (the next power of two >= k) and
+    its key buffer: up to 32 keys the kernel selects by warp minima and
+    keeps no candidates; above, room for at least one slab's candidates."""
     kp = 1 << max(k - 1, 0).bit_length()
-    g = min(_cdiv(2 * sms, max(Q, 1)), _cdiv(L, 8), max(_FINE_MERGE_KEYS // kp, 1))
-    return max(g, 1)
+    return (kp, kp) if kp <= 32 else (kp, max(2 * kp, 512))
+
+
+def fine_topk_smem(cfg: int, d: int, mode: str, qb: int, k: int) -> int:
+    """Shared-memory bytes of a ``fine_topk`` CTA: the slab ring (a k-step
+    is a TMA box of the stored rows x 64 bytes, with its mbarrier), the
+    tile's queries (bf16, padded by 16 bytes), the score tile and its
+    error-bound tile, each warp's f32 query and survivor list, the key
+    buffers, the counts and the column table."""
+    stored = SLAB // 2 if mode == "int4" else SLAB
+    ring = _FINE_STAGES[cfg] * (stored * 64 + 16)
+    dpad = _cdiv(d, 64) * 64
+    _, T = fine_topk_keys(k)
+    return (ring + qb * (dpad + 8) * 2 + 2 * _FINE_COLS * (SLAB + 4) * 4
+            + 8 * (dpad + SLAB) * 4 + qb * T * 8 + qb * 4 + _FINE_COLS * 8)
+
+
+def fine_topk_plan(Q: int, L: int, k: int, d: int, mode: str, sms: int):
+    """The ``fine_topk`` kernel's launch plan -> (cfg, QB, G).
+
+    QB queries a tile share each slab they probe: up to 32, as many as
+    their key buffers leave room for beside a six-stage ring, else
+    beside a two-stage ring (the largest k).  A slab's pairs are scored
+    8 at a time (an item rarely has more: 4.3 on average at the smoke's
+    nprobe 512, 1.5 at its int4 call).  G CTAs a tile, so that about one
+    CTA lands on each SM, with at least 4 of the tile's list slots each,
+    and at most ``_FINE_MERGE_KEYS`` partial keys per query for the merge
+    (G = 1: no merge)."""
+    Q = max(Q, 1)
+    for cfg in range(len(_FINE_STAGES)):
+        fixed = fine_topk_smem(cfg, d, mode, 0, k)
+        per_q = fine_topk_smem(cfg, d, mode, 1, k) - fixed
+        qb = min(32, Q, (kernels.SMEM_BYTES - fixed) // per_q)
+        if qb >= min(8, Q):
+            break
+    if qb < 1:
+        raise ValueError(f"fine_topk: k={k} at d={d} does not fit shared memory")
+    kp, _ = fine_topk_keys(k)
+    G = min(_cdiv(sms, _cdiv(Q, qb)), _cdiv(qb * L, 4), max(_FINE_MERGE_KEYS // kp, 1))
+    return cfg, qb, max(G, 1)
+
+
+def fine_pair_keys(blk, vcnt, QB: int, nblocks: int):
+    """The ``fine_topk`` kernel's pair table, built on the device with no
+    host synchronisation: every (query, list slot) pair keyed (query
+    tile) (nblocks + 1) + blk, a dead slot (vcnt <= 0) keyed ``nblocks``
+    past its tile's base, and sorted, so a run of equal keys is one block
+    and the live pairs of the tile that list it -> (sorted keys (Q L,)
+    int64, their flat positions in (Q, L) int64)."""
+    Q, L = blk.shape
+    pos = torch.arange(Q * L, device=blk.device)
+    base = (pos // (L * QB)) * (nblocks + 1)
+    b = torch.where(vcnt.reshape(-1) > 0, blk.reshape(-1).long(), nblocks)
+    return torch.sort(base + b, stable=True)
 
 
 def fine_call(E_c3, scales3, q, blk, vcnt, k: int):
@@ -586,21 +646,31 @@ def fine_call(E_c3, scales3, q, blk, vcnt, k: int):
     mode = _check_fine_operands(E_c3, scales3, blk, vcnt, "fine_topk")
     if not 1 <= k <= _FINE_TOPK_MAX_K:
         raise ValueError(f"fine_topk supports 1 <= k <= {_FINE_TOPK_MAX_K}; got k={k}")
-    d = E_c3.shape[2]
+    nblocks, _, d = E_c3.shape
     Q, L = blk.shape
     dev = E_c3.device
     qb, blk, vcnt, sc = _kernel_operands(E_c3, scales3, q, blk, vcnt, mode)
-    G = fine_split(Q, L, k, torch.cuda.get_device_properties(dev).multi_processor_count)
-    part = torch.empty((Q, G, k), dtype=torch.int64, device=dev)  # partial keys
+    if qb.data_ptr() % 16:  # the kernel reads the queries 16 bytes at a time
+        qb = qb.clone()
     vals = torch.empty((Q, k), dtype=torch.float32, device=dev)
     slots = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return vals, slots
+    cfg, QB, G = fine_topk_plan(Q, L, k, d, mode, _sm_count(dev))
+    keys, perm = fine_pair_keys(blk, vcnt, QB, nblocks)
+    pvc = vcnt.reshape(-1)[perm]  # each sorted pair's vcnt
+    part = torch.empty((Q, G, k) if G > 1 else (0,), dtype=torch.int64, device=dev)
     kernels.launch(
         "fine_topk", E_c3.data_ptr(), _MODE_IDS[mode], sc.data_ptr(), qb.data_ptr(),
-        blk.data_ptr(), vcnt.data_ptr(), Q, L, d, k, G, part.data_ptr(),
-        vals.data_ptr(), slots.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        keys.data_ptr(), perm.data_ptr(), pvc.data_ptr(), Q * L, L, nblocks, Q, d, k, cfg,
+        QB, G, part.data_ptr(), vals.data_ptr(), slots.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     return vals, slots
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def auto_u(L: int) -> int:

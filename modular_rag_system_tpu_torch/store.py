@@ -32,6 +32,9 @@ import numpy as np
 
 from modular_rag_system_tpu_torch.types import Document
 
+# row ids bound to one SELECT or UPDATE ... IN (...)
+_IN_BATCH = 30_000
+
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS documents (
     row_idx      INTEGER PRIMARY KEY,
@@ -152,21 +155,27 @@ class DocumentStore:
         rows = list(rows)
         if not rows:
             return []
+        fetched = []
         with self._lock:
             cur = self._conn.cursor()
-            qmarks = ",".join("?" * len(rows))
-            fetched = cur.execute(
-                f"SELECT row_idx, id, content, content_type, source, timestamp, "
-                f"importance, access_count, deleted, metadata FROM documents "
-                f"WHERE row_idx IN ({qmarks})",
-                rows,
-            ).fetchall()
-            if bump_access:
-                cur.execute(
-                    f"UPDATE documents SET access_count = access_count + 1 "
+            # batches under SQLite's default limit of 32,766 bound
+            # parameters: a deep refill at Q=256 fetches millions of rows
+            for s in range(0, len(rows), _IN_BATCH):
+                part = rows[s:s + _IN_BATCH]
+                qmarks = ",".join("?" * len(part))
+                fetched += cur.execute(
+                    f"SELECT row_idx, id, content, content_type, source, timestamp, "
+                    f"importance, access_count, deleted, metadata FROM documents "
                     f"WHERE row_idx IN ({qmarks})",
-                    rows,
-                )
+                    part,
+                ).fetchall()
+                if bump_access:
+                    cur.execute(
+                        f"UPDATE documents SET access_count = access_count + 1 "
+                        f"WHERE row_idx IN ({qmarks})",
+                        part,
+                    )
+            if bump_access:
                 self._conn.commit()
         by_row = {r[0]: r for r in fetched}
         out: List[Optional[Document]] = []

@@ -252,3 +252,21 @@ def test_snapshot_format_shared_with_jax(tmp_path, store_dtype):
     assert torch.equal(back.E[:37], pidx.E[:37])
     q = rng.standard_normal((2, 16)).astype(np.float32)
     np.testing.assert_array_equal(back.search(q, 5)[1], pidx.search(q, 5)[1])
+
+
+def test_store_fetches_rows_in_batches(tmp_path, monkeypatch):
+    # a fetch of more rows than one SELECT may bind goes out in batches:
+    # the same documents, in the order asked, and every access counted
+    from modular_rag_system_tpu.store import DocumentStore as JaxStore
+    from modular_rag_system_tpu_torch import store as pstore
+
+    monkeypatch.setattr(pstore, "_IN_BATCH", 64)
+    port, ref = pstore.DocumentStore(str(tmp_path / "p")), JaxStore(str(tmp_path / "j"))
+    port.upsert_batch([Document(content=f"row {i}", id=f"d{i}") for i in range(300)])
+    ref.upsert_batch([JaxDocument(content=f"row {i}", id=f"d{i}") for i in range(300)])
+    rows = list(range(299, -1, -3)) + [1000]  # unordered, and one absent row
+    got, want = port.get_by_rows(rows), ref.get_by_rows(rows)
+    assert [d and (d.id, d.content, d.access_count) for d in got] == \
+        [d and (d.id, d.content, d.access_count) for d in want]
+    again = port.get_by_rows(rows[:70])
+    assert [d.access_count for d in again] == [1] * 70

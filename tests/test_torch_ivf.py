@@ -386,6 +386,75 @@ def test_fine_topk_ties_by_lowest_slot():
     assert torch.equal(s[:, 1::2], s[:, 0::2] + 2 * pivf.SLAB)
 
 
+def _work_items(keys, perm, Q, L, QB, G, nblocks):
+    """The fine_topk kernel's split of the sorted pairs, in Python: per
+    (query tile, CTA g) the items that start in the CTA's share of the
+    tile's live pairs -> [(tile, block, [(query, slot), ...])]."""
+    keys, perm = keys.numpy(), perm.numpy()
+    items = []
+    for tile in range(-(-Q // QB)):
+        base = tile * (nblocks + 1)
+        lo, hi = np.searchsorted(keys, base), np.searchsorted(keys, base + nblocks)
+        n = hi - lo
+        for g in range(G):
+            plo, phi = lo + n * g // G, lo + n * (g + 1) // G
+            while plo < phi and plo > lo and keys[plo] == keys[plo - 1]:
+                plo += 1
+            p = plo
+            while p < phi:
+                e = p
+                while e < hi and keys[e] == keys[p]:
+                    e += 1
+                items.append((tile, int(keys[p] - base),
+                              [divmod(int(x), L) for x in perm[p:e]]))
+                p = e
+    return items
+
+
+@pytest.mark.parametrize("QB,G", [(1, 1), (2, 1), (2, 3), (4, 7), (32, 5)])
+def test_fine_topk_pair_table(rng, QB, G):
+    # the pair table against a loop over (query, slot): dead slots at block
+    # 0 beside a live block 0, one block with another vcnt for a second
+    # query of the tile, a slot listed twice, random lists
+    Q, L, nblocks = 9, 12, 7
+    blk = rng.integers(0, nblocks, (Q, L)).astype(np.int32)
+    vcnt = rng.choice([0, 1, 77, 129, 256], (Q, L)).astype(np.int32)
+    blk[0, :3], vcnt[0, :3] = 0, [0, 256, 0]  # dead block-0 slots around a live one
+    blk[1, 0], vcnt[1, 0] = 0, 0
+    blk[0, 3], vcnt[0, 3] = 3, 10  # block 3 for queries 0 and 1, two vcnts
+    blk[1, 3], vcnt[1, 3] = 3, 77
+    blk[2, 4:6], vcnt[2, 4:6] = 5, 200  # a slot listed twice
+    keys, perm = pivf.fine_pair_keys(torch.from_numpy(blk), torch.from_numpy(vcnt), QB,
+                                     nblocks)
+    items = _work_items(keys, perm, Q, L, QB, G, nblocks)
+    # each live pair in exactly one work item, and no dead pair in any
+    got = sorted(pair for _, _, pairs in items for pair in pairs)
+    want = sorted((i, j) for i in range(Q) for j in range(L) if vcnt[i, j] > 0)
+    assert got == want
+    # one item per (query tile, block) that a live pair of the tile lists,
+    # holding exactly those pairs in (query, slot) order
+    groups = {}
+    for i, j in want:
+        groups.setdefault((i // QB, int(blk[i, j])), []).append((i, j))
+    assert {(t, b): pairs for t, b, pairs in items} == groups
+    assert len(items) == len(groups)
+    assert all(blk[i, j] == b and i // QB == t for t, b, pairs in items for i, j in pairs)
+
+
+@pytest.mark.parametrize("Q,L,k,d,mode", [
+    (16, 4608, 20, 768, "bf16"), (128, 80, 20, 768, "int4"), (1, 80, 8192, 1024, "bf16"),
+    (300, 80, 128, 768, "int8"), (4, 1500, 128, 768, "int8"), (300, 80, 8192, 1024, "bf16"),
+    (9, 3, 4096, 16, "int4"), (65535, 8, 20, 768, "bf16")])
+def test_fine_topk_plan_fits(Q, L, k, d, mode):
+    cfg, QB, G = pivf.fine_topk_plan(Q, L, k, d, mode, 132)
+    assert 1 <= QB <= min(Q, 32)
+    assert cfg == 0 or QB < min(8, Q) or pivf.fine_topk_smem(0, d, mode, min(8, Q), k) > 232_448
+    assert pivf.fine_topk_smem(cfg, d, mode, QB, k) <= 232_448
+    kp, _ = pivf.fine_topk_keys(k)
+    assert G == 1 or G * kp <= pivf._FINE_MERGE_KEYS
+    assert -(-Q // QB) <= 65535  # the grid's query tiles
+
+
 def _jax_search(jiv, E, q, k, nprobe, built, count, tail_max):
     L = jiv.slots_for_nprobe(nprobe)
     U = jivf.auto_u(L)

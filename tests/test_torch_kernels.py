@@ -79,16 +79,35 @@ def test_binmax_int8_kernel_query_tiles(cuda_device, cap, d, Q, bw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cap,count,k,bw", [
-    (1024, 1000, 10, None), (4096, 4000, 2048, None), (32768, 32000, 1024, None),
-    (1024, 5, 10, None), (4096, 4000, 20, 128)])
-def test_fused_topk_int8_kernel_matches_plain(cuda_device, cap, count, k, bw):
-    E_q, sc = _rows(2, cap, count, cuda_device)
-    q = _queries(3, 16, cuda_device)
+@pytest.mark.parametrize("cap,count,Q,k,bw,crafted", [
+    (1024, 1000, 16, 10, None, False), (4096, 4000, 16, 2048, None, False),
+    (32768, 32000, 16, 1024, None, False), (1024, 5, 16, 10, None, False),
+    (4096, 4000, 16, 20, 128, False),
+    # the single-pass route's size at each query tile of the launch plan
+    (4096, 1939, 1, 20, None, False), (4096, 1939, 17, 20, None, False),
+    (4096, 1939, 256, 20, None, False), (4096, 1939, 300, 20, None, False),
+    # bins of one and of several 128-row chunks; crafted ties exact
+    (4096, 3001, 256, 8, 128, True), (8192, 7000, 40, 10, 512, True),
+    (4096, 3000, 16, 16, None, True),
+    # k = 8192 over one and two splits
+    (16384, 16000, 1, 8192, None, True), (16384, 9000, 3, 8192, None, True)])
+def test_fused_topk_int8_kernel_matches_plain(cuda_device, cap, count, Q, k, bw, crafted):
+    if crafted:  # small integers, unit scales, integer queries: exact sums
+        g = torch.Generator(device=cuda_device).manual_seed(2)
+        E_q = torch.randint(-2, 3, (cap, D), generator=g, device=cuda_device).to(torch.int8)
+        E_q[count:] = 0
+        sc = torch.ones(cap, device=cuda_device)
+        q = torch.randint(-1, 2, (Q, D), generator=g, device=cuda_device).float()
+    else:
+        E_q, sc = _rows(2, cap, count, cuda_device)
+        q = _queries(3, Q, cuda_device)
     v1, i1 = pf.fused_topk_int8_raw(E_q, sc, count, q, k, bw)
     v2, i2 = pf.fused_topk_int8_reference(E_q, sc, count, q, k, bw)
     fin = torch.isfinite(v2)
     assert torch.equal(torch.isfinite(v1), fin)
+    if crafted:
+        assert torch.equal(v1[fin], v2[fin]) and torch.equal(i1[fin], i2[fin])
+        return
     torch.testing.assert_close(v1[fin], v2[fin], rtol=1e-5, atol=1e-5)
     bad = (i1 != i2) & fin
     if bad.any():  # only near-ties may swap
@@ -159,7 +178,11 @@ def test_fused_topk_kernel_matches_plain(cuda_device, dtype, cap, count, k, bw, 
     _assert_topk_close(v1, i1, v2, i2, crafted)
 
 
-def _fine_case(seed, fine_dtype, dev, nblocks=64, Q=8, L=24):
+def _fine_case(seed, fine_dtype, dev, nblocks=64, Q=8, L=24, shared=0):
+    """A fine copy and per-query lists of distinct blocks with dead,
+    partial and full slots; with ``shared`` > 0 every list draws from the
+    first ``shared`` blocks, so several queries probe each block, each
+    pair with its own vcnt, and the dead slots point at block 0."""
     rng = np.random.default_rng(seed)
     E = rng.standard_normal((nblocks * pivf.SLAB, D)).astype(np.float32)
     E /= np.linalg.norm(E, axis=1, keepdims=True)
@@ -171,12 +194,14 @@ def _fine_case(seed, fine_dtype, dev, nblocks=64, Q=8, L=24):
         E_c3, sc3 = quantize_int4_blocks(Et, nblocks, pivf.SLAB)
     else:
         E_c3, sc3 = Et.to(torch.bfloat16).view(nblocks, pivf.SLAB, D), None
-    blk = torch.from_numpy(np.stack([rng.choice(nblocks, L, replace=False)
-                                     for _ in range(Q)]).astype(np.int32)).to(dev)
+    pool = shared or nblocks
+    blk = np.stack([rng.choice(pool, L, replace=False) for _ in range(Q)]).astype(np.int32)
     # dead, partial (below and above half a slab, odd) and full slots
-    vcnt = torch.from_numpy(rng.choice([0, 1, 77, 100, 129, 256, 256],
-                                       (Q, L)).astype(np.int32)).to(dev)
-    return E_c3, sc3, _queries(seed + 1, Q, dev), blk, vcnt
+    vcnt = rng.choice([0, 1, 77, 100, 129, 256, 256], (Q, L)).astype(np.int32)
+    if shared:
+        blk[vcnt == 0] = 0  # dead slots at block 0, as block_lists writes them
+    return (E_c3, sc3, _queries(seed + 1, Q, dev), torch.from_numpy(blk).to(dev),
+            torch.from_numpy(vcnt).to(dev))
 
 
 @pytest.mark.cuda
@@ -191,17 +216,26 @@ def test_fine_scores_kernel_matches_plain(cuda_device, fine_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fine_dtype,k,L", [("bf16", 20, 24), ("int8", 128, 24),
-                                            ("int8", 20, 300), ("int4", 20, 24),
-                                            ("int4", 128, 300)])
-def test_fine_topk_kernel_matches_plain(cuda_device, fine_dtype, k, L):
-    E_c3, sc3, q, blk, vcnt = _fine_case(9, fine_dtype, cuda_device, nblocks=400, L=L)
+@pytest.mark.parametrize("fine_dtype,k,L,Q,shared", [
+    ("bf16", 20, 24, 8, 0), ("int8", 128, 24, 8, 0), ("int8", 20, 300, 8, 0),
+    ("int4", 20, 24, 8, 0), ("int4", 128, 300, 8, 0),
+    # more queries than one tile; blocks shared by many queries, per-pair
+    # vcnt, dead slots at block 0
+    ("bf16", 20, 40, 40, 60), ("int8", 20, 24, 300, 48), ("int4", 20, 40, 70, 60),
+    ("bf16", 300, 100, 20, 120), ("int4", 100, 24, 9, 30),
+    # the largest k: one CTA a tile, no merge
+    ("int8", 8192, 300, 3, 0), ("bf16", 8192, 60, 2, 80)])
+def test_fine_topk_kernel_matches_plain(cuda_device, fine_dtype, k, L, Q, shared):
+    E_c3, sc3, q, blk, vcnt = _fine_case(9, fine_dtype, cuda_device, nblocks=400, Q=Q, L=L,
+                                         shared=shared)
     v1, s1 = pivf.fine_call(E_c3, sc3, q, blk, vcnt, k)
     v2, s2 = pivf.fine_topk_reference(E_c3, sc3, q, blk, vcnt, k)
     _assert_topk_close(v1, s1, v2, s2, False)
-    # the dump path selects the same slots (the JAX package's invariant)
+    # the dump path selects the same slots with the same scores, bit for
+    # bit (the JAX package's invariant: the selecting kernel's values are
+    # fine_scores' own arithmetic)
     xv, xs = pivf.fine_call_xla(E_c3, sc3, q, blk, vcnt, k)
-    _assert_topk_close(v1, s1, xv, xs, False)
+    assert torch.equal(s1, xs) and torch.equal(v1, xv)
 
 
 @pytest.mark.cuda
@@ -293,3 +327,44 @@ def test_fused_topk_kernel_launch_plans(cuda_device, dtype, cap, count, Q, k, bw
     v1, i1 = pf.fused_topk_raw(E, count, q, k, bw)
     v2, i2 = pf.fused_topk_reference(E, count, q, k, bw)
     _assert_topk_close(v1, i1, v2, i2, crafted)
+
+
+@pytest.mark.cuda
+def test_exact_topk_peak_memory(cuda_device):
+    # the blocked exact top-k against the whole-matrix selection it
+    # replaced: the same ids, a fraction of the transient memory
+    from modular_rag_system_tpu_torch.ops import exact as pexact
+
+    cap, Q, k = 1 << 20, 256, 100
+    E = _float_rows(15, cap, cap, cuda_device, torch.float32)
+    q = _queries(16, Q, cuda_device)
+    count = cap - 5
+
+    def whole():
+        s = q @ E.T
+        col = torch.arange(cap, device=cuda_device)
+        s = torch.where(col[None, :] < count, s, float("-inf"))
+        v, p = pexact.stable_topk(s, k)
+        return v, p.to(torch.int32)
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    (vw, iw), whole_bytes = peak(whole)
+    (vb, ib), block_bytes = peak(lambda: pexact.exact_topk_raw(E, count, q, k,
+                                                               block_rows=65536))
+    # the blocks' products may be summed in another order than the whole
+    # matrix's: scores within 1e-5, ids equal but for near-ties
+    torch.testing.assert_close(vb, vw, rtol=0, atol=1e-5)
+    assert (ib != iw).sum().item() <= Q * k // 1000
+    assert whole_bytes >= 4 * Q * cap * 4  # scores, the mask's copy, the sort
+    # one block's scores and its stable sort (values, int64 positions and
+    # scratch: about 12 times the scores), the running lists, slack
+    assert block_bytes <= 16 * Q * 65536 * 4 + 4 * Q * k * 8 + (64 << 20)
+    assert 2 * block_bytes <= whole_bytes

@@ -60,18 +60,50 @@ def test_quantize_rows_bit_exact(rng, dtype):
     assert sp[5].item() == 0.0
 
 
-@pytest.mark.parametrize("ties", [False, True])
-def test_exact_topk_matches_jax(rng, ties):
-    cap, d, count, k = 512, 64, 300, 10
-    if ties:  # small integers: exact sums, many equal scores
+@pytest.mark.parametrize("ties,block_rows,store,count,k", [
+    pytest.param(False, None, "float32", 300, 10, id="False"),
+    pytest.param(True, None, "float32", 300, 10, id="True"),
+    # blocks of fewer rows than k, and of fewer rows than count
+    pytest.param(True, 7, "float32", 300, 10, id="blocks-below-k"),
+    pytest.param(False, 64, "float32", 300, 10, id="blocks-below-count"),
+    # a run of equal rows across the edge of two blocks
+    pytest.param("straddle", 64, "float32", 300, 10, id="ties-straddle-block-edge"),
+    pytest.param("straddle", 10, "float32", 300, 10, id="ties-straddle-k-blocks"),
+    # a bf16 master, upcast a block at a time
+    pytest.param(False, 50, "bfloat16", 300, 20, id="bf16-master"),
+    pytest.param(True, 3, "bfloat16", 300, 10, id="bf16-master-ties"),
+    # fewer live rows than k: the masked columns fill the last slots
+    pytest.param(False, 4, "float32", 6, 10, id="count-below-k"),
+    pytest.param(False, None, "bfloat16", 0, 5, id="count-zero-bf16"),
+])
+def test_exact_topk_matches_jax(rng, ties, block_rows, store, count, k):
+    cap, d = 512, 64
+    if ties is True:  # small integers: exact sums, many equal scores
         E = rng.integers(-2, 3, (cap, d)).astype(np.float32)
         q = rng.integers(-2, 3, (5, d)).astype(np.float32)
     else:
         E, q = _unit(rng, cap, d), _unit(rng, 5, d)
-    vj, ij = jexact.exact_topk(jnp.asarray(E), jnp.int32(count), jnp.asarray(q), k)
-    vp, ip = pexact.exact_topk_raw(_t(E), count, _t(q), k)
+    if ties == "straddle":  # rows 58..69 equal, and the best for query 0
+        E[58:70] = E[0]
+        q[0] = E[0]
+    E = np.asarray(jnp.asarray(E).astype(store).astype(jnp.float32))
+    vj, ij = jexact.exact_topk(jnp.asarray(E).astype(store), jnp.int32(count),
+                               jnp.asarray(q), k)
+    vp, ip = pexact.exact_topk_raw(_t(E).to(getattr(torch, store)), count, _t(q), k,
+                                   block_rows=block_rows)
     np.testing.assert_array_equal(np.asarray(ij), ip.numpy())
     np.testing.assert_allclose(np.asarray(vj), vp.numpy(), rtol=0, atol=1e-6)
+
+
+def test_exact_block_rows_bounded():
+    # the default block holds at most 256 MiB of scores (and f32 rows over
+    # a bf16 master), and never fewer rows than k
+    assert pexact._EXACT_BLOCK_BYTES == 1 << 28
+    for Q, d, upcast, k in ((256, 768, False, 16384), (256, 768, True, 16384),
+                            (1, 768, True, 10), (65536, 1024, True, 8192)):
+        B = pexact.exact_block_rows(Q, d, upcast, k)
+        assert B >= k
+        assert B == k or B * (4 * Q + (4 * d if upcast else 0)) <= 1 << 28
 
 
 @pytest.mark.parametrize("bw,Q", [(32, 7), (8, 1), (64, 16)])
@@ -424,14 +456,20 @@ def test_twopass_int8_master_kernel_rescan_matches_jax(rng, master_dtype):
 _SMEM = 232_448
 
 
+# a row value's bytes; the ids are those of the f32/bf16 cases from before
+# the int8 row type joined the plan (False: f32, True: bf16)
+_ROW_BYTES = [pytest.param(4, id="False"), pytest.param(2, id="True"),
+              pytest.param(1, id="int8")]
+
+
 @pytest.mark.parametrize("Q,k,count,bw", [
     (256, 10, 1939, 1), (1, 10, 1939, 1), (17, 10, 50, 1), (300, 16, 3001, 1),
     (17, 10, 1000, 128), (9, 20, 4001, 32), (40, 10, 7000, 512), (20, 1000, 700, 1),
     (1, 8192, 16000, 1), (3, 8192, 9000, 1), (4, 2048, 16000, 1), (5, 10, 0, 1),
     (1024, 100, 1_000_000, 256), (1, 1, 127, 1), (8, 4096, 8191, 128)])
-@pytest.mark.parametrize("is_bf16", [False, True])
-def test_fused_topk_plan_splits_cover_live_rows(Q, k, count, bw, is_bf16):
-    cfg, QB, S, R = pf.fused_topk_plan(Q, k, count, 768, is_bf16, bw)
+@pytest.mark.parametrize("row_bytes", _ROW_BYTES)
+def test_fused_topk_plan_splits_cover_live_rows(Q, k, count, bw, row_bytes):
+    cfg, QB, S, R = pf.fused_topk_plan(Q, k, count, 768, row_bytes, bw)
     assert R % 128 == 0 and R % bw == 0  # no bin straddles two splits
     assert S * k <= 16384  # one query's merge fits shared memory
     owner = np.zeros(count, dtype=np.int64)
@@ -440,27 +478,40 @@ def test_fused_topk_plan_splits_cover_live_rows(Q, k, count, bw, is_bf16):
         assert hi > lo or count == 0  # no empty split
         owner[lo:hi] += 1
     assert (owner == 1).all()  # every live row in exactly one split
-    assert pf.fused_topk_smem(cfg, 768, is_bf16, QB, k) <= _SMEM
+    assert pf.fused_topk_smem(cfg, 768, row_bytes, QB, k) <= _SMEM
 
 
 @pytest.mark.parametrize("d", [8, 768, 1024])
-@pytest.mark.parametrize("is_bf16", [False, True])
-def test_fused_topk_plan_smem_every_k(d, is_bf16):
+@pytest.mark.parametrize("row_bytes", _ROW_BYTES)
+def test_fused_topk_plan_smem_every_k(d, row_bytes):
     for Q in (1, 8, 9, 256, 1024):
         for k in range(1, 8193):
-            cfg, QB, S, R = pf.fused_topk_plan(Q, k, 16384, d, is_bf16)
+            cfg, QB, S, R = pf.fused_topk_plan(Q, k, 16384, d, row_bytes)
             assert 1 <= QB <= Q
-            assert pf.fused_topk_smem(cfg, d, is_bf16, QB, k) <= _SMEM, (Q, k)
+            assert pf.fused_topk_smem(cfg, d, row_bytes, QB, k) <= _SMEM, (Q, k)
 
 
 @pytest.mark.parametrize("k", [1, 10, 100, 128, 129, 1000, 4096, 8192])
 def test_fused_topk_plan_query_tiles_cover_q(k):
     for Q in range(1, 1025):
-        cfg, QB, S, R = pf.fused_topk_plan(Q, k, 4096, 1024, False)
-        tiles = -(-Q // QB)
-        assert (tiles - 1) * QB < Q <= tiles * QB
-        assert QB <= (8 if cfg in (0, 1) else 32)  # the configuration's columns
-        assert pf.fused_topk_smem(cfg, 1024, False, QB, k) <= _SMEM
+        for row_bytes in (4, 1):
+            cfg, QB, S, R = pf.fused_topk_plan(Q, k, 4096, 1024, row_bytes)
+            tiles = -(-Q // QB)
+            assert (tiles - 1) * QB < Q <= tiles * QB
+            assert QB <= (8 if cfg in (0, 1) else 32)  # the configuration's columns
+            assert pf.fused_topk_smem(cfg, 1024, row_bytes, QB, k) <= _SMEM
+
+
+def test_fused_topk_plan_int8_ring():
+    # the int8 ring stages 48 bytes a row (32 values + 16), a quarter-odd of
+    # f32's 160; the rest of a CTA's shared memory is the same
+    for cfg in range(3):
+        f32 = pf.fused_topk_smem(cfg, 768, 4, 8, 10)
+        i8 = pf.fused_topk_smem(cfg, 768, 1, 8, 10)
+        stages = pf._FUSED_CFGS[cfg][1]
+        assert f32 - i8 == stages * 128 * (160 - 48)
+    with pytest.raises(ValueError):
+        pf.fused_topk_smem(0, 768, 3, 8, 10)
 
 
 @pytest.mark.parametrize("d", [4, 196, 384, 768, 1036])

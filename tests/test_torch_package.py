@@ -46,3 +46,21 @@ def test_every_kernel_has_its_source():
 
     for name in kernels.SOURCES:
         assert (kernels.KERNEL_DIR / f"{name}.cu").is_file()
+
+
+def test_kernel_argtypes_match_c_entry_points():
+    # ctypes passes arguments past ``argtypes`` as C ints, which cuts a
+    # pointer: every entry point's declared C parameters must match
+    import ctypes
+    import re
+
+    from modular_rag_system_tpu_torch import kernels
+
+    ctype = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+    for name, src in kernels.KERNELS.items():
+        text = (kernels.KERNEL_DIR / f"{src}.cu").read_text()
+        m = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+        assert m, f"{src}.cu has no entry point {name}"
+        params = [re.sub(r"\bconst\b|\s+", "", p).rsplit("*", 1)[0] + "*"
+                  if "*" in p else p.split()[-2] for p in m.group(1).split(",")]
+        assert [ctype[p] for p in params] == kernels._ARGTYPES[name], name
