@@ -590,14 +590,19 @@ def check_fine_scores(g, dev):
 
     worst = dict.fromkeys(FINE_MODES, 0.0)
     for fdt in FINE_MODES:
-        for nblocks, Q, L in ((512, 16, 64), (2048, 4, 1024)):
-            E_c3, sc3, q, blk, vcnt = fine_case(g, dev, fdt, nblocks, Q, L)
+        # the last case: Q = 256 over blocks shared by many queries with
+        # per-pair vcnt and dead slots at block 0 (16 sorted pairs a CTA)
+        for nblocks, Q, L, shared in ((512, 16, 64, 0), (2048, 4, 1024, 0),
+                                      (512, 256, 40, 120)):
+            E_c3, sc3, q, blk, vcnt = fine_case(g, dev, fdt, nblocks, Q, L, shared=shared)
             worst[fdt] = max(worst[fdt], _check_dense(
                 V.fine_scores_call(E_c3, sc3, q, blk, vcnt),
                 V.fine_scores_reference(E_c3, sc3, q, blk, vcnt), False,
-                f"fine_scores {fdt} L={L}"))
-    log(f"kernel fine_scores bf16/int8/int4: partial and zero vcnt, -inf pattern "
-        f"identical, max |err| {worst}")
+                f"fine_scores {fdt} L={L} Q={Q}"))
+    log(f"kernel fine_scores bf16/int8/int4: partial and zero vcnt, Q 4..256 (shared "
+        f"blocks, per-pair vcnt: bf16/int8 P = "
+        f"{V.fine_scores_plan(256, 40, D, 'int8', V._sm_count(dev))}), "
+        f"-inf pattern identical, max |err| {worst}")
     return worst
 
 
@@ -901,6 +906,37 @@ def _fine_bound(iv, blk, vcnt, out_bytes, spec):
     return b_ms, b_by, uniq, per_query
 
 
+def fine_scores_sweep(iv, q, blk, vcnt, Ps):
+    """The fine_scores kernel alone at each P of ``Ps`` (its entry called
+    directly, on pairs sorted once beforehand): queued ms by P; the scores
+    must not change with P."""
+    import torch
+
+    from modular_rag_system_tpu_torch import kernels
+    from modular_rag_system_tpu_torch.ops import ivf2 as V
+
+    mode = V._fine_mode(iv.E_c3)
+    qb, b, v, sc = V._kernel_operands(iv.E_c3, iv.scales3, q, blk, vcnt, mode)
+    Q, L = b.shape
+    perm = V.fine_pair_keys(b, v, Q, iv.E_c3.shape[0])[1]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    outs, res = [], {}
+    for P in Ps:
+        out = torch.empty((Q, L * V.SLAB), dtype=torch.float32, device=q.device)
+
+        def fn(P=P, out=out):
+            kernels.launch("fine_scores", iv.E_c3.data_ptr(), V._MODE_IDS[mode], sc.data_ptr(),
+                           qb.data_ptr(), b.data_ptr(), v.data_ptr(),
+                           perm.data_ptr() if P > 1 else None, Q, L, D, P, out.data_ptr(),
+                           stream)
+
+        res[P] = queued_ms(fn, reps=10)
+        outs.append(out)
+    if not all(torch.equal(outs[0], o) for o in outs[1:]):
+        raise AssertionError(f"fine_scores: the scores change with P ({Ps})")
+    return res
+
+
 def time_fine(idx, q, nprobe, k, spec, name):
     """fine_scores (dump path), fine_topk (selecting) or fine_binmax (the
     maxima probe) at the engine's own probe lists: held against its plain
@@ -951,6 +987,23 @@ def time_fine(idx, q, nprobe, k, spec, name):
         queued = queued_ms(fn, reps=10)
         plain = cuda_ms(plain_fn, reps=2)
         b_ms, b_by, uniq, per_query = _fine_bound(iv, blk, vcnt, out_bytes, spec)
+        if name == "fine_scores":  # the launch plan, and the slab reads of its chunks
+            P = V.fine_scores_plan(Q, blk.shape[1], D, iv.fine_dtype,
+                                   V._sm_count(qq.device))
+            nb = iv.E_c3.shape[0]
+            keys = (V.fine_pair_keys(blk, vcnt, Q, nb)[0] if P > 1
+                    else torch.where(vcnt > 0, blk, nb).reshape(-1).long())
+            at = torch.arange(keys.numel(), device=keys.device)
+            starts = (keys < nb) & ((at % P == 0) | (keys != torch.roll(keys, 1)))
+            log(f"fine_scores plan at nprobe={nprobe} Q={Q}: P {P} pairs a CTA, "
+                f"{-(-keys.numel() // P)} CTAs; {int((keys < nb).sum())} live pairs in "
+                f"{int(starts.sum())} runs (slab reads; {uniq} unique slabs)")
+            if Q > 1:  # the plan's P beside others, and what the pair sort costs
+                sweep = fine_scores_sweep(iv, qq, blk, vcnt, (1, 2, 8, 16))
+                sort_ms = queued_ms(lambda: V.fine_pair_keys(blk, vcnt, Q, nb), reps=10)
+                log(f"fine_scores kernel alone (pairs sorted beforehand), queued ms by P: "
+                    + ", ".join(f"P={pp} {t:.4f}" for pp, t in sweep.items())
+                    + f"; the pair sort {sort_ms:.4f} ms queued")
         if selecting:  # the launch plan, and the slab reads of its query tiles
             cfg, QB, G = V.fine_topk_plan(Q, blk.shape[1], k, D, iv.fine_dtype,
                                           V._sm_count(qq.device))

@@ -66,14 +66,14 @@ _ARGTYPES = {
     # E, is_bf16, q_bf16, Q, d, count, k, bin_width, cfg, QB, S, R, ws,
     # vals, ids, stream
     "fused_topk": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # E_c3, mode (0 bf16, 1 int8, 2 int4), scales3, q_bf16, blk, vcnt, Q, L,
-    # d, out, stream
-    "fine_scores": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # E_c3, mode (0 bf16, 1 int8, 2 int4), scales3, q_bf16, blk, vcnt, perm,
+    # Q, L, d, P, out, stream
+    "fine_scores": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # E_c3, mode, scales3, q_bf16, keys, perm, pvc, P, L, nblocks, Q, d, k,
     # cfg, QB, G, part, vals, slots, stream
     "fine_topk": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                   _P, _P, _P, _P],
-    # as fine_scores, out (Q, L)
+    # E_c3, mode, scales3, q_bf16, blk, vcnt, Q, L, d, out (Q, L), stream
     "fine_binmax": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # E, is_bf16, q_bf16, bins, Q, d, count, kb, bin_width, k, vals, ids, stream
     "rescan": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],

@@ -1,6 +1,8 @@
 // Shared device code of the ivf fine-stage kernels (fine_scores.cu,
 // fine_topk.cu, fine_binmax.cu): one warp scores ROWS stored rows of a
-// fine-copy slab against the query held in shared memory.
+// fine-copy slab against a query held in shared memory, in two halves:
+// load_rows brings the rows into registers, dot_rows scores them against
+// one query and may run again on the same rows for another query.
 //
 // Three storage modes.  BF16 and INT8: a stored row is a logical row of d
 // bf16 or d int8 values.  INT4: a block stores SLAB / 2 rows of d bytes,
@@ -95,28 +97,42 @@ __device__ __forceinline__ void vec_dot_int4(const uint4& v, const float* qs, in
     }
 }
 
-// dots of stored rows [r0, r0 + ROWS) of ``slab`` (stored rows at or past
-// ``rlim`` read nothing and give 0); every lane returns all the dots, in
-// the order of ``logical_row``
+// 16-byte vectors of a stored row that one lane holds at d <= 1024
+template <int MODE>
+__host__ __device__ constexpr int lane_vectors() { return MODE == BF16 ? 4 : 2; }
+
+// the load half of score_rows: stored rows [r0, r0 + ROWS) of ``slab`` into
+// the lane's registers, every vector in flight before any is used (stored
+// rows at or past ``rlim`` read nothing and hold 0)
 template <int MODE, int ROWS>
-__device__ __forceinline__ void score_rows(const uint4* __restrict__ slab, int nvec, int r0,
-                                           int rlim, const float* qs, int lane,
-                                           float (&acc)[outputs<MODE, ROWS>()]) {
-    constexpr int VPL = MODE == BF16 ? 4 : 2;  // vectors of a row per lane at d <= 1024
-    constexpr int NOUT = outputs<MODE, ROWS>();
-    uint4 v[ROWS][VPL];
+__device__ __forceinline__ void load_rows(const uint4* __restrict__ slab, int nvec, int r0,
+                                          int rlim, int lane,
+                                          uint4 (&v)[ROWS][lane_vectors<MODE>()]) {
 #pragma unroll
-    for (int i = 0; i < VPL; ++i)
+    for (int i = 0; i < lane_vectors<MODE>(); ++i)
 #pragma unroll
         for (int j = 0; j < ROWS; ++j) {
             const int vi = lane + 32 * i;
             v[j][i] = (vi < nvec && r0 + j < rlim) ? slab[(size_t)(r0 + j) * nvec + vi]
                                                     : make_uint4(0, 0, 0, 0);
         }
+}
+
+// the dot half of score_rows: the dots of the ROWS rows held in ``v`` with
+// the query ``qs`` (each row's per-vector dots summed over the lane's
+// vectors, then the butterfly); every lane returns all the dots, in the
+// order of ``logical_row``.  A caller may run it on the same rows for
+// several queries: a dot depends on its own row's vectors and the query
+// only, so it is the same bits whichever rows and queries it is run beside.
+template <int MODE, int ROWS>
+__device__ __forceinline__ void dot_rows(const uint4 (&v)[ROWS][lane_vectors<MODE>()], int nvec,
+                                         const float* qs, int lane,
+                                         float (&acc)[outputs<MODE, ROWS>()]) {
+    constexpr int NOUT = outputs<MODE, ROWS>();
 #pragma unroll
     for (int j = 0; j < NOUT; ++j) acc[j] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < VPL; ++i) {
+    for (int i = 0; i < lane_vectors<MODE>(); ++i) {
         const int vi = lane + 32 * i;
         if (vi >= nvec) break;
 #pragma unroll
@@ -131,6 +147,17 @@ __device__ __forceinline__ void score_rows(const uint4* __restrict__ slab, int n
     for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
         for (int j = 0; j < NOUT; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+}
+
+// dots of stored rows [r0, r0 + ROWS) of ``slab`` (stored rows at or past
+// ``rlim`` read nothing and give 0): load_rows, then dot_rows
+template <int MODE, int ROWS>
+__device__ __forceinline__ void score_rows(const uint4* __restrict__ slab, int nvec, int r0,
+                                           int rlim, const float* qs, int lane,
+                                           float (&acc)[outputs<MODE, ROWS>()]) {
+    uint4 v[ROWS][lane_vectors<MODE>()];
+    load_rows<MODE, ROWS>(slab, nvec, r0, rlim, lane, v);
+    dot_rows<MODE, ROWS>(v, nvec, qs, lane, acc);
 }
 
 // the query row as f32 in shared memory (bf16 bits in global memory)

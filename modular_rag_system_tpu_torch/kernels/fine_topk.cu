@@ -156,45 +156,29 @@ __device__ __forceinline__ int warp_of_thread() { return threadIdx.x >> 5; }
 constexpr int NB = 2;
 
 // the dots of N stored rows p[j] of a slab (-1: none) with fine_scores'
-// own arithmetic: fine_common.cuh score_rows' operations in its order
-// (each row's per-vector dots summed over the lane's vectors, then the
-// butterfly), for rows that need not be consecutive; int4 rows give the
-// high-nibble row's dot in hi and the low one's in lo
+// own arithmetic: fine_common.cuh's dot_rows on rows that need not be
+// consecutive; int4 rows give the high-nibble row's dot in hi and the low
+// one's in lo
 template <int MODE, int N>
 __device__ __forceinline__ void score_any_rows(const uint4* __restrict__ slab, int nvec,
                                                const int (&p)[N], const float* qs, int lane,
                                                float (&hi)[N], float (&lo)[N]) {
-    constexpr int VPL = MODE == fine::BF16 ? 4 : 2;  // vectors of a row a lane at d <= 1024
-    uint4 v[N][VPL];
+    uint4 v[N][fine::lane_vectors<MODE>()];
 #pragma unroll
-    for (int i = 0; i < VPL; ++i)
+    for (int i = 0; i < fine::lane_vectors<MODE>(); ++i)
 #pragma unroll
         for (int j = 0; j < N; ++j) {
             const int vi = lane + 32 * i;
             v[j][i] = vi < nvec && p[j] >= 0 ? slab[(size_t)p[j] * nvec + vi]
                                              : make_uint4(0, 0, 0, 0);
         }
+    float acc[fine::outputs<MODE, N>()];
+    fine::dot_rows<MODE, N>(v, nvec, qs, lane, acc);
 #pragma unroll
-    for (int j = 0; j < N; ++j) hi[j] = lo[j] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) {
-        const int vi = lane + 32 * i;
-        if (vi >= nvec) break;
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-            if (MODE == fine::INT4)
-                fine::vec_dot_int4(v[j][i], qs, vi, hi[j], lo[j]);
-            else
-                hi[j] += fine::vec_dot<MODE>(v[j][i], qs, vi);
-        }
+    for (int j = 0; j < N; ++j) {
+        hi[j] = acc[j];
+        lo[j] = MODE == fine::INT4 ? acc[N + j] : 0.0f;
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-            hi[j] += __shfl_xor_sync(0xffffffffu, hi[j], off);
-            if (MODE == fine::INT4) lo[j] += __shfl_xor_sync(0xffffffffu, lo[j], off);
-        }
 }
 
 // the 16-byte chunk c of row r of a k-step's box as TMA stores it: rows of

@@ -76,6 +76,10 @@ _DUMP_VMEM_BYTES = 4 << 20
 # default over-selection, which grows with the probed pool
 _RESCORE_MAX_BYTES = 1 << 30
 
+# (query, slot) pairs the fine_scores plan gives a CTA at most (the kernel
+# takes up to 16, kernels/fine_scores.cu MAX_P; 16 was no faster than 8 at
+# the smoke's lists, chip_smoke.py time_fine)
+_FINE_SCORES_MAX_P = 8
 # the selecting kernel's largest running top-k
 _FINE_TOPK_MAX_K = 8192
 # candidate keys a query's partial lists may hold in the fine_topk merge
@@ -496,27 +500,48 @@ def fine_scores_reference(E_c3, scales3, q, blk, vcnt):
     return _slab_scores_reference(E_c3, scales3, q, blk, vcnt).reshape(Q, L * SLAB)
 
 
+def fine_scores_plan(Q: int, L: int, d: int, mode: str, sms: int) -> int:
+    """The ``fine_scores`` kernel's launch plan -> P, the (query, slot)
+    pairs sorted by block that one CTA takes: a CTA reads a slab once for
+    all its pairs that list it, so P is as large as leaves about four CTAs
+    an SM, at most ``_FINE_SCORES_MAX_P``, with the P queries (P d f32) in
+    shared memory.  P = 1 (one CTA a pair, no sort) at Q = 1, where no two
+    pairs share a query's distinct blocks, and for an int4 copy: its slab
+    is half an int8 slab's bytes and each byte two conversions, so the
+    kernel is bound by the CUDA cores there and the pair sort costs more
+    than reading each slab once saves (``chip_smoke.py`` times both)."""
+    if Q <= 1 or mode == "int4":
+        return 1
+    P = min(Q * L // (4 * sms), _FINE_SCORES_MAX_P, kernels.SMEM_BYTES // (4 * d))
+    return max(P, 1)
+
+
 def fine_scores_call(E_c3, scales3, q, blk, vcnt):
     """Every candidate row's score, streamed: E_c3 (nblocks, SLAB, d) bf16
     or int8, or (nblocks, SLAB / 2, d) packed int4 (+ scales3 (nblocks,
     SLAB) f32), q (Q, d) f32, per-query block lists blk/vcnt (Q, L) int32
     -> (Q, L * SLAB) f32, -inf at positions >= vcnt.
 
-    On a CUDA device this launches the hand-written kernel; on the CPU
-    it runs the plain version."""
+    On a CUDA device this launches the hand-written kernel, its pairs
+    sorted by block on the device (``fine_pair_keys``, one query tile)
+    where the plan gives a CTA more than one; on the CPU it runs the plain
+    version."""
     if E_c3.device.type == "cpu":
         return fine_scores_reference(E_c3, scales3, q, blk, vcnt)
     mode = _check_fine_operands(E_c3, scales3, blk, vcnt, "fine_scores")
-    d = E_c3.shape[2]
+    nblocks, _, d = E_c3.shape
     Q, L = blk.shape
+    dev = E_c3.device
     qb, blk, vcnt, sc = _kernel_operands(E_c3, scales3, q, blk, vcnt, mode)
-    out = torch.empty((Q, L * SLAB), dtype=torch.float32, device=E_c3.device)
+    out = torch.empty((Q, L * SLAB), dtype=torch.float32, device=dev)
     if Q == 0 or L == 0:
         return out
+    P = fine_scores_plan(Q, L, d, mode, _sm_count(dev))
+    perm = fine_pair_keys(blk, vcnt, Q, nblocks)[1] if P > 1 else None
     kernels.launch(
         "fine_scores", E_c3.data_ptr(), _MODE_IDS[mode], sc.data_ptr(), qb.data_ptr(),
-        blk.data_ptr(), vcnt.data_ptr(), Q, L, d, out.data_ptr(),
-        torch.cuda.current_stream(E_c3.device).cuda_stream)
+        blk.data_ptr(), vcnt.data_ptr(), None if perm is None else perm.data_ptr(), Q, L, d,
+        P, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
@@ -621,17 +646,25 @@ def fine_topk_plan(Q: int, L: int, k: int, d: int, mode: str, sms: int):
 
 
 def fine_pair_keys(blk, vcnt, QB: int, nblocks: int):
-    """The ``fine_topk`` kernel's pair table, built on the device with no
+    """The fine kernels' pair table (``fine_topk``'s, and ``fine_scores``'
+    with one tile, QB = Q), built on the device with no
     host synchronisation: every (query, list slot) pair keyed (query
     tile) (nblocks + 1) + blk, a dead slot (vcnt <= 0) keyed ``nblocks``
     past its tile's base, and sorted, so a run of equal keys is one block
     and the live pairs of the tile that list it -> (sorted keys (Q L,)
     int64, their flat positions in (Q, L) int64)."""
     Q, L = blk.shape
-    pos = torch.arange(Q * L, device=blk.device)
-    base = (pos // (L * QB)) * (nblocks + 1)
-    b = torch.where(vcnt.reshape(-1) > 0, blk.reshape(-1).long(), nblocks)
-    return torch.sort(base + b, stable=True)
+    b = torch.where(vcnt.reshape(-1) > 0, blk.reshape(-1), nblocks)
+    if Q > QB:
+        pos = torch.arange(Q * L, device=blk.device)
+        b = b + (pos // (L * QB)) * (nblocks + 1)
+    # sorted in the narrowest type that holds the keys: a radix sort makes
+    # one pass a byte
+    top = (_cdiv(Q, QB) - 1) * (nblocks + 1) + nblocks
+    dt = next(t for t in (torch.int16, torch.int32, torch.int64)
+              if top <= torch.iinfo(t).max)
+    keys, perm = torch.sort(b.to(dt), stable=True)
+    return keys.long(), perm
 
 
 def fine_call(E_c3, scales3, q, blk, vcnt, k: int):

@@ -455,6 +455,92 @@ def test_fine_topk_plan_fits(Q, L, k, d, mode):
     assert -(-Q // QB) <= 65535  # the grid's query tiles
 
 
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("Q,L,d", [
+    (1, 80, 768), (1, 4096, 768), (2, 80, 768), (128, 80, 768), (256, 80, 768),
+    (300, 40, 1024), (65535, 8, 16), (16, 4608, 1024)])
+def test_fine_scores_plan(Q, L, d, mode):
+    from modular_rag_system_tpu_torch import kernels
+
+    P = pivf.fine_scores_plan(Q, L, d, mode, 132)
+    assert 1 <= P <= pivf._FINE_SCORES_MAX_P
+    assert P * d * 4 <= kernels.SMEM_BYTES  # the chunk's queries in shared memory
+    if Q == 1 or mode == "int4":
+        assert P == 1  # one CTA a pair, no sort
+    elif Q * L >= 4 * 132 * pivf._FINE_SCORES_MAX_P:
+        assert P == pivf._FINE_SCORES_MAX_P  # the smoke's int8 Q = 256 among them
+    assert -(-Q * L // P) <= 2**31 - 1  # the grid
+    # within the kernel's static bound on P
+    src = (kernels.KERNEL_DIR / "fine_scores.cu").read_text()
+    assert P <= int(re.search(r"constexpr int MAX_P = (\d+);", src).group(1))
+
+
+def _scores_walk(order, blk, vcnt, P):
+    """The fine_scores kernel's walk, in Python: CTA c takes the pairs
+    order[cP : cP + P] (flat positions in (Q, L)) and reads each run of
+    consecutive live pairs with one block once -> [(c, block, [pairs])]."""
+    runs = []
+    for c in range(-(-len(order) // P)):
+        chunk = [int(x) for x in order[c * P:(c + 1) * P]]
+        s = 0
+        while s < len(chunk):
+            if vcnt[chunk[s]] <= 0:
+                s += 1
+                continue
+            e = s + 1
+            while e < len(chunk) and vcnt[chunk[e]] > 0 and blk[chunk[e]] == blk[chunk[s]]:
+                e += 1
+            runs.append((c, int(blk[chunk[s]]), chunk[s:e]))
+            s = e
+    return runs
+
+
+@pytest.mark.parametrize("P,shared", [(1, 0), (1, 9), (2, 9), (5, 12), (16, 9), (16, 40)])
+def test_fine_scores_walk(rng, P, shared):
+    # the kernel's chunk walk over fine_pair_keys' order (in order at P = 1)
+    # against a plain loop: every position of every pair's output row is
+    # written once, with the plain version's score or -inf
+    Q, L, nblocks, d = 23, 8, 48, 16
+    pool = shared or nblocks
+    blk = np.stack([rng.choice(pool, L, replace=False) for _ in range(Q)]).astype(np.int32)
+    vcnt = rng.choice([0, 1, 77, 129, 256], (Q, L)).astype(np.int32)
+    blk[vcnt == 0] = 0  # dead slots at block 0, as block_lists writes them
+    E_c3 = _t(_bf16_exact(rng.standard_normal((nblocks, pivf.SLAB, d)))).to(torch.bfloat16)
+    q = _t(_bf16_exact(rng.standard_normal((Q, d))))
+    tb, tv = torch.from_numpy(blk), torch.from_numpy(vcnt)
+    order = (pivf.fine_pair_keys(tb, tv, Q, nblocks)[1].numpy() if P > 1
+             else np.arange(Q * L))
+    fb, fv = blk.reshape(-1), vcnt.reshape(-1)
+    runs = _scores_walk(order, fb, fv, P)
+
+    out = np.full((Q * L, pivf.SLAB), np.nan, np.float64)
+    writes = np.zeros((Q * L, pivf.SLAB), np.int64)
+    for x in range(Q * L):  # each CTA's -inf fill of its pairs
+        out[x, max(fv[x], 0):] = -np.inf
+        writes[x, max(fv[x], 0):] += 1
+    Ef, qf = E_c3.double().numpy(), q.double().numpy()
+    for _, b, pairs in runs:
+        rows = Ef[b, :max(fv[x] for x in pairs)]  # the run's slab, read once
+        for x in pairs:
+            out[x, :fv[x]] = rows[:fv[x]] @ qf[x // L]
+            writes[x, :fv[x]] += 1
+    assert (writes == 1).all()
+    ref = pivf.fine_scores_reference(E_c3, None, q, tb, tv).double().numpy()
+    ref = ref.reshape(Q * L, pivf.SLAB)
+    assert np.array_equal(np.isfinite(out), np.isfinite(ref))
+    fin = np.isfinite(ref)
+    np.testing.assert_allclose(out[fin], ref[fin], rtol=0, atol=1e-5)
+    # a chunk reads each block at most once (its pairs are sorted by
+    # block), so the reads are at most the unique blocks + the chunks
+    per_chunk = [(c, b) for c, b, _ in runs]
+    if P > 1:
+        assert len(per_chunk) == len(set(per_chunk))
+    uniq = len({int(b) for b, v in zip(fb, fv) if v > 0})
+    assert len(runs) <= uniq + -(-Q * L // P)
+    assert sorted(x for _, _, pairs in runs for x in pairs) == \
+        [x for x in range(Q * L) if fv[x] > 0]
+
+
 def _jax_search(jiv, E, q, k, nprobe, built, count, tail_max):
     L = jiv.slots_for_nprobe(nprobe)
     U = jivf.auto_u(L)

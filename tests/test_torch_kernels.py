@@ -206,13 +206,45 @@ def _fine_case(seed, fine_dtype, dev, nblocks=64, Q=8, L=24, shared=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fine_dtype", ["bf16", "int8", "int4"])
-def test_fine_scores_kernel_matches_plain(cuda_device, fine_dtype):
-    E_c3, sc3, q, blk, vcnt = _fine_case(8, fine_dtype, cuda_device)
+@pytest.mark.parametrize("Q,L,shared", [
+    (8, 24, 0),
+    # one query (P = 1, no sort); many queries over blocks shared with
+    # per-pair vcnt and dead slots at block 0 (P = 16 sorted pairs)
+    (1, 24, 30), (300, 40, 48)])
+def test_fine_scores_kernel_matches_plain(cuda_device, fine_dtype, Q, L, shared):
+    E_c3, sc3, q, blk, vcnt = _fine_case(8, fine_dtype, cuda_device, Q=Q, L=L, shared=shared)
     out = pivf.fine_scores_call(E_c3, sc3, q, blk, vcnt)
     ref = pivf.fine_scores_reference(E_c3, sc3, q, blk, vcnt)
     fin = torch.isfinite(ref)
     assert torch.equal(torch.isfinite(out), fin)
     torch.testing.assert_close(out[fin], ref[fin], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine_dtype", ["bf16", "int8", "int4"])
+def test_fine_scores_chunks_bit_equal(cuda_device, fine_dtype):
+    # the entry point called directly: one pair a CTA in list order, and 16
+    # pairs a CTA sorted by block, give the same scores bit for bit (each
+    # score is the same lanes' sums in the same order)
+    from modular_rag_system_tpu_torch import kernels
+
+    E_c3, sc3, q, blk, vcnt = _fine_case(11, fine_dtype, cuda_device, Q=300, L=40, shared=48)
+    mode = pivf._fine_mode(E_c3)
+    qb, blk, vcnt, sc = pivf._kernel_operands(E_c3, sc3, q, blk, vcnt, mode)
+    Q, L = blk.shape
+    _, perm = pivf.fine_pair_keys(blk, vcnt, Q, E_c3.shape[0])
+    outs = []
+    for P, order in ((1, None), (16, perm)):
+        out = torch.full((Q, L * pivf.SLAB), float("nan"), device=cuda_device)
+        kernels.launch(
+            "fine_scores", E_c3.data_ptr(), pivf._MODE_IDS[mode], sc.data_ptr(),
+            qb.data_ptr(), blk.data_ptr(), vcnt.data_ptr(),
+            None if order is None else order.data_ptr(), Q, L, E_c3.shape[2], P,
+            out.data_ptr(), torch.cuda.current_stream(cuda_device).cuda_stream)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert not outs[1].isnan().any()  # every position written
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.cuda
