@@ -15,7 +15,8 @@ Phases (any failure exits non-zero and prints no result line):
    count that is no multiple of the bin width, count < k, each query tile
    of the single-pass launch plan, k up to 8192, dead and partial
    fine-stage slots in all three fine-copy modes, blocks shared by many
-   queries with per-pair counts, attention with ragged padding and an
+   queries with per-pair counts, slabs whose rows repeat, queries that
+   all list the same bins, attention with ragged padding and an
    all-padding row at L = 1 to 2048);
 3. engine: ``create_engine`` with the bundled hybrid encoder (dim 768),
    ``index.tier="auto"``: ingests the bundled knowledge sentences and QA
@@ -28,7 +29,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``embedding.attention_impl="flash"`` (``mea_attention`` in every
    layer of every forward, its embeddings held against the dense
    engine's); on the 1,048,576-row index the two-pass functions with
-   ``kernel_rescan=True`` (``rescan``) beside the gather they replace;
+   ``kernel_rescan=True`` (``rescan``) beside the gather they replace,
+   and ``rescan``'s pair sort, score launch and select launches timed
+   apart at Q = 256 and Q = 1;
 4. ivf: the restarted engine fills on to 4,718,592 rows (the write path
    promotes ``auto`` to ivf at 4,194,304 rows with a bf16 fine copy and
    an exact tail; ``fine_scores`` route), a k = 100 query batch (the
@@ -36,7 +39,7 @@ Phases (any failure exits non-zero and prints no result line):
    ``fine_topk`` kernel), then on to 5,636,096 rows (the rebuild with an
    int8 fine copy), each held against the exact tier; kernel times at
    the engine's own inputs, ``fine_binmax`` (the fine stage's streaming
-   floor) among them; a filtered Q = 256 batch whose deep refill runs the
+   floor; its runs, slab reads and rescored rows logged) among them; a filtered Q = 256 batch whose deep refill runs the
    exact top-k at k > 1,024 (its ids held against 16-query calls, its
    device memory logged); shutdown (a 17.3 GB snapshot) and a restart whose
    rebuild takes the saved clustering (no k-means); a second restart
@@ -76,12 +79,13 @@ FILL_BATCH = 65_536
 # the device kernels the port's wrappers launch (fused_topk and
 # fused_topk_int8 both run fused_topk_kernel, and over several row splits
 # fused_topk_merge_kernel after it; fine_topk over several CTAs a query
-# tile runs fine_topk_merge; mea_attention runs mea_bf16_kernel or
-# mea_f32_kernel)
+# tile runs fine_topk_merge; rescan runs rescan_score, then
+# rescan_select_warp or rescan_select_sort; mea_attention runs
+# mea_bf16_kernel or mea_f32_kernel)
 _PORT_KERNELS = ("binmax_int8_kernel", "binmax_kernel", "fused_topk_kernel",
                  "fused_topk_merge_kernel", "fine_scores_kernel", "fine_topk_kernel",
-                 "fine_topk_merge", "fine_binmax_kernel", "rescan_kernel", "mea_bf16_kernel",
-                 "mea_f32_kernel")
+                 "fine_topk_merge", "fine_binmax_kernel", "rescan_score", "rescan_select_warp",
+                 "rescan_select_sort", "mea_bf16_kernel", "mea_f32_kernel")
 FINE_MODES = ("bf16", "int8", "int4")
 
 # published dense peaks of the card variants nvidia-smi may name:
@@ -608,25 +612,44 @@ def check_fine_scores(g, dev):
 
 def check_fine_binmax(g, dev):
     """fine_binmax vs its plain version, and equal to the row maximum of
-    the dump kernel, which scores a row with the same code."""
+    the dump kernel, which scores a row with the same code: lists of
+    distinct blocks, Q = 1 (no pair sort), Q = 256 over blocks shared by
+    many queries with per-pair vcnt and dead slots at block 0, and every
+    odd row of a slab a copy of the row before it (the maximum ties with
+    its copy)."""
     import torch
 
     from modular_rag_system_tpu_torch.ops import ivf2 as V
 
     worst = dict.fromkeys(FINE_MODES, 0.0)
+    cands = []
     for fdt in FINE_MODES:
-        for nblocks, Q, L in ((512, 16, 64), (2048, 4, 1024)):
-            E_c3, sc3, q, blk, vcnt = fine_case(g, dev, fdt, nblocks, Q, L)
-            out = V.fine_binmax_call(E_c3, sc3, q, blk, vcnt)
+        for nblocks, Q, L, shared, dup in ((512, 16, 64, 0, False), (2048, 4, 1024, 0, False),
+                                           (512, 1, 64, 0, False), (512, 256, 40, 120, False),
+                                           (512, 256, 40, 120, True), (512, 16, 64, 0, True)):
+            E_c3, sc3, q, blk, vcnt = fine_case(g, dev, fdt, nblocks, Q, L, shared=shared)
+            if dup:  # stored rows: an int4 row holds logical rows r and r + 128
+                E_c3[:, 1::2] = E_c3[:, 0::2]
+                if sc3 is not None:
+                    sc3[:, 1::2] = sc3[:, 0::2]
+            counts = torch.zeros(blk.shape, dtype=torch.int32, device=dev)
+            out = V.fine_binmax_call(E_c3, sc3, q, blk, vcnt, cand_counts=counts)
+            what = f"fine_binmax {fdt} L={L} Q={Q} shared={shared} dup={dup}"
             worst[fdt] = max(worst[fdt], _check_dense(
-                out, V.fine_binmax_reference(E_c3, sc3, q, blk, vcnt), False,
-                f"fine_binmax {fdt} L={L}"))
+                out, V.fine_binmax_reference(E_c3, sc3, q, blk, vcnt), False, what))
             dump = V.fine_scores_call(E_c3, sc3, q, blk, vcnt).view(Q, -1, V.SLAB)
             if not (torch.equal(out, dump.amax(dim=2))
                     and torch.equal(torch.isfinite(out), vcnt > 0)):
-                raise AssertionError(f"fine_binmax {fdt} L={L}: not the dump's row maximum")
-    log(f"kernel fine_binmax bf16/int8/int4: -inf exactly on dead slots, equal to the "
-        f"dump kernel's row maxima, max |err| vs plain {worst}")
+                raise AssertionError(f"{what}: not the dump's row maximum")
+            live = vcnt > 0
+            if not ((counts[live] >= 1).all() and (counts[live] <= vcnt[live]).all()):
+                raise AssertionError(f"{what}: a live pair rescored no row or too many")
+            cands.append(counts[live].float())
+    c = torch.cat(cands)
+    log(f"kernel fine_binmax bf16/int8/int4: Q 1..256 (shared blocks, per-pair vcnt, dead "
+        f"slots at block 0), duplicated rows; -inf exactly on dead slots, equal to the dump "
+        f"kernel's row maxima; rescored rows per live pair mean {c.mean().item():.2f}, max "
+        f"{int(c.max().item())}; max |err| vs plain {worst}")
     return worst
 
 
@@ -678,11 +701,19 @@ def check_fine_topk(g, dev):
     return worst
 
 
-def _straddle_bins(g, dev, Q, nb, kb, straddle):
+def _straddle_bins(g, dev, Q, nb, kb, straddle, shared=False):
     """(Q, kb) distinct random bin ids per query, unsorted, the bin that
-    holds the live/dead boundary among them."""
+    holds the live/dead boundary among them; with ``shared`` one set of
+    bins for every query, in another order for each."""
     import torch
 
+    if shared:
+        first = torch.randperm(nb, generator=g, device=dev)[:kb]
+        if not (first == straddle).any():
+            first[0] = straddle
+        bins = torch.stack([first[torch.randperm(kb, generator=g, device=dev)]
+                            for _ in range(Q)])
+        return bins.to(torch.int32)
     bins = torch.stack([torch.randperm(nb, generator=g, device=dev)[:kb] for _ in range(Q)])
     has = (bins == straddle).any(dim=1)
     bins[:, 0] = torch.where(has, bins[:, 0], straddle)
@@ -692,31 +723,38 @@ def _straddle_bins(g, dev, Q, nb, kb, straddle):
 def check_rescan(g, dev):
     """rescan vs its plain version on f32 and bf16 stores: unit rows within
     1e-5 (ids equal except near-ties), integer-valued rows with crafted
-    ties exactly; a count inside a bin; fewer candidates than k."""
+    ties exactly; a count inside a bin; fewer candidates than k; every
+    query listing the same bins (runs longer than a chunk), at Q = 16 and
+    256."""
     import torch
 
     from modular_rag_system_tpu_torch.ops import binmax_topk as B
 
-    worst, Q = 0.0, 16
+    worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for cap, count, k, kb, bw, crafted in (
-                (16384, 16001, 10, 13, 32, False), (65536, 65523, 100, 103, 64, False),
-                (8192, 7001, 16, 19, 32, True), (8192, 8000, 100, 2, 32, False),
-                (8192, 5, 10, 13, 32, False)):
+        for cap, count, k, kb, bw, crafted, Q, shared in (
+                (16384, 16001, 10, 13, 32, False, 16, False),
+                (65536, 65523, 100, 103, 64, False, 16, False),
+                (8192, 7001, 16, 19, 32, True, 16, False), (8192, 8000, 100, 2, 32, False, 16, False),
+                (8192, 5, 10, 13, 32, False, 16, False), (8192, 7001, 16, 19, 32, True, 16, True),
+                (65536, 65523, 10, 14, 32, False, 256, True),
+                (65536, 65523, 100, 102, 32, False, 256, True)):
             E = float_rows(g, cap, count, dev, dtype, crafted)
             q = (torch.randint(-1, 2, (Q, D), generator=g, device=dev).float()
                  if crafted else unit_queries(g, Q, dev))
-            bins = _straddle_bins(g, dev, Q, cap // bw, kb, min(count, cap - 1) // bw)
+            bins = _straddle_bins(g, dev, Q, cap // bw, kb, min(count, cap - 1) // bw, shared)
             v1, i1 = B.rescan_call(E, bins, count, q, k, bw)
             v2, i2 = B.rescan_reference(E, bins, count, q, k, bw)
-            what = f"rescan {dtype} cap={cap} count={count} k={k} kb={kb} bw={bw}"
+            what = (f"rescan {dtype} cap={cap} count={count} k={k} kb={kb} bw={bw} Q={Q} "
+                    f"shared={shared}")
             worst = max(worst, _check_topk(v1, i1, v2, i2, float_rescorer(E, q), crafted, what))
             if not (i1[~torch.isfinite(v1)] == -1).all():
                 raise AssertionError(f"{what}: an empty slot carries an id")
             if int(torch.isfinite(v1).sum(1).max()) > min(k, kb * bw, count):
                 raise AssertionError(f"{what}: more live slots than live candidates")
     log(f"kernel rescan f32/bf16: crafted ties exact, a count inside a bin, count < k, "
-        f"kb x bin_width < k; max |err| {worst:.2e}")
+        f"kb x bin_width < k, all queries sharing their bins (Q 16 and 256); max |err| "
+        f"{worst:.2e}")
     return worst
 
 
@@ -945,6 +983,7 @@ def time_fine(idx, q, nprobe, k, spec, name):
     Returns the timings at Q=len(q) and the max |error|."""
     import torch
 
+    from modular_rag_system_tpu_torch.ops import binmax_topk as B
     from modular_rag_system_tpu_torch.ops import ivf2 as V
 
     iv = idx._ivf2
@@ -1004,6 +1043,22 @@ def time_fine(idx, q, nprobe, k, spec, name):
                 log(f"fine_scores kernel alone (pairs sorted beforehand), queued ms by P: "
                     + ", ".join(f"P={pp} {t:.4f}" for pp, t in sweep.items())
                     + f"; the pair sort {sort_ms:.4f} ms queued")
+        if name == "fine_binmax":  # the runs, and the rows the certificate rescored
+            nb = iv.E_c3.shape[0]
+            keys, _ = V.fine_binmax_pairs(blk, vcnt, nb)
+            if keys is None:  # list order: each live pair its own run
+                keys, W = torch.where(vcnt > 0, blk, nb).reshape(-1), 1
+            else:
+                W = B.pair_window(keys.numel(), V._sm_count(qq.device))
+            counts = torch.zeros(blk.shape, dtype=torch.int32, device=qq.device)
+            V.fine_binmax_call(*ops, cand_counts=counts)
+            c = counts[vcnt > 0].float()
+            table = (f"; the pair sort {queued_ms(lambda: V.fine_binmax_pairs(blk, vcnt, nb), reps=10):.4f} "
+                     f"ms queued" if Q > 1 else "; no pair sort at Q = 1")
+            log(f"fine_binmax plan at nprobe={nprobe} Q={Q}: {int((vcnt > 0).sum())} live pairs in "
+                f"{window_runs(keys, W, nb)} runs of windows of {W} (slab reads; {uniq} unique "
+                f"slabs); rescored rows per live pair mean {c.mean().item():.3f}, max "
+                f"{int(c.max().item())}{table}")
         if selecting:  # the launch plan, and the slab reads of its query tiles
             cfg, QB, G = V.fine_topk_plan(Q, blk.shape[1], k, D, iv.fine_dtype,
                                           V._sm_count(qq.device))
@@ -1022,6 +1077,60 @@ def time_fine(idx, q, nprobe, k, spec, name):
         res[Q] = {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
                   "bound_by": b_by}
     return res[q.shape[0]], worst
+
+
+def window_runs(keys, W, nb=None):
+    """The runs the rescan and fine_binmax kernels read one bin or slab
+    for: in windows of W sorted keys, the positions that start a window
+    or follow another key (below ``nb``, the dead key, where given)."""
+    import torch
+
+    at = torch.arange(keys.numel(), device=keys.device)
+    start = (at % W == 0) | (keys != torch.roll(keys, 1))
+    if nb is not None:
+        start &= keys < nb
+    return int(start.sum())
+
+
+def rescan_stages(E, bins, count, q, k, bw):
+    """The rescan kernel's pair sort, and its score and select launches
+    called alone (its entry point, on pairs sorted beforehand): the window
+    size, the runs (bin reads) and unique bins, and the queued ms of the
+    sort, the score launch and each select launch (the warp selection
+    where k <= 32; both selects must agree)."""
+    import torch
+
+    from modular_rag_system_tpu_torch import kernels
+    from modular_rag_system_tpu_torch.ops import binmax_topk as B
+
+    cap = E.shape[0]
+    Q, kb = bins.shape
+    qb = q.to(torch.bfloat16).contiguous()
+    keys, perm = B.rescan_pairs(bins, cap // bw)
+    ws = torch.empty((Q, kb * bw), dtype=torch.int64, device=E.device)
+    outs = {}
+    stream = torch.cuda.current_stream(E.device).cuda_stream
+
+    def stage(stages, warp_sel):
+        vals = torch.empty((Q, k), dtype=torch.float32, device=E.device)
+        ids = torch.empty((Q, k), dtype=torch.int32, device=E.device)
+        if stages == 2:
+            outs[warp_sel] = (vals, ids)
+        return lambda: kernels.launch(
+            "rescan", E.data_ptr(), int(E.dtype == torch.bfloat16), qb.data_ptr(),
+            keys.data_ptr(), keys.element_size(), None if perm is None else perm.data_ptr(),
+            B.pair_window(Q * kb, B._sm_count(E.device)), Q, D, int(count), kb, bw, k,
+            ws.data_ptr(), stages, warp_sel, vals.data_ptr(), ids.data_ptr(), stream)
+
+    res = {"pair sort": queued_ms(lambda: B.rescan_pairs(bins, cap // bw), reps=10),
+           "score": queued_ms(stage(1, 0), reps=10),
+           "select (sort)": queued_ms(stage(2, 0), reps=10)}
+    if k <= B._RESCAN_WARP_SELECT_K:
+        res["select (warp)"] = queued_ms(stage(2, 1), reps=10)
+        if not (torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])):
+            raise AssertionError("rescan: the warp selection and the sort disagree")
+    W = B.pair_window(Q * kb, B._sm_count(E.device))
+    return W, window_runs(keys, W), int(torch.unique(bins).numel()), res
 
 
 def time_rescan(eng, q, spec, kernels):
@@ -1100,6 +1209,12 @@ def time_rescan(eng, q, spec, kernels):
         bin_b = bw * D * E.element_size()
         b_ms, b_by = bound(uniq * bin_b + Q * D * 2 + Q * kb * 4 + Q * k * 8,
                            2 * Q * kb * bw * D, spec[2], spec)
+        for qn in (Q, 1):  # the run plan, and each launch alone
+            W, nch, nu, st = rescan_stages(E, bins[:qn], count, q[:qn], k, bw)
+            log(f"rescan plan on the {route} route, k={k}, Q={qn}: {qn * kb} pairs in {nch} "
+                f"runs of windows of {W} (bin reads; {nu} unique bins); queued ms: "
+                + ", ".join(f"{n} {t:.4f}" for n, t in st.items())
+                + f"; the whole call {queued_ms(lambda qn=qn: B.rescan_call(E, bins[:qn], count, q[:qn], k, bw), reps=10):.4f}")
         log(f"time rescan {route} cap={cap} Q={Q} k={k} kb={kb} bw={bw}: {ms:.4f} ms "
             f"(queued {queued:.4f} ms; plain (gather, product, sort) {plain:.4f} ms, "
             f"library none: no single call; bound {b_ms:.4f} ms by {b_by}: {uniq} unique "

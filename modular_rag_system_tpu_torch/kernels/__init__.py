@@ -73,10 +73,12 @@ _ARGTYPES = {
     # cfg, QB, G, part, vals, slots, stream
     "fine_topk": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                   _P, _P, _P, _P],
-    # E_c3, mode, scales3, q_bf16, blk, vcnt, Q, L, d, out (Q, L), stream
-    "fine_binmax": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # E, is_bf16, q_bf16, bins, Q, d, count, kb, bin_width, k, vals, ids, stream
-    "rescan": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # E_c3, mode, scales3, q_bf16, blk, vcnt, keys, kbytes, perm, window, P,
+    # L, nblocks, d, out (Q, L), ncand, stream
+    "fine_binmax": [_P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # E, is_bf16, q_bf16, keys, kbytes, perm, window, Q, d, count, kb,
+    # bin_width, k, ws, stages, warp_sel, vals, ids, stream
+    "rescan": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P],
     # q, k, v, pad, is_bf16, B, L, H, dh, scale, out, stream
     "mea_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
 }

@@ -12,12 +12,14 @@ lowest-position ties are lowest-row-id ties.  The int8 route
 scores are master-exact; the f32/bf16 route (``twopass_topk_raw``)
 rescores in pass 1's own space, bf16 products summed in f32.
 
-With ``kernel_rescan=True`` pass 2 is one kernel (``rescan_call``,
-``kernels/rescan.cu``) that reads a query's bins straight from the store
-and selects in shared memory.  It scores bf16(q) . bf16(row) in f32 on
-every store, an f32 master included (the TPU kernel's default
-precision), so on the int8 route over an f32 master its scores are
-bf16-product scores where the gather path's are true f32.
+With ``kernel_rescan=True`` pass 2 is the ``rescan`` kernel
+(``rescan_call``, ``kernels/rescan.cu``): the (query, bin) pairs sorted by
+bin (``rescan_pairs``), each bin read once for each run of sorted pairs
+that lists it and scored on the tensor cores, then each query's best k
+selected.  It scores bf16(q) . bf16(row) in f32 on every store, an f32
+master included (the TPU kernel's default precision), so on the int8
+route over an f32 master its scores are bf16-product scores where the
+gather path's are true f32.
 
 ``refine_against_master`` is the master rescore of the single-pass
 route (kf over-selection, ``int8_refine_kf``).
@@ -244,6 +246,44 @@ def _rescore(q_r: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 # candidates (kb * bin_width) one CTA of the rescan kernel sorts
 _RESCAN_MAX_CANDIDATES = 16384
+# pairs a window of the rescan kernel's score launch (a run is at most
+# its tensor-core tile's 8 columns), and the largest k its select launch
+# takes by warp selection
+_RESCAN_COLS = 8
+_RESCAN_WARP_SELECT_K = 32
+
+
+def narrowest_int(top: int) -> torch.dtype:
+    """The narrowest signed integer type that holds 0..top: a radix sort
+    of keys makes one pass a byte."""
+    return next(t for t in (torch.int16, torch.int32, torch.int64)
+                if top <= torch.iinfo(t).max)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def pair_window(P: int, sms: int) -> int:
+    """The sorted pairs a window of the rescan and fine_binmax kernels
+    take over P pairs: ``_RESCAN_COLS`` (a run's most columns), or fewer
+    where there would be fewer than two windows an SM, so small batches
+    keep the card busy (1 at Q = 1, where no bin or slab is shared)."""
+    return min(_RESCAN_COLS, max(1, P // (2 * sms)))
+
+
+def rescan_pairs(bins: torch.Tensor, nb: int):
+    """The rescan kernel's pairs: the (query, bin) pairs of bins (Q, kb)
+    sorted by bin, stably, in the narrowest integer type, on the device
+    with no host synchronisation -> (sorted bin ids (Q kb,), their flat
+    positions in (Q, kb) int64).  The kernel cuts the sorted pairs into
+    windows of ``_RESCAN_COLS`` and each window into runs of one bin.  At
+    Q = 1, where a query's bins are distinct, nothing is shared: the list
+    as it is, int32, and no positions (None)."""
+    if bins.shape[0] == 1:
+        return bins.reshape(-1).to(torch.int32).contiguous(), None
+    return torch.sort(bins.reshape(-1).to(narrowest_int(max(nb - 1, 0))), stable=True)
 
 
 def rescan_reference(E, bins, count: int, q, k: int, bin_width: int):
@@ -272,34 +312,42 @@ def rescan_reference(E, bins, count: int, q, k: int, bin_width: int):
 
 
 def rescan_call(E, bins, count: int, q, k: int, bin_width: int):
-    """Pass 2 in one kernel: E (cap, d) f32 or bf16, bins (Q, kb) distinct
-    bin ids per query, q (Q, d) f32 -> (vals (Q, k) f32, ids (Q, k)
+    """Pass 2 in two launches: E (cap, d) f32 or bf16, bins (Q, kb)
+    distinct bin ids per query, q (Q, d) f32 -> (vals (Q, k) f32, ids (Q, k)
     int32): the top k rows of the query's bins below ``count`` by
     bf16(q) . bf16(row) summed in f32, ties to the smallest id.
 
-    On a CUDA device this launches the hand-written kernel; on the CPU
-    it runs the plain version."""
+    On a CUDA device this sorts the pairs by bin (``rescan_pairs``) and
+    launches the hand-written kernel; on the CPU it runs the plain
+    version."""
     if E.device.type == "cpu":
         return rescan_reference(E, bins, count, q, k, bin_width)
     cap, d = E.shape
     Q, kb = bins.shape
     if E.dtype not in (torch.float32, torch.bfloat16) or not E.is_contiguous():
         raise ValueError("E must be a contiguous float32 or bfloat16 tensor")
-    if d % 8 or d > 1024 or cap % bin_width or k < 1:
-        raise ValueError(f"rescan needs d % 8 == 0, d <= 1024, cap % bin_width == 0 "
-                         f"and k >= 1; got d={d}, cap={cap}, bin_width={bin_width}, k={k}")
+    if (d % 8 or d > 1024 or cap % bin_width or bin_width % 16 or bin_width > 64 or k < 1
+            or E.data_ptr() % 16):
+        raise ValueError(f"rescan needs d % 8 == 0, d <= 1024, cap % bin_width == 0, "
+                         f"bin_width a multiple of 16 up to 64, k >= 1 and E 16-byte "
+                         f"aligned; got d={d}, cap={cap}, bin_width={bin_width}, k={k}")
     if not 1 <= kb * bin_width <= _RESCAN_MAX_CANDIDATES:
         raise ValueError(f"rescan sorts at most {_RESCAN_MAX_CANDIDATES} candidates a "
                          f"query; got kb={kb} x bin_width={bin_width}")
     qb = q.to(torch.bfloat16).contiguous()
-    bins = bins.to(torch.int32).contiguous()
+    if qb.data_ptr() % 16:  # the kernel copies the queries 16 bytes at a time
+        qb = qb.clone()
     vals = torch.empty((Q, k), dtype=torch.float32, device=E.device)
     ids = torch.empty((Q, k), dtype=torch.int32, device=E.device)
     if Q == 0:
         return vals, ids
+    keys, perm = rescan_pairs(bins, cap // bin_width)
+    ws = torch.empty((Q, kb * bin_width), dtype=torch.int64, device=E.device)
     kernels.launch(
         "rescan", E.data_ptr(), int(E.dtype == torch.bfloat16), qb.data_ptr(),
-        bins.data_ptr(), Q, d, int(count), kb, bin_width, k, vals.data_ptr(),
+        keys.data_ptr(), keys.element_size(), None if perm is None else perm.data_ptr(),
+        pair_window(Q * kb, _sm_count(E.device)), Q, d, int(count), kb,
+        bin_width, k, ws.data_ptr(), 3, int(k <= _RESCAN_WARP_SELECT_K), vals.data_ptr(),
         ids.data_ptr(), torch.cuda.current_stream(E.device).cuda_stream)
     return vals, ids
 

@@ -37,8 +37,10 @@ copies):
 The fine kernels score ``bf16(q) . row`` in f32 (int8 and int4 rows times
 their scale after the dot); slots past a block's valid count score -inf.
 ``fine_binmax`` (``kernels/fine_binmax.cu``) keeps only each slot's
-maximum: the streaming floor beside which the other two are timed, on no
-serving path.  A wrapper launches its kernel for tensors on a CUDA device
+maximum, bit-equal to the dump's (tensor-core scores certify which rows
+can hold it, and only those are scored again with ``fine_scores``'
+arithmetic): the streaming floor beside which the other two are timed, on
+no serving path.  A wrapper launches its kernel for tensors on a CUDA device
 and runs its plain version for tensors on the CPU.
 """
 
@@ -52,7 +54,13 @@ import numpy as np
 import torch
 
 from modular_rag_system_tpu_torch import kernels
-from modular_rag_system_tpu_torch.ops.binmax_topk import _rescore, _round_to_dtype_f32
+from modular_rag_system_tpu_torch.ops.binmax_topk import (
+    _rescore,
+    _round_to_dtype_f32,
+    _sm_count,
+    narrowest_int,
+    pair_window,
+)
 from modular_rag_system_tpu_torch.ops.exact import stable_topk
 from modular_rag_system_tpu_torch.ops.fused_topk import _select_topk
 from modular_rag_system_tpu_torch.ops.kmeans import init_centroids_from_rows, kmeans_fit
@@ -551,26 +559,71 @@ def fine_binmax_reference(E_c3, scales3, q, blk, vcnt):
     return _slab_scores_reference(E_c3, scales3, q, blk, vcnt).amax(dim=2)
 
 
-def fine_binmax_call(E_c3, scales3, q, blk, vcnt):
-    """Per (query, list slot) the maximum score of the slab's live rows:
-    operands as ``fine_scores_call`` -> (Q, L) f32, -inf for a dead slot.
-    The same reads and dots as the other fine kernels with no selection
-    and almost no output: their streaming floor, on no serving path.
+# pairs a window of the fine_binmax kernel (a run is at most its
+# tensor-core tile's 8 columns), and its ring stages by mode
+_FINE_BINMAX_COLS = 8
+_FINE_BINMAX_STAGES = {"bf16": 3, "int8": 3, "int4": 5}
 
-    On a CUDA device this launches the hand-written kernel; on the CPU
-    it runs the plain version."""
+
+def fine_binmax_smem(d: int, mode: str) -> int:
+    """Shared-memory bytes of a ``fine_binmax`` CTA: the slab ring (a
+    k-step is a TMA box of the stored rows x 64 bytes, with its mbarrier),
+    two run descriptors, two query tiles (bf16, padded by 16 bytes), the
+    score tile and its error-bound tile, and each warp's f32 query."""
+    stored = SLAB // 2 if mode == "int4" else SLAB
+    stages = _FINE_BINMAX_STAGES[mode]
+    dpad = _cdiv(d, 64) * 64
+    return (stages * stored * 64 + _cdiv(stages * 8, 16) * 16 + 2 * 72
+            + 2 * _FINE_BINMAX_COLS * (dpad + 8) * 2 + 2 * _FINE_BINMAX_COLS * (SLAB + 4) * 4
+            + 8 * dpad * 4)
+
+
+def fine_binmax_pairs(blk, vcnt, nblocks: int):
+    """The fine_binmax kernel's pairs: ``fine_pair_keys`` with one tile
+    (blocks sorted, dead slots keyed ``nblocks``, last) -> (sorted keys,
+    flat positions); (None, None) at Q = 1, where no two pairs share a
+    block and the kernel takes the pairs in list order."""
+    if blk.shape[0] <= 1:
+        return None, None
+    return fine_pair_keys(blk, vcnt, blk.shape[0], nblocks)
+
+
+def fine_binmax_call(E_c3, scales3, q, blk, vcnt, cand_counts=None):
+    """Per (query, list slot) the maximum score of the slab's live rows:
+    operands as ``fine_scores_call`` -> (Q, L) f32, -inf for a dead slot,
+    bit-equal to the row maxima of ``fine_scores_call``'s dump.  The same
+    reads as the other fine kernels with no selection and almost no
+    output: their streaming floor, on no serving path.  ``cand_counts``,
+    a (Q, L) int32 tensor on the card, receives each live pair's count of
+    rows scored again after the tensor cores' certificate (the CPU path
+    leaves it as it is).
+
+    On a CUDA device this launches the hand-written kernel, its pairs
+    sorted by block on the device (``fine_binmax_pairs``) where Q > 1; on
+    the CPU it runs the plain version."""
     if E_c3.device.type == "cpu":
         return fine_binmax_reference(E_c3, scales3, q, blk, vcnt)
     mode = _check_fine_operands(E_c3, scales3, blk, vcnt, "fine_binmax")
-    d = E_c3.shape[2]
+    nblocks, _, d = E_c3.shape
     Q, L = blk.shape
     qb, blk, vcnt, sc = _kernel_operands(E_c3, scales3, q, blk, vcnt, mode)
+    if qb.data_ptr() % 16:  # the kernel copies the queries 16 bytes at a time
+        qb = qb.clone()
     out = torch.empty((Q, L), dtype=torch.float32, device=E_c3.device)
     if Q == 0 or L == 0:
         return out
+    if cand_counts is not None and (cand_counts.shape != (Q, L)
+                                    or cand_counts.dtype != torch.int32
+                                    or not cand_counts.is_contiguous()):
+        raise ValueError(f"fine_binmax: cand_counts must be a contiguous ({Q}, {L}) int32 tensor")
+    keys, perm = fine_binmax_pairs(blk, vcnt, nblocks)
     kernels.launch(
         "fine_binmax", E_c3.data_ptr(), _MODE_IDS[mode], sc.data_ptr(), qb.data_ptr(),
-        blk.data_ptr(), vcnt.data_ptr(), Q, L, d, out.data_ptr(),
+        blk.data_ptr(), vcnt.data_ptr(), None if keys is None else keys.data_ptr(),
+        0 if keys is None else keys.element_size(), None if perm is None else perm.data_ptr(),
+        1 if keys is None else pair_window(Q * L, _sm_count(E_c3.device)), Q * L, L, nblocks,
+        d, out.data_ptr(),
+        None if cand_counts is None else cand_counts.data_ptr(),
         torch.cuda.current_stream(E_c3.device).cuda_stream)
     return out
 
@@ -658,12 +711,8 @@ def fine_pair_keys(blk, vcnt, QB: int, nblocks: int):
     if Q > QB:
         pos = torch.arange(Q * L, device=blk.device)
         b = b + (pos // (L * QB)) * (nblocks + 1)
-    # sorted in the narrowest type that holds the keys: a radix sort makes
-    # one pass a byte
     top = (_cdiv(Q, QB) - 1) * (nblocks + 1) + nblocks
-    dt = next(t for t in (torch.int16, torch.int32, torch.int64)
-              if top <= torch.iinfo(t).max)
-    keys, perm = torch.sort(b.to(dt), stable=True)
+    keys, perm = torch.sort(b.to(narrowest_int(top)), stable=True)
     return keys.long(), perm
 
 
@@ -699,11 +748,6 @@ def fine_call(E_c3, scales3, q, blk, vcnt, k: int):
         QB, G, part.data_ptr(), vals.data_ptr(), slots.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     return vals, slots
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def auto_u(L: int) -> int:

@@ -541,6 +541,121 @@ def test_fine_scores_walk(rng, P, shared):
         [x for x in range(Q * L) if fv[x] > 0]
 
 
+def _certified(s, e, vc):
+    """fine_binmax's certificate in Python: the live rows (r < vc) whose
+    upper bound s + e reaches the largest lower bound max(s - e)."""
+    live = np.arange(len(s)) < vc
+    M = (s - e)[live].max()
+    return np.nonzero(live & (s + e >= M))[0]
+
+
+@pytest.mark.parametrize("case", ["random", "duplicates", "closer_than_e", "extremes"])
+@pytest.mark.parametrize("vc", [1, 77, 129, 256])
+def test_fine_binmax_certificate(rng, case, vc):
+    # the tensor cores' score s of a row is within e of its exact score x:
+    # for every perturbation of x by up to e the candidates hold the row of
+    # the maximum, so the maximum of their exact scores is the maximum
+    for trial in range(200):
+        x = rng.standard_normal(pivf.SLAB) * 0.1
+        e = rng.uniform(0.2, 1.0, pivf.SLAB) * 2.0**-14
+        top = int(rng.integers(0, vc))
+        if case == "duplicates":  # the maximum and other rows repeated
+            x[1::2] = x[0::2]
+            e[1::2] = e[0::2]
+        elif case == "closer_than_e":  # rows within e of the maximum
+            near = rng.integers(0, vc, 6)
+            x[near] = x[:vc].max() - rng.uniform(0, 2, 6) * e[near]
+        x[top] = x[:vc].max() + (0.0 if case == "duplicates" else e[top] * trial / 200)
+        delta = rng.uniform(-1, 1, pivf.SLAB) * e
+        if case == "extremes":  # the worst case: the maximum low, the others high
+            delta = np.where(x == x[:vc].max(), -e, e)
+        cand = _certified(x + delta, e, vc)
+        assert (cand < vc).all()
+        assert x[cand].max() == x[:vc].max()
+        assert np.argmax(x[:vc]) in cand
+
+
+def _binmax_walk(keys, perm, P, G, nblocks, W):
+    """The fine_binmax kernel's walk in Python: CTA b takes the windows b,
+    b + G, ... of W pairs (sorted by block, or in list order where ``perm``
+    is None) and reads a slab once for each run of a window's live pairs
+    that list it; sorted, the first dead pair ends a CTA's walk, in list
+    order a dead pair is skipped -> [(cta, [flat positions])]."""
+    walk = []
+    for b in range(min(G, -(-P // W))):
+        for w0 in range(b * W, P, G * W):
+            s, wend = w0, min(w0 + W, P)
+            while s < wend:
+                if keys[s] >= nblocks:
+                    break
+                e = s + 1
+                while e < wend and keys[e] == keys[s]:
+                    e += 1
+                walk.append((b, [int(perm[x]) if perm is not None else x for x in range(s, e)]))
+                s = e
+            else:
+                continue
+            if perm is not None:  # sorted: the rest are dead
+                break
+    return walk
+
+
+@pytest.mark.parametrize("Q,shared,G,W", [(1, 0, 264, 1), (1, 0, 3, 1), (23, 0, 264, 8),
+                                          (23, 9, 264, 8), (23, 9, 5, 8), (40, 12, 1, 8),
+                                          (23, 9, 7, 3)])
+def test_fine_binmax_walk(rng, Q, shared, G, W):
+    # the kernel's walk over fine_binmax_pairs' sorted pairs against the
+    # plain version: every live pair's maximum written once from one read
+    # of its slab, dead pairs -inf, slab reads at most the unique slabs +
+    # one a window of 8 pairs
+    L, nblocks, d = 8, 48, 16
+    pool = shared or nblocks
+    blk = np.stack([rng.choice(pool, L, replace=False) for _ in range(Q)]).astype(np.int32)
+    vcnt = rng.choice([0, 1, 77, 129, 256], (Q, L)).astype(np.int32)
+    blk[vcnt == 0] = 0  # dead slots at block 0, as block_lists writes them
+    E_c3 = _t(_bf16_exact(rng.standard_normal((nblocks, pivf.SLAB, d)))).to(torch.bfloat16)
+    q = _t(_bf16_exact(rng.standard_normal((Q, d))))
+    tb, tv = torch.from_numpy(blk), torch.from_numpy(vcnt)
+    keys, perm = pivf.fine_binmax_pairs(tb, tv, nblocks)
+    assert (perm is None) == (Q == 1)
+    fb, fv = blk.reshape(-1), vcnt.reshape(-1)
+    if perm is None:  # list order: the kernel keys a dead pair past every block
+        keys = np.where(fv > 0, fb, nblocks)
+    else:
+        keys, perm = keys.numpy(), perm.numpy()
+        assert (keys == np.where(fv > 0, fb, nblocks)[perm]).all()
+        assert (np.diff(keys) >= 0).all() and sorted(perm.tolist()) == list(range(Q * L))
+    walk = _binmax_walk(keys, perm, Q * L, G, nblocks, W)
+
+    out = np.where(fv > 0, np.nan, -np.inf)  # the dead slots' -inf
+    writes = np.zeros(Q * L, np.int64)
+    Ef, qf = E_c3.double().numpy(), q.double().numpy()
+    for _, pairs in walk:
+        assert 1 <= len(pairs) <= W <= pivf._FINE_BINMAX_COLS
+        b = fb[pairs[0]]
+        assert all(fb[x] == b and fv[x] > 0 for x in pairs)  # one slab read
+        for x in pairs:
+            out[x] = (Ef[b, :fv[x]] @ qf[x // L]).max()
+            writes[x] += 1
+    assert (writes == (fv > 0)).all()
+    ref = pivf.fine_binmax_reference(E_c3, None, q, tb, tv).double().numpy().reshape(-1)
+    assert np.array_equal(np.isfinite(out), np.isfinite(ref))
+    fin = np.isfinite(ref)
+    np.testing.assert_allclose(out[fin], ref[fin], rtol=0, atol=1e-5)
+    uniq = len({int(b) for b, v in zip(fb, fv) if v > 0})
+    assert len(walk) <= uniq + -(-int((fv > 0).sum()) // W)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("d", [16, 384, 768, 1024])
+def test_fine_binmax_smem_fits(mode, d):
+    # one CTA always fits; two an SM (each within half of the SM's 233,472
+    # bytes less the 1 KiB the card reserves a CTA) up to d = 768
+    assert pivf.fine_binmax_smem(d, mode) <= 232_448
+    if d <= 768:
+        assert pivf.fine_binmax_smem(d, mode) <= 233_472 // 2 - 1024
+
+
 def _jax_search(jiv, E, q, k, nprobe, built, count, tail_max):
     L = jiv.slots_for_nprobe(nprobe)
     U = jivf.auto_u(L)

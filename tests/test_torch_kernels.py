@@ -272,9 +272,22 @@ def test_fine_topk_kernel_matches_plain(cuda_device, fine_dtype, k, L, Q, shared
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fine_dtype", ["bf16", "int8", "int4"])
-def test_fine_binmax_kernel_matches_plain(cuda_device, fine_dtype):
-    E_c3, sc3, q, blk, vcnt = _fine_case(10, fine_dtype, cuda_device)
-    out = pivf.fine_binmax_call(E_c3, sc3, q, blk, vcnt)
+@pytest.mark.parametrize("Q,L,shared,dup", [
+    (8, 24, 0, False),
+    # one query (each pair its own chunk, no sort); blocks shared by many
+    # queries with per-pair vcnt and dead slots at block 0 (runs longer
+    # than a chunk); every odd row a copy of the row before it, so the
+    # maximum ties with its copy and the certificate keeps both
+    (1, 24, 30, False), (1, 24, 30, True), (8, 24, 30, True), (300, 40, 48, False),
+    (300, 40, 48, True)])
+def test_fine_binmax_kernel_matches_plain(cuda_device, fine_dtype, Q, L, shared, dup):
+    E_c3, sc3, q, blk, vcnt = _fine_case(10, fine_dtype, cuda_device, Q=Q, L=L, shared=shared)
+    if dup:  # stored rows: an int4 row holds logical rows r and r + 128
+        E_c3[:, 1::2] = E_c3[:, 0::2]
+        if sc3 is not None:
+            sc3[:, 1::2] = sc3[:, 0::2]
+    counts = torch.full(blk.shape, -1, dtype=torch.int32, device=cuda_device)
+    out = pivf.fine_binmax_call(E_c3, sc3, q, blk, vcnt, cand_counts=counts)
     ref = pivf.fine_binmax_reference(E_c3, sc3, q, blk, vcnt)
     assert out.shape == blk.shape
     assert torch.equal(torch.isfinite(out), vcnt > 0)
@@ -284,22 +297,36 @@ def test_fine_binmax_kernel_matches_plain(cuda_device, fine_dtype):
     # and the row maximum of the dump kernel, which scores with the same code
     dump = pivf.fine_scores_call(E_c3, sc3, q, blk, vcnt)
     assert torch.equal(out, dump.view(*blk.shape, pivf.SLAB).amax(dim=2))
+    # every live pair rescored at least its maximum's row, at most its rows
+    live = vcnt > 0
+    assert (counts[live] >= 1).all() and (counts[live] <= vcnt[live]).all()
+    assert (counts[~live] == -1).all()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cap,count,k,kb,bw,crafted", [
-    (8192, 8000, 10, 13, 32, False), (16384, 16001, 100, 103, 64, False),
-    (8192, 7001, 16, 19, 32, True),   # crafted ties, a count inside a bin
-    (8192, 8000, 100, 2, 32, False),  # kb x bin_width < k
-    (8192, 5, 10, 13, 32, False)])    # fewer live rows than k
-def test_rescan_kernel_matches_plain(cuda_device, dtype, cap, count, k, kb, bw, crafted):
+@pytest.mark.parametrize("cap,count,k,kb,bw,crafted,Q,shared", [
+    (8192, 8000, 10, 13, 32, False, 16, False), (16384, 16001, 100, 103, 64, False, 16, False),
+    (8192, 7001, 16, 19, 32, True, 16, False),   # crafted ties, a count inside a bin
+    (8192, 8000, 100, 2, 32, False, 16, False),  # kb x bin_width < k
+    (8192, 5, 10, 13, 32, False, 16, False),     # fewer live rows than k
+    # all queries list the same bins (runs longer than a chunk), with
+    # crafted ties; Q = 256 at the engine's k and kb
+    (8192, 8000, 10, 13, 32, False, 16, True), (8192, 7001, 16, 19, 32, True, 16, True),
+    (16384, 16001, 100, 103, 64, False, 16, True), (65536, 65000, 10, 14, 32, False, 256, True),
+    (65536, 65000, 100, 102, 32, False, 256, False), (8192, 8000, 10, 14, 32, False, 1, False)])
+def test_rescan_kernel_matches_plain(cuda_device, dtype, cap, count, k, kb, bw, crafted, Q,
+                                     shared):
     E = _float_rows(11, cap, count, cuda_device, dtype, crafted)
-    Q = 16
     q = (torch.randint(-1, 2, (Q, D), device=cuda_device).float() if crafted
          else _queries(12, Q, cuda_device))
     rng = np.random.default_rng(13)
-    bins = np.stack([rng.permutation(cap // bw)[:kb] for _ in range(Q)]).astype(np.int32)
+    if shared:  # one set of bins with the straddling one, in another order for each query
+        first = rng.permutation(cap // bw)[:kb]
+        first[0] = first[0] if (first == count // bw).any() else count // bw
+        bins = np.stack([rng.permutation(first) for _ in range(Q)]).astype(np.int32)
+    else:
+        bins = np.stack([rng.permutation(cap // bw)[:kb] for _ in range(Q)]).astype(np.int32)
     bins[:, 0] = np.where((bins[:, 1:] == count // bw).any(axis=1), bins[:, 0], count // bw)
     bins = torch.from_numpy(bins).to(cuda_device)
     v1, i1 = pb.rescan_call(E, bins, count, q, k, bw)

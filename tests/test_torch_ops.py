@@ -410,6 +410,117 @@ def test_rescan_fewer_candidates_than_k(rng):
     assert sorted(ids[0, :64].tolist()) == list(range(32, 64)) + list(range(96, 128))
 
 
+def _rescan_walk(keys, P, G, W=8):
+    """The rescan kernel's score launch in Python: CTA b takes the windows
+    b, b + G, ... of W sorted pairs and reads a bin once for each run of
+    a window's pairs that list it -> [(cta, [sorted positions])]."""
+    walk = []
+    for b in range(min(G, -(-P // W))):
+        for w0 in range(b * W, P, G * W):
+            s, wend = w0, min(w0 + W, P)
+            while s < wend:
+                e = s + 1
+                while e < wend and keys[e] == keys[s]:
+                    e += 1
+                walk.append((b, list(range(s, e))))
+                s = e
+    return walk
+
+
+@pytest.mark.parametrize("Q,kb,bw,k,count,shared,G,W", [
+    (6, 13, 32, 10, 7001, False, 264, 8),
+    # all queries list the same bins: runs of 16 pairs, cut by the windows
+    (16, 13, 32, 10, 7001, True, 264, 8), (16, 13, 32, 10, 7001, True, 3, 8),
+    (16, 13, 32, 10, 7001, True, 7, 3),
+    (5, 2, 32, 100, 7001, False, 264, 8),   # kb x bin_width < k
+    (1, 14, 32, 10, 7001, False, 264, 1),   # one query: each pair its own window
+    (20, 5, 64, 16, 3001, True, 1, 8), (9, 7, 32, 40, 8192, False, 5, 2)])
+def test_rescan_walk(rng, Q, kb, bw, k, count, shared, G, W):
+    # the kernel's walk over rescan_pairs' pairs in windows of W, its scores
+    # and its selection, in Python, against rescan_reference: every (query,
+    # slot) key written once, each run reading one bin, bin reads at most
+    # the unique bins + one a window
+    cap, d = 8192, 16
+    E, q = _float_case(rng, "unit", cap, d, Q)
+    E[count:] = 0
+    nb = cap // bw
+    straddle = min(count, cap - 1) // bw  # the bin that holds count, in every list
+    first = rng.permutation(nb)[:kb]
+    first[0] = first[0] if (first == straddle).any() else straddle
+    bins = np.stack([rng.permutation(first) if shared else rng.permutation(nb)[:kb]
+                     for _ in range(Q)]).astype(np.int32)
+    bins[:, 0] = np.where((bins[:, 1:] == straddle).any(axis=1), bins[:, 0], straddle)
+    keys, perm = pb.rescan_pairs(_t(bins), nb)
+    P, flat = Q * kb, bins.reshape(-1)
+    if Q == 1:  # the list as it is: its bins are distinct, nothing to share
+        assert perm is None and keys.dtype == torch.int32
+        perm = np.arange(P)
+    else:
+        assert keys.dtype == torch.int16  # the narrowest type that holds nb - 1
+        perm = perm.numpy()
+        assert (np.diff(keys.numpy()) >= 0).all()
+    keys = keys.numpy()
+    assert sorted(perm.tolist()) == list(range(P)) and (keys == flat[perm]).all()
+    walk = _rescan_walk(keys, P, G, W)
+
+    scores = np.full((Q, kb * bw), np.nan)
+    ids = np.full((Q, kb * bw), -1, np.int64)
+    writes = np.zeros((Q, kb * bw), np.int64)
+    qb, Eb = q.astype(np.float64), E.astype(np.float64)
+    for _, pairs in walk:
+        assert 1 <= len(pairs) <= W <= pb._RESCAN_COLS
+        b = int(keys[pairs[0]])
+        assert all(flat[perm[s]] == b for s in pairs)  # one bin read
+        rows = Eb[b * bw:(b + 1) * bw]
+        for s in pairs:
+            i, j = divmod(int(perm[s]), kb)
+            gid = b * bw + np.arange(bw)
+            scores[i, j * bw:(j + 1) * bw] = np.where(gid < count, rows @ qb[i], -np.inf)
+            ids[i, j * bw:(j + 1) * bw] = gid
+            writes[i, j * bw:(j + 1) * bw] += 1
+    assert (writes == 1).all()
+    uniq = len(np.unique(flat))
+    assert len(walk) <= uniq + -(-P // W)
+    if shared:  # every bin a run of Q pairs, cut by the windows
+        assert len(walk) == sum(len({x // W for x in range(r * Q, r * Q + Q)}) for r in range(kb))
+
+    # the select launch: each query's best k by (score desc, id asc)
+    vals = np.full((Q, k), -np.inf)
+    out_ids = np.full((Q, k), -1, np.int64)
+    for i in range(Q):
+        live = [(-scores[i, x], ids[i, x]) for x in range(kb * bw) if np.isfinite(scores[i, x])]
+        for r, (ns, gid) in enumerate(sorted(live)[:k]):
+            vals[i, r], out_ids[i, r] = -ns, gid
+    vr, ir = pb.rescan_reference(_t(E), _t(bins), count, _t(q), k, bw)
+    np.testing.assert_array_equal(out_ids, ir.numpy())
+    fin = np.isfinite(vals)
+    np.testing.assert_array_equal(fin, np.isfinite(vr.numpy()))
+    np.testing.assert_allclose(vals[fin], vr.numpy()[fin], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("P,sms,W", [
+    # the smoke's k = 10 and k = 100 batches, Q = 1, a small batch, and the
+    # fine_binmax lists at Q = 256 and Q = 16 on 132 SMs
+    (3584, 132, 8), (26112, 132, 8), (14, 132, 1), (224, 132, 1), (20480, 132, 8),
+    (1280, 132, 4), (1, 1, 1), (10**6, 1, 8)])
+def test_pair_window(P, sms, W):
+    # windows of at most 8 sorted pairs (a run's most columns), fewer where
+    # there would be fewer than two windows an SM
+    assert pb.pair_window(P, sms) == W
+
+
+@pytest.mark.parametrize("nb,dtype", [(2, torch.int16), (32768, torch.int16),
+                                      (32769, torch.int32)])
+def test_rescan_pairs_sorted_stably(rng, nb, dtype):
+    bins = rng.integers(0, nb, (7, 5)).astype(np.int32)
+    bins[:, 1] = bins[:, 0]  # equal keys keep their order
+    keys, perm = pb.rescan_pairs(_t(bins), nb)
+    assert pb.rescan_pairs(_t(bins[:1]), nb)[1] is None  # one query: no sort
+    assert keys.dtype == dtype and perm.dtype == torch.int64
+    np.testing.assert_array_equal(perm.numpy(), np.argsort(bins.reshape(-1), kind="stable"))
+    np.testing.assert_array_equal(keys.numpy(), np.sort(bins.reshape(-1)))
+
+
 @pytest.mark.parametrize("store,k", [("float32", 10), ("bfloat16", 10), ("float32", 100)])
 def test_twopass_kernel_rescan_matches_jax(rng, store, k):
     cap, d, bw, count = 8192, 64, 32, 8000
