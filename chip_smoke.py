@@ -46,7 +46,20 @@ Phases (any failure exits non-zero and prints no result line):
    with ``index.ivf_fine_dtype="int4"``: the packed fine copy at half the
    int8 copy's bytes, the route at Q = 128, the refusal of Q = 256 (its
    rescore gather passes 1 GiB), and the int4 mode of the three fine
-   kernels at the engine's own lists.
+   kernels at the engine's own lists;
+5. entry points: ``EnhancedRAGSystem`` on the card (bundled hybrid
+   encoder, ``index.tier="auto"``, its own storage) ingests the bundled
+   knowledge sentences and QA passages as uploaded text files; the HTTP
+   server answers the 316 QA questions as non-enhanced ``POST /query``
+   from 16 concurrent clients (in a process of their own) through the
+   query batcher, their ids held against one ``query_batch`` of the same
+   questions, then once more under the profiler (the device's idle
+   share), and one client's requests beside the engine calls they make;
+   an enhanced query, an ``/add``, ``/health`` and ``/stats``; the
+   lifecycle on documents with old timestamps (``cleanup_old_documents``,
+   ``compact``, ``reembed_all``, each held against the answers before
+   it); ``launcher --test`` in its own process.  Every search there is
+   ``fused_topk_int8``'s single-pass route, and no other kernel launches.
 
 Each kernel is also held against its plain version at the inputs the
 main path gives it (the engine's own rows, queries and probe lists), and
@@ -54,8 +67,10 @@ timed there with CUDA events (back-to-back calls, and one call queued
 behind a device sleep), beside its plain version, one PyTorch library
 call that computes the same function where there is one, and the card's
 bound.  Kernel launch counts are set to 0 just before each route is
-driven and read just after.  The last three lines are the ``nvidia-smi`` line, the
-kernels JSON line and the result line ``{"ok": true, "device": {...}}``.
+driven and read just after (``fused_topk_int8``'s entry also gives its
+launches in phase 5's HTTP and lifecycle runs).  The last three lines are
+the ``nvidia-smi`` line, the kernels JSON line and the result line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1291,6 +1306,21 @@ def query_timings(eng, questions):
     return statistics.median(lat[1:]), len(batch) / (t_b / 1e3)
 
 
+def device_busy_ms(prof) -> float:
+    """Device time of a profile: device activity only (a CPU op's device
+    time repeats its kernels'), as the union of the intervals, so
+    nothing is counted twice."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:
+        busy_us += max(e - max(s, end), 0.0)
+        end = max(end, e)
+    return busy_us / 1e3
+
+
 def query_breakdown(eng, questions, route):
     """Wall time of each stage of one query call at Q=1 and Q=256 (each
     stage synchronized), and the device's busy share over one
@@ -1326,15 +1356,7 @@ def query_breakdown(eng, questions, route):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     launched = sum(kernels.launches.values()) - before
-    # device activity only (a CPU op's device time repeats its kernels'),
-    # as the union of the intervals, so nothing is counted twice
-    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for s, e in spans:
-        busy_us += max(e - max(s, end), 0.0)
-        end = max(end, e)
-    busy = busy_us / 1e3
+    busy = device_busy_ms(prof)
     recorded = sum(1 for ev in prof.events() if ev.device_type == DeviceType.CUDA
                    and any(name in ev.name for name in _PORT_KERNELS))
     log(f"{route} Q=256 query_batch under the profiler: wall {wall:.2f} ms, device "
@@ -1676,6 +1698,318 @@ def int4_route(storage, kernels, V, questions, passages, spec, rec_int8, r_full,
     eng.shutdown()
 
 
+# phase 5: the entry points
+HTTP_CLIENTS = 16
+# where two runs of the same questions embed them in batches of other
+# shapes (HTTP flushes against one query_batch call; ingest against
+# reembed_all), the bf16 dense forward may round otherwise: a unit dense
+# embedding can move by about one bf16 step at its scale (2^-7), the
+# dense cosine by twice that, and the dense half weighs 1 - 0.8 = 0.2 of
+# the hybrid score.  Similarities are held within this, and ids may
+# differ only where the two similarities at that rank are this close.
+BATCH_SHAPE_TOL = 0.2 * 2 * 2.0**-7
+
+
+# the load generator: HTTP_CLIENTS client threads in a process of their
+# own, so the clients' Python does not hold the server's interpreter lock.
+# Reads {"base", "questions", "query", "clients"} on stdin, writes per
+# question its (ids, similarities), latency (ms) and the engine time of
+# the flush that answered it (the body's retrieval_time, ms), the wall
+# time (s) and any errors as JSON.
+_HTTP_CLIENT = r"""
+import json, sys, threading, time, urllib.request
+spec = json.load(sys.stdin)
+qs, nc = spec["questions"], spec["clients"]
+n = len(qs)
+got, lat, eng, errors = [None] * n, [0.0] * n, [0.0] * n, []
+
+def client(ci):
+    try:
+        for i in range(ci, n, nc):
+            data = json.dumps({"query": qs[i], **spec["query"]}).encode()
+            req = urllib.request.Request(spec["base"] + "/query", data=data,
+                                         headers={"Content-Type": "application/json"})
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                body = json.loads(r.read())
+            lat[i] = (time.perf_counter() - t) * 1e3
+            eng[i] = body["retrieval_time"] * 1e3
+            got[i] = [[x["id"] for x in body["results"]],
+                      [x["similarity"] for x in body["results"]]]
+    except Exception as exc:
+        errors.append(repr(exc))
+
+threads = [threading.Thread(target=client, args=(c,)) for c in range(nc)]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+json.dump({"got": got, "lat": lat, "eng": eng, "wall": time.perf_counter() - t0,
+           "errors": errors}, sys.stdout)
+"""
+
+
+def http_json(base, path, payload=None, timeout=300):
+    """(status, JSON body) of one request to the query server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def route_only(kernels, name, expect, fn):
+    """``drive`` a route, then hold that no kernel outside it launched."""
+    n = drive(kernels, name, expect, fn)
+    other = {k: c for k, c in kernels.launches.items() if c and k != expect}
+    if other:
+        raise AssertionError(f"route {name} launched kernels outside it: {other}")
+    return n
+
+
+def hold_near_ties(got, ref, tol, what):
+    """``got`` and ``ref``: per query (ids, similarities).  Ids equal
+    except at near-ties: at every rank the two similarities are within
+    ``tol``, so a rank whose ids differ holds two documents that tie
+    within it.  Returns (lists that differ, largest similarity gap)."""
+    differ, worst = 0, 0.0
+    for qi, ((gi, gs), (ri, rs)) in enumerate(zip(got, ref, strict=True)):
+        if len(gi) != len(ri):
+            raise AssertionError(f"{what}: query {qi} has {len(gi)} results, not {len(ri)}")
+        gap = max((abs(a - b) for a, b in zip(gs, rs)), default=0.0)
+        worst = max(worst, gap)
+        if gap > tol:
+            raise AssertionError(f"{what}: query {qi} similarities differ by {gap} > {tol}")
+        differ += gi != ri
+    log(f"{what}: {len(ref) - differ} of {len(ref)} id lists equal, {differ} differ at "
+        f"near-ties; largest similarity gap {worst:.3g} (tolerance {tol:.3g})")
+    return differ, worst
+
+
+def _lists(results):
+    return [([d.id for d in r.documents], list(r.similarities)) for r in results]
+
+
+def entry_points(work, kernels, know, questions, passages, device="cuda"):
+    """Phase 5: the port as a user starts it.  ``EnhancedRAGSystem`` on
+    the card ingests the bundled corpus as uploaded files; the HTTP
+    server answers the QA questions from concurrent clients through the
+    query batcher (ids held against ``query_batch``); an enhanced query,
+    an ``/add``, ``/health`` and ``/stats``; the lifecycle on documents
+    with old timestamps (retention cleanup, compaction, re-embedding);
+    and ``launcher --test`` in its own process.  Every search is the
+    single-pass ``fused_topk_int8`` route.  Returns the launch counts of
+    the HTTP and lifecycle runs."""
+    import torch
+
+    from modular_rag_system_tpu_torch import RAGConfig
+    from modular_rag_system_tpu_torch.facade import EnhancedRAGSystem
+    from modular_rag_system_tpu_torch.serving import RAGHTTPServer
+    from modular_rag_system_tpu_torch.types import Document
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    storage = work / "entry"
+    # the default threshold (0.7) filters nearly every hybrid score out of
+    # the enhanced queries, which take it from the config
+    cfg = RAGConfig.load(overrides={"index.tier": "auto", "store.storage_path": str(storage),
+                                    "serving.file_server_port": 0,
+                                    "serving.query_batch_window_ms": 5.0,
+                                    "retrieval.similarity_threshold": 0.3})
+    system = EnhancedRAGSystem(cfg, device=device, enable_llm=False)
+    server = None
+    try:
+        system.start()
+        eng = system.engine
+        if eng.index.dim != D or str(eng.device) != device:
+            raise AssertionError(f"expected the 768-wide index on {device}: "
+                                 f"{eng.index.dim} on {eng.device}")
+        # ---- uploads: the bundled corpus as text files
+        src = work / "entry_files"
+        src.mkdir()
+        (src / "knowledge.txt").write_text("\n\n".join(know))
+        for i, p in enumerate(passages):
+            (src / f"qa_passage_{i:03d}.txt").write_text(p)
+        t0 = time.perf_counter()
+        for f in sorted(src.iterdir()):
+            if system.add_file_from_path(str(f)) is None:
+                raise AssertionError(f"upload of {f} failed")
+        sync()
+        dt = time.perf_counter() - t0
+        rows = eng.index.count
+        log(f"entry points: {len(passages) + 1} files uploaded and ingested, {rows} rows "
+            f"in {dt:.2f} s ({rows / dt:.1f} rows/s), capacity {eng.index.capacity}, "
+            f"file server on :{system.files.port}")
+        if eng.index.capacity != 4096 or eng.index.effective_tier() != "int8":
+            raise AssertionError("the facade's index should be int8 at capacity 4096")
+
+        # ---- HTTP: non-enhanced queries from concurrent clients
+        server = RAGHTTPServer(system, port=0)
+        base = f"http://127.0.0.1:{server.start()}"
+        k, thr = 10, 0.0
+        n = len(questions)
+        query = {"enhanced": False, "max_results": k, "similarity_threshold": thr}
+        http = {}
+
+        def http_run():
+            """The questions from HTTP_CLIENTS clients in another process:
+            per question its (ids, similarities) and latency, into ``http``."""
+            flushes0 = server.batcher.stats["flushes"]
+            spec = {"base": base, "questions": questions, "query": query,
+                    "clients": HTTP_CLIENTS}
+            out = subprocess.run([sys.executable, "-c", _HTTP_CLIENT], input=json.dumps(spec),
+                                 capture_output=True, text=True, timeout=600)
+            res = json.loads(out.stdout) if out.returncode == 0 else {}
+            if out.returncode != 0 or res["errors"]:
+                raise AssertionError(f"HTTP clients failed: {res.get('errors', [])[:3]} "
+                                     f"{out.stderr[-2000:]}")
+            http.update(got=[tuple(g) for g in res["got"]], lat=sorted(res["lat"]),
+                        eng=sorted(res["eng"]), wall=res["wall"],
+                        flushes=server.batcher.stats["flushes"] - flushes0)
+
+        def pct(xs):
+            return f"p50 {xs[n // 2]:.2f} ms, p99 {xs[min(n - 1, int(n * 0.99))]:.2f} ms"
+
+
+        http_json(base, "/query", {"query": questions[0], **query})  # warm-up
+        n_http = route_only(kernels, f"entry points: HTTP /query x{n} from {HTTP_CLIENTS} "
+                            "clients (query batcher)", "fused_topk_int8", http_run)
+        wall, flushes = http["wall"], http["flushes"]
+        log(f"entry points: HTTP {n} requests in {wall:.2f} s: {n / wall:.1f} requests/s, "
+            f"latency {pct(http['lat'])}; engine time of the answering flush "
+            f"{pct(http['eng'])}; {flushes} batcher flushes (largest "
+            f"{server.batcher.stats['max_flush']})")
+        if not flushes < n:
+            raise AssertionError(f"{flushes} flushes for {n} requests: nothing coalesced")
+        ref = _lists(eng.query_batch(questions, max_results=k, similarity_threshold=thr))
+        hold_near_ties(http["got"], ref, BATCH_SHAPE_TOL, "HTTP /query against query_batch")
+        # the same questions again: a second sample of the spread
+        http_run()
+        log(f"entry points: the same {n} requests again: {n / http['wall']:.1f} requests/s, "
+            f"latency {pct(http['lat'])}; engine time {pct(http['eng'])}; "
+            f"{http['flushes']} flushes")
+        if device != "cpu":
+            # the same load again under the profiler: the device's idle share
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                http_run()
+                sync()
+            busy = device_busy_ms(prof)
+            log(f"entry points: the same {n} requests under the profiler: wall "
+                f"{http['wall'] * 1e3:.1f} ms, device busy {busy:.2f} ms, device idle "
+                f"share {1 - busy / (http['wall'] * 1e3):.4f}")
+        # one client, nothing to coalesce: a request's time beside the
+        # engine call it makes
+        one_http, one_eng = [], []
+        for q in questions[:32]:
+            t = time.perf_counter()
+            http_json(base, "/query", {"query": q, **query})
+            one_http.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            eng.query_batch([q], max_results=k, similarity_threshold=thr)
+            sync()
+            one_eng.append((time.perf_counter() - t) * 1e3)
+        log(f"entry points: one client, 32 requests: HTTP /query median "
+            f"{statistics.median(one_http):.2f} ms, engine.query_batch of the same one "
+            f"question median {statistics.median(one_eng):.2f} ms (the difference: HTTP, "
+            f"JSON and the batcher's 5 ms window)")
+
+        # ---- an enhanced query, an /add, /health and /stats
+        code, body = http_json(base, "/query", {"query": questions[1]})
+        if code != 200 or not body.get("sources") or "insight" not in body:
+            raise AssertionError(f"enhanced /query: {code} {str(body)[:300]}")
+        code, body = http_json(base, "/add", {"content": "The smoke test adds this note "
+                                              "through the HTTP API.", "source": "api"})
+        if code != 200 or body.get("chunks") != 1:
+            raise AssertionError(f"/add: {code} {body}")
+        code, health = http_json(base, "/health")
+        if code != 200 or health != {"status": "ok", "docs": rows + 1, "tier": "auto"}:
+            raise AssertionError(f"/health: {code} {health}")
+        # the warm-up, two or three rounds of the questions, the one client
+        served = 1 + n * (3 if device != "cpu" else 2) + 32
+        code, stats = http_json(base, "/stats")
+        if (code != 200 or stats["engine"]["index"]["count"] != rows + 1
+                or stats["engine"]["index"]["device"] != device
+                or stats["query_batcher"]["queries"] != served):
+            raise AssertionError(f"/stats: {code} {str(stats)[:500]}")
+        log(f"entry points: enhanced /query, /add, /health, /stats answered; "
+            f"batcher {stats['query_batcher']}")
+
+        # ---- the lifecycle, on documents with old timestamps
+        now = time.time()
+        eng.add_documents([Document(content=f"An archived copy: {p}", source="archive",
+                                    timestamp=now - 40 * 86400.0) for p in passages[:200]])
+        life = {}
+
+        def lifecycle():
+            before = eng.query_batch(questions, max_results=k, similarity_threshold=thr)
+            life["archived hits"] = sum(d.source == "archive" for r in before
+                                        for d in r.documents)
+            life["deleted"] = eng.cleanup_old_documents(30.0)
+            cleaned = eng.query_batch(questions, max_results=k, similarity_threshold=thr)
+            if any(d.source == "archive" for r in cleaned for d in r.documents):
+                raise AssertionError("a deleted document is still among the results")
+            live = [d.id for _r, d in eng.store.iter_all()]
+            t = time.perf_counter()
+            life["reclaimed"] = eng.compact()
+            sync()
+            life["compact s"] = time.perf_counter() - t
+            if [d.id for _r, d in eng.store.iter_all()] != live:
+                raise AssertionError("compact changed the surviving documents or their order")
+            if eng.index.count != len(live) or eng.store.max_row() != len(live) - 1:
+                raise AssertionError("compact left rows that are not dense")
+            compacted = _lists(eng.query_batch(questions, max_results=k,
+                                               similarity_threshold=thr))
+            # the same embeddings, re-added: the same answers (the recency
+            # blend moves every similarity by < 1e-6 in the seconds between)
+            hold_near_ties(compacted, _lists(cleaned), 1e-5, "after compact")
+            if [c[0] for c in compacted] != [c[0] for c in _lists(cleaned)]:
+                raise AssertionError("ids changed across compact")
+            t = time.perf_counter()
+            life["reembedded"] = eng.reembed_all()
+            sync()
+            life["reembed s"] = time.perf_counter() - t
+            again = _lists(eng.query_batch(questions, max_results=k, similarity_threshold=thr))
+            life["reembed differ"], life["reembed gap"] = hold_near_ties(
+                again, compacted, BATCH_SHAPE_TOL, "after reembed_all")
+            life["live"] = len(live)
+
+        n_life = route_only(kernels, "entry points: lifecycle (cleanup, compact, reembed_all, "
+                            "queries)", "fused_topk_int8", lifecycle)
+        log(f"entry points: lifecycle {life}")
+        if life["archived hits"] == 0 or life["deleted"] != 200 or life["reclaimed"] != 200:
+            raise AssertionError(f"lifecycle: {life}")
+        if life["reembedded"] != life["live"] or eng.index.capacity != 4096:
+            raise AssertionError(f"reembed_all: {life}")
+    finally:
+        if server is not None:
+            server.stop()
+        system.shutdown()
+
+    # ---- the launcher in its own process (int8 tier: the kernel's route)
+    cmd = [sys.executable, "-m", "modular_rag_system_tpu_torch.launcher", "--test",
+           "--storage", str(work / "launcher"), "--tier", "int8", "--port", "0",
+           "--device", device]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    for line in (out.stdout + out.stderr).strip().splitlines()[-12:]:
+        log(f"  launcher: {line}")
+    if out.returncode != 0 or "self-test: PASSED" not in out.stdout:
+        raise AssertionError(f"launcher --test exited {out.returncode}")
+    log(f"entry points: launcher --test exited 0 in {time.perf_counter() - t0:.1f} s")
+    return {"http": n_http, "lifecycle": n_life}
+
+
 def phase(name, t0):
     log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     return time.perf_counter()
@@ -1949,6 +2283,10 @@ def smoke(work: Path) -> int:
                int8_fine_bytes, entries4, launches4, errs4)
     tp = phase("4d (int4 restart, int4 fine kernels)", tp)
 
+    # ---- phase 5: the facade, the HTTP server, the lifecycle, the launcher
+    entry_launches = entry_points(work, kernels, know, questions, passages)
+    tp = phase("5 (entry points)", tp)
+
     out = []
     replaces = {"binmax_int8": "modular_rag_system_tpu/ops/binmax_topk.py:450",
                 "fused_topk_int8": "modular_rag_system_tpu/ops/fused_topk.py:282",
@@ -1964,6 +2302,8 @@ def smoke(work: Path) -> int:
                  "source": f"modular_rag_system_tpu_torch/kernels/{src}.cu",
                  "replaces": replaces[kname], "launches": launches[kname],
                  "max_abs_err": errs[kname], **entries[kname]}
+        if kname == "fused_topk_int8":  # its launches through the entry points
+            entry["entry_points_launches"] = entry_launches
         if kname in entries4:  # the same source's int4 mode, on the int4 route
             entry["int4"] = {"launches": launches4[kname], "max_abs_err": errs4[kname],
                              **entries4[kname]}

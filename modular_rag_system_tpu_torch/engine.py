@@ -6,15 +6,25 @@ on the host, then the dense forward, the hybrid concat and the index
 search run on the device in one function (``_device_query``), and the
 document store resolves the rows.  Behaviour follows the JAX package's
 ``RAGEngine``: recent-context deque, rolling retrieval-time stats,
-overfetch-and-refill under filters, positional restore with tombstones.
+overfetch-and-refill under filters, positional restore with tombstones,
+the enhanced-context builder and the lifecycle methods (retention
+cleanup, compaction, re-embedding, gzip JSON export).
+
+Threads: queries run from several threads at once (the HTTP server's
+query batcher flushes concurrently).  Each query searches one index
+object and resolves its rows against one store numbering: ``compact``
+renumbers the store and swaps the index under ``_write_lock`` and marks
+the swap, and a query whose search and fetch straddle it runs again.
+Lock order: ``_write_lock``, then the index's locks.
 """
 
 from __future__ import annotations
 
 import math
+import re
 import threading
 import time
-from collections import deque
+from collections import Counter, deque
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -45,6 +55,16 @@ _INDEX_TIER_KEYS = (
 def _index_tier_kwargs(src) -> Dict[str, Any]:
     """Constructor kwargs of the index, from a config or an index."""
     return {key: getattr(src, key) for key in _INDEX_TIER_KEYS}
+
+
+_STOPWORDS = frozenset(
+    """a an and are as at be by for from has he in is it its of on that the to was
+    were will with this these those i you your we our they them what which who how
+    when where why not no yes do does did done can could should would may might
+    must shall about into over under again further then once here there all any
+    both each few more most other some such only own same so than too very s t
+    just don now""".split()
+)
 
 
 class RAGEngine:
@@ -80,6 +100,13 @@ class RAGEngine:
         # store.upsert + index.add must be atomic together: interleaved
         # writers would desynchronize store rows from index rows
         self._write_lock = threading.RLock()
+        # compact() renumbers the store's rows: _swap_gen is odd while it
+        # runs and _stable is clear, so a query can tell that its search
+        # and its store fetch saw different numberings (_search_fetch)
+        self._swap_gen = 0
+        self._stable = threading.Event()
+        self._stable.set()
+        self._stats_lock = threading.Lock()
         self._restore()
 
     # ------------------------------------------------------------------
@@ -272,15 +299,14 @@ class RAGEngine:
         wl = math.sqrt(self.encoder.weight)
         return torch.cat([wd * q, wl * lex], dim=1)
 
-    def _device_query(self, texts: List[str], k: int):
-        """Encode and search on the device -> (scores, rows) numpy (Q, k),
-        or None when the encoder has no device forward."""
+    def _device_query(self, index: DeviceIndex, texts: List[str], k: int):
+        """Encode and search ``index`` on the device -> (scores, rows)
+        numpy (Q, k), or None when the encoder has no device forward."""
         q = self.embed_queries(texts)
         if q is None:
             return None
-        with self.index._lock:
-            vals, rows = self.index.search_core(k)(
-                self.index.search_ops(), self.index.count, q)
+        with index._lock:
+            vals, rows = index.search_core(k)(index.search_ops(), index.count, q)
         return vals.cpu().numpy(), rows.cpu().numpy()
 
     # kernel-path refills stop at _REFILL_KERNEL_MAX; one final deep pass
@@ -295,24 +321,45 @@ class RAGEngine:
             return min(self._REFILL_EXACT_MAX, self.index.count)
         return None
 
-    def _search_batch(self, texts: List[str], k: int):
-        """(scores (Q,k), rows (Q,k), q_emb (Q,d) or None)."""
+    def _search_batch(self, index: DeviceIndex, texts: List[str], k: int):
+        """(scores (Q,k), rows (Q,k), q_emb (Q,d) or None) from ``index``."""
         if k > self._REFILL_KERNEL_MAX:
             # deep filtered refill: exact path, any k
             q_emb = np.asarray(self.encoder.encode_queries(texts))
-            with self.index._lock:
+            with index._lock:
                 scores, rows = exact_ops.exact_topk_raw(
-                    self.index.E, self.index.count,
-                    torch.as_tensor(q_emb, device=self.index.device),
-                    min(k, self.index.count))
+                    index.E, index.count,
+                    torch.as_tensor(q_emb, device=index.device),
+                    min(k, index.count))
             return scores.cpu().numpy(), rows.cpu().numpy(), q_emb
-        fused = retry_transient(lambda: self._device_query(texts, k), what="device query")
+        fused = retry_transient(lambda: self._device_query(index, texts, k),
+                                what="device query")
         if fused is not None:
             scores, rows = fused
             return scores, rows, None
         q_emb = np.asarray(self.encoder.encode_queries(texts))
-        scores, rows = self.index.search(q_emb, k)
+        scores, rows = index.search(q_emb, k)
         return scores, rows, q_emb
+
+    def _search_fetch(self, texts: List[str], k: int):
+        """Search and store fetch over one index and one row numbering:
+        (scores, rows, q_emb, rows -> documents, rows searched).  A
+        ``compact`` that swaps them between the two makes the pair run
+        again."""
+        while True:
+            self._stable.wait()
+            gen = self._swap_gen
+            if gen % 2:
+                continue  # a compaction began after the wait
+            index = self.index
+            count = index.count
+            if count == 0:  # everything was compacted away
+                empty = np.zeros((len(texts), 0))
+                return empty, empty.astype(np.int64), None, {}, 0
+            scores, rows, q_emb = self._search_batch(index, texts, min(max(k, 1), count))
+            by_row = self._fetch_by_row(rows)
+            if self._swap_gen == gen:
+                return scores, rows, q_emb, by_row, count
 
     def _postprocess_rows(self, q: Query, scores, rows, by_row, now: float):
         """Filter + rank one query's candidate rows."""
@@ -352,8 +399,7 @@ class RAGEngine:
         filters_active = bool(q.source_filters or q.metadata_filters)
         k = self._initial_k(q.max_results, filters_active)
         while True:
-            scores, rows, q_emb = self._search_batch([q.text], k)
-            by_row = self._fetch_by_row(rows)
+            scores, rows, q_emb, by_row, count = self._search_fetch([q.text], k)
             docs, sims = self._postprocess_rows(q, scores[0], rows[0], by_row, time.time())
             # a selective filter can consume the whole candidate set:
             # rescan deeper; threshold misses never refill
@@ -368,14 +414,15 @@ class RAGEngine:
             similarities=sims,
             query_embedding=q_emb[0] if q_emb is not None else None,
             retrieval_time=0.0,
-            total_documents_searched=self.index.count,
+            total_documents_searched=count,
         )
 
     def _update_query_stats(self, dt: float) -> None:
-        s = self.query_stats
-        n = s["total_queries"]
-        s["avg_retrieval_time"] = (s["avg_retrieval_time"] * n + dt) / (n + 1)
-        s["total_queries"] = n + 1
+        with self._stats_lock:  # queries update it from several threads
+            s = self.query_stats
+            n = s["total_queries"]
+            s["avg_retrieval_time"] = (s["avg_retrieval_time"] * n + dt) / (n + 1)
+            s["total_queries"] = n + 1
 
     def query_batch(
         self,
@@ -407,8 +454,7 @@ class RAGEngine:
         k = self._initial_k(max_results, filters_active)
         t0 = time.perf_counter()
         while True:
-            scores, rows, q_emb = self._search_batch(list(texts), k)
-            by_row = self._fetch_by_row(rows)
+            scores, rows, q_emb, by_row, count = self._search_fetch(list(texts), k)
             now = time.time()
             per_q = [self._postprocess_rows(q, scores[qi], rows[qi], by_row, now)
                      for qi, q in enumerate(queries)]
@@ -421,45 +467,157 @@ class RAGEngine:
         dt = time.perf_counter() - t0
         return [
             RetrievalResult(docs, sims, q_emb[qi] if q_emb is not None else None,
-                            dt, self.index.count)
+                            dt, count)
             for qi, (docs, sims) in enumerate(per_q)
         ]
 
     # ------------------------------------------------------------------
+    # enhanced context (the reference's ``get_enhanced_context``)
+    def get_enhanced_context(self, query_text: str, max_results: int = 10) -> Dict[str, Any]:
+        res = self.query(query_text, max_results=max_results, similarity_threshold=0.0)
+        docs = res.documents
+        if not docs:
+            return {"summary": "No relevant context found.", "documents": [],
+                    "temporal_span_days": 0.0, "source_distribution": {},
+                    "peak_hours": [], "themes": []}
+        ts = [d.timestamp for d in docs]
+        span_days = (max(ts) - min(ts)) / 86400.0
+        source_dist = dict(Counter(d.source for d in docs))
+        hours = Counter(time.localtime(t).tm_hour for t in ts)
+        peak_hours = [h for h, _ in hours.most_common(3)]
+        words = re.findall(r"[a-zA-Z]{3,}", " ".join(d.content for d in docs).lower())
+        themes = [w for w, _ in Counter(w for w in words if w not in _STOPWORDS).most_common(10)]
+        summary = (
+            f"Found {len(docs)} relevant documents spanning "
+            f"{span_days:.1f} days from sources {sorted(source_dist)}. "
+            f"Key themes: {', '.join(themes[:5])}."
+        )
+        return {
+            "summary": summary,
+            "documents": [d.to_dict() for d in docs],
+            "similarities": res.similarities,
+            "retrieval_time": res.retrieval_time,
+            "total_documents_searched": res.total_documents_searched,
+            "temporal_span_days": span_days,
+            "source_distribution": source_dist,
+            "peak_hours": peak_hours,
+            "themes": themes,
+        }
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    def cleanup_old_documents(self, retention_days: Optional[float] = None) -> int:
+        """Delete the documents older than ``retention_days`` (default
+        ``store.retention_days``; None keeps everything); returns how many."""
+        days = retention_days if retention_days is not None else self.config.store.retention_days
+        if days is None:
+            return 0
+        with self._write_lock:
+            n = self.store.delete_older_than(time.time() - days * 86400.0)
+            deleted = self.store.deleted_rows()
+            if deleted.size:
+                self.index.delete_rows(deleted[deleted < self.index.count])
+        return n
+
+    def compact(self) -> int:
+        """Physically drop deleted rows: renumber the store densely and
+        rebuild the device index from the surviving embeddings.  Returns
+        the number of rows reclaimed."""
+        with self._write_lock:
+            return self._compact_locked()
+
+    def _rebuilt_index(self, capacity: int) -> DeviceIndex:
+        """A fresh single-device index with the current one's knobs."""
+        return DeviceIndex(dim=self.index.dim, capacity=max(capacity, 4096),
+                           device=self.device, **_index_tier_kwargs(self.index))
+
+    def _compact_locked(self) -> int:
+        before = self.index.count
+        # snapshot live embeddings in OLD row order
+        self.index.snapshot(str(self._snapshot_path))
+        emb = np.asarray(snapshot_embeddings(np.load(self._snapshot_path)), dtype=np.float32)
+        self._stable.clear()
+        self._swap_gen += 1  # odd: store rows and index rows may disagree
+        try:
+            live_old = self.store.compact()
+            index = self._rebuilt_index(len(live_old))
+            if len(live_old):
+                index.add(emb[np.asarray(live_old, dtype=np.int64)])
+            self.index = index
+        finally:
+            self._swap_gen += 1
+            self._stable.set()
+        self.save()
+        return before - self.index.count
+
+    def reembed_all(self) -> int:
+        """Re-encode every live document with the current encoder weights
+        and rebuild the index (rows keep their numbers; tombstones stay
+        zero rows).  Returns the number of rows re-embedded."""
+        with self._write_lock:
+            rows: List[int] = []
+            texts: List[str] = []
+            tombstones: List[int] = []
+            for row, doc in self.store.iter_all(include_deleted=True):
+                if doc is None:
+                    tombstones.append(row)
+                else:
+                    rows.append(row)
+                    texts.append(doc.content)
+            n_total = (max(rows + tombstones) + 1) if (rows or tombstones) else 0
+            if n_total == 0:
+                return 0
+            live_mat = self._encode(texts)
+            mat = np.zeros((n_total, self.index.dim), np.float32)
+            mat[np.asarray(rows, dtype=np.int64)] = live_mat
+            index = self._rebuilt_index(n_total)
+            index.add(mat)
+            if tombstones:
+                index.delete_rows(np.asarray(tombstones, dtype=np.int64))
+            self.index = index
+            self.save()
+            return len(rows)
+
+    # ------------------------------------------------------------------
     def get_system_stats(self) -> Dict[str, Any]:
+        index = self.index
         return {
             "query_stats": dict(self.query_stats),
             "store": self.store.stats(),
             "index": {
-                "tier": self.index.tier,
-                "effective_tier": self.index.effective_tier(),
-                "count": self.index.count,
-                "capacity": self.index.capacity,
-                "dim": self.index.dim,
-                "memory_bytes": self.index.memory_bytes(),
+                "tier": index.tier,
+                "effective_tier": index.effective_tier(),
+                "count": index.count,
+                "capacity": index.capacity,
+                "dim": index.dim,
+                "memory_bytes": index.memory_bytes(),
                 "device": str(self.device),
-                "ivf": self._ivf_stats(),
+                "ivf": self._ivf_stats(index),
             },
             "encoder": getattr(self.encoder, "name", "unknown"),
             "recent_context_size": len(self.recent_context),
         }
 
-    def _ivf_stats(self) -> Optional[Dict[str, Any]]:
+    @staticmethod
+    def _ivf_stats(index: DeviceIndex) -> Optional[Dict[str, Any]]:
         """The ivf structure's state (None before a build): clustered vs
         exact-tail rows, drift since the build, rebuilds, fine-copy bytes."""
-        with self.index._lock:
-            iv = self.index._ivf2
+        with index._lock:
+            iv = index._ivf2
             if iv is None:
                 return None
             return {
                 "fine_dtype": iv.fine_dtype,
                 "clusters": iv.n_clusters,
                 "built": iv.built,
-                "tail_rows": max(self.index.count - iv.built, 0),
+                "tail_rows": max(index.count - iv.built, 0),
                 "stale_rows": iv.stale_rows,
-                "rebuilds": self.index.ivf_rebuilds,
+                "rebuilds": index.ivf_rebuilds,
                 "fine_bytes": iv.fine_bytes(),
             }
+
+    def export_data(self, path: str) -> str:
+        return self.store.export_gzip_json(path)
 
     def shutdown(self) -> None:
         if self.config.store.snapshot_on_shutdown:

@@ -12,7 +12,8 @@ there is no fallback to the plain PyTorch versions.
 
 ``launches`` counts kernel launches per kernel name (``KERNELS``, the C
 entry points): each wrapper in ``ops/`` adds one where it launches its
-kernel and nowhere else.
+kernel and nowhere else.  Wrappers run from several threads at once (the
+HTTP server's query batcher), so the counts change under ``_lock``.
 
 Build by hand (what ``build_all`` runs for each source):
 
@@ -149,9 +150,11 @@ def launch(name: str, *args) -> None:
     err = getattr(library(name), name)(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
-    launches[name] += 1
+    with _lock:
+        launches[name] += 1
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _lock:
+        for name in launches:
+            launches[name] = 0

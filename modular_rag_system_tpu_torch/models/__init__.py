@@ -4,6 +4,7 @@
   for hermetic tests.
 * ``encoder.MiniLMEncoder`` with the bundled checkpoint, wrapped with the
   lexical half in a ``lexical.HybridEncoder`` — the default encoder.
+* ``ollama.OllamaEmbedder`` — HTTP embeddings from an Ollama server.
 """
 
 from modular_rag_system_tpu_torch.models.fake import FeatureHashEncoder
@@ -15,10 +16,24 @@ def build_encoder(config, device="cuda"):
     ``"auto"`` and ``"minilm"`` build the bundled checkpoint (wrapped in
     the hybrid encoder when ``lexical_dim > 0``) on ``device``; any
     failure to do so raises, so a broken checkpoint cannot pass for a
-    working encoder.  ``"fake"`` builds the host feature-hash encoder."""
+    working encoder.  ``"fake"`` builds the host feature-hash encoder,
+    ``"ollama"`` the HTTP embedder of a running Ollama server (it raises
+    when the server is unreachable)."""
     model = config.embedding.model
     if model == "fake":
         return FeatureHashEncoder(dim=config.embedding.dim)
+    if model == "ollama":
+        from modular_rag_system_tpu_torch.models.ollama import OllamaEmbedder
+
+        enc = OllamaEmbedder(
+            base_url=config.serving.ollama_base_url,
+            dim=config.embedding.dim,
+            timeout_s=config.serving.llm_timeout_s,
+        )
+        if not enc.available:
+            raise RuntimeError(
+                f"ollama server unreachable at {config.serving.ollama_base_url}")
+        return enc
     if model not in ("minilm", "auto"):
         raise ValueError(f"unknown or unported encoder model {model!r}")
     emb = config.embedding

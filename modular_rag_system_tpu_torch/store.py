@@ -22,9 +22,11 @@ Key properties:
 
 from __future__ import annotations
 
+import gzip
 import json
 import sqlite3
 import threading
+import time
 from pathlib import Path
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -187,6 +189,15 @@ class DocumentStore:
                 out.append(self._to_doc(r))
         return out
 
+    def get_by_id(self, doc_id: str) -> Optional[Document]:
+        with self._lock:
+            r = self._conn.execute(
+                "SELECT row_idx, id, content, content_type, source, timestamp, "
+                "importance, access_count, deleted, metadata FROM documents WHERE id = ?",
+                (doc_id,),
+            ).fetchone()
+        return None if r is None or r[8] else self._to_doc(r)
+
     @staticmethod
     def _to_doc(r) -> Document:
         return Document(
@@ -262,6 +273,41 @@ class DocumentStore:
             self._conn.commit()
         return n
 
+    def delete_older_than(self, cutoff_ts: float) -> int:
+        """Real retention (reference stub: ``ollama_rag_system.py:843-850``)."""
+        with self._lock:
+            n = self._conn.execute(
+                "UPDATE documents SET deleted = 1 WHERE timestamp < ? AND deleted = 0",
+                (cutoff_ts,),
+            ).rowcount
+            self._conn.commit()
+        return int(n)
+
+    def compact(self) -> List[int]:
+        """Drop tombstoned rows and renumber live rows densely.
+
+        Returns the list of OLD row indices in their new dense order, so
+        the caller can rebuild the device index by gathering those rows.
+        """
+        with self._lock:
+            cur = self._conn.cursor()
+            live = [
+                int(r[0])
+                for r in cur.execute(
+                    "SELECT row_idx FROM documents WHERE deleted = 0 ORDER BY row_idx"
+                ).fetchall()
+            ]
+            cur.execute("DELETE FROM documents WHERE deleted = 1")
+            # two-phase renumber to avoid UNIQUE collisions
+            for new, old in enumerate(live):
+                cur.execute(
+                    "UPDATE documents SET row_idx = ? WHERE row_idx = ?",
+                    (-(new + 1), old),
+                )
+            cur.execute("UPDATE documents SET row_idx = -row_idx - 1 WHERE row_idx < 0")
+            self._conn.commit()
+        return live
+
     # ------------------------------------------------------------------
     def stats(self) -> Dict[str, Any]:
         with self._lock:
@@ -288,6 +334,24 @@ class DocumentStore:
             "newest_timestamp": span[1],
             "db_path": str(self.db_path),
         }
+
+    def export_gzip_json(self, path: str, recent: int = 100) -> str:
+        """gzip JSON export (reference ``ollama_rag_system.py:852-869``)."""
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT row_idx, id, content, content_type, source, timestamp, "
+                "importance, access_count, deleted, metadata FROM documents "
+                "WHERE deleted = 0 ORDER BY timestamp DESC LIMIT ?",
+                (recent,),
+            ).fetchall()
+        payload = {
+            "exported_at": time.time(),
+            "stats": self.stats(),
+            "recent_documents": [self._to_doc(r).to_dict() for r in rows],
+        }
+        with gzip.open(path, "wt") as f:
+            json.dump(payload, f)
+        return path
 
     def close(self) -> None:
         with self._lock:

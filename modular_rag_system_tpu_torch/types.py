@@ -104,6 +104,18 @@ class Chunk:
     metadata: Dict[str, Any] = field(default_factory=dict)
 
 
+@dataclass
+class EmbeddingResult:
+    """Per-chunk embedding output (reference ``embedding_pipeline.py:57-69``)."""
+
+    content: str
+    embedding: np.ndarray
+    model_used: str
+    processing_time: float
+    content_hash: str
+    chunk_info: Dict[str, Any] = field(default_factory=dict)
+
+
 def as_matrix(embeddings: Sequence[np.ndarray], dim: int) -> np.ndarray:
     """Stack embeddings into an (N, dim) float32 matrix, validating dims."""
     if not embeddings:

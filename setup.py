@@ -22,7 +22,7 @@ setup(
         "modular_rag_system_tpu.native": ["*.cpp"],
         # the PyTorch port's CUDA kernels build from source with nvcc at
         # first use (modular_rag_system_tpu_torch/kernels/__init__.py)
-        "modular_rag_system_tpu_torch.kernels": ["*.cu"],
+        "modular_rag_system_tpu_torch.kernels": ["*.cu", "*.cuh"],
         # bundled assets must ship in the wheel too, or an installed
         # package loses the default encoder and the external eval set
         # (works-only-from-source-checkout bug, ADVICE r4)
@@ -51,6 +51,8 @@ setup(
     entry_points={
         "console_scripts": [
             "rag-tpu=modular_rag_system_tpu.launcher:main",
+            # the PyTorch/CUDA port's launcher (same flags, plus --device)
+            "rag-tpu-torch=modular_rag_system_tpu_torch.launcher:main",
             # reference script-name parity
             "rag-launcher=modular_rag_system_tpu.launcher:main",
             "rag-system=modular_rag_system_tpu.launcher:main",

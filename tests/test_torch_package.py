@@ -33,7 +33,10 @@ def test_no_jax_imports(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, modular_rag_system_tpu_torch.engine, "
-            "modular_rag_system_tpu_torch.ops.binmax_topk; "
+            "modular_rag_system_tpu_torch.ops.binmax_topk, "
+            "modular_rag_system_tpu_torch.facade, modular_rag_system_tpu_torch.serving, "
+            "modular_rag_system_tpu_torch.launcher, modular_rag_system_tpu_torch.pipeline, "
+            "modular_rag_system_tpu_torch.llm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(bool(bad))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
