@@ -59,7 +59,18 @@ Phases (any failure exits non-zero and prints no result line):
    lifecycle on documents with old timestamps (``cleanup_old_documents``,
    ``compact``, ``reembed_all``, each held against the answers before
    it); ``launcher --test`` in its own process.  Every search there is
-   ``fused_topk_int8``'s single-pass route, and no other kernel launches.
+   ``fused_topk_int8``'s single-pass route, and no other kernel launches;
+6. train: ``ContrastiveTrainer`` on the card over the bundled encoder's
+   dense half at full width (L = 128, bf16 over f32 masters), batches of
+   256 QA pairs: step 0 held against the host CPU's loss of the same
+   batch, 30 steps whose loss falls (step time, tokens/s, the bound,
+   peak memory, the device's idle share), a checkpoint round trip; then
+   ``EnhancedRAGSystem.fine_tune_from_feedback`` on 64 feedback pairs
+   (the serving encoder takes the trainer's weights, every live row is
+   re-embedded, the 316 questions run ``fused_topk_int8`` alone with ids
+   equal to the exact tier's), beside the ``build_default_encoder
+   --smoke`` tool in a process of its own, whose asset must load and
+   encode.
 
 Each kernel is also held against its plain version at the inputs the
 main path gives it (the engine's own rows, queries and probe lists), and
@@ -68,7 +79,8 @@ behind a device sleep), beside its plain version, one PyTorch library
 call that computes the same function where there is one, and the card's
 bound.  Kernel launch counts are set to 0 just before each route is
 driven and read just after (``fused_topk_int8``'s entry also gives its
-launches in phase 5's HTTP and lifecycle runs).  The last three lines are
+launches in phase 5's HTTP and lifecycle runs and phase 6's queries
+after the fine-tune).  The last three lines are
 the ``nvidia-smi`` line, the kernels JSON line and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -77,6 +89,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -2010,6 +2023,282 @@ def entry_points(work, kernels, know, questions, passages, device="cuda"):
     return {"http": n_http, "lifecycle": n_life}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the trainer on the card
+TRAIN_BATCH = 256  # (query, passage) pairs a step, from the 316 QA items
+TRAIN_STEPS = 30
+TRAIN_LR = 1e-4
+TRAIN_WARM = 5  # steps left out of the median step time
+# step 0 on the card against the same batch on the host CPU from the same
+# weights, both bf16: the sums run in other orders (cuBLAS against
+# oneDNN), which moves a unit embedding by about a bf16 step and a
+# logit (cosine / 0.05) by ~0.02; the mean loss moves far less, and an
+# argmax may flip only at a near-tie
+STEP0_LOSS_TOL = 2e-2
+STEP0_ACC_TOL = 2 / TRAIN_BATCH
+FEEDBACK_PAIRS = 64
+FEEDBACK_STEPS = 20
+TOOL_STEPS = 20  # build_default_encoder's training steps (its --smoke run)
+
+
+def train_flops(arch: dict, batch: int, seq_len: int) -> int:
+    """Matmul FLOPs of one training step (forward and backward over 2 x
+    ``batch`` sequences of ``seq_len`` tokens): 6 per Dense weight and
+    token, and the attention products (QK^T and PV: 4 L^2 d a sequence
+    and layer forward, 3x that with the backward).  Embedding gathers,
+    LayerNorms, softmax and the B x B logits are left out (under 1% at
+    the bundled encoder's widths)."""
+    h, m, n_layers = arch["hidden"], arch["mlp_dim"], arch["num_layers"]
+    dense_weights = n_layers * (4 * h * h + 2 * h * m)
+    attention = n_layers * 2 * batch * 4 * seq_len * seq_len * h
+    return 6 * dense_weights * 2 * batch * seq_len + 3 * attention
+
+
+def train_phase(work, kernels, know, questions, passages, spec, device="cuda"):
+    """Phase 6: the contrastive trainer on the card at the bundled
+    encoder's full width (4 layers, hidden 384, 12 heads, FFN 1536, vocab
+    16384, L = 128, bf16 compute over f32 masters), batches of
+    ``TRAIN_BATCH`` QA pairs: step 0 against the host CPU's loss of the
+    same batch, ``TRAIN_STEPS`` steps (the loss falls; step time, tokens/s,
+    peak memory, the bound, the device's idle share), a checkpoint round
+    trip; then ``fine_tune_from_feedback`` through ``EnhancedRAGSystem``
+    (the serving encoder changes to the trainer's weights, every live row
+    is re-embedded, and the questions run ``fused_topk_int8`` alone with
+    ids equal to the exact tier's); and the ``build_default_encoder``
+    tool in a process of its own, whose asset must load and encode.
+    Returns the kernel launches of the query run after the fine-tune."""
+    import random
+
+    import torch
+
+    from modular_rag_system_tpu_torch import RAGConfig
+    from modular_rag_system_tpu_torch.facade import EnhancedRAGSystem
+    from modular_rag_system_tpu_torch.models.default_ckpt import (
+        build_default_encoder,
+        load_default_assets,
+    )
+    from modular_rag_system_tpu_torch.models.train import ContrastiveTrainer
+
+    cuda = device != "cpu"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _, arch, _ = load_default_assets()
+    enc = build_default_encoder(RAGConfig(), device)  # the bundled dense half
+    L = enc.max_seq_len
+    order = list(range(len(questions)))
+    random.Random(0).shuffle(order)
+
+    def batch(s):
+        rows = [order[(s * TRAIN_BATCH + i) % len(order)] for i in range(TRAIN_BATCH)]
+        return [questions[i] for i in rows], [passages[i] for i in rows]
+
+    # ---- step 0 against the host CPU, same batch, same weights
+    t0 = time.perf_counter()
+    ref_loss, ref_acc = ContrastiveTrainer(build_default_encoder(RAGConfig(), "cpu")
+                                           ).evaluate(*batch(0))
+    log(f"train: CPU reference of step 0 ({TRAIN_BATCH} pairs, L = {L}, bf16) in "
+        f"{time.perf_counter() - t0:.1f} s: loss {ref_loss:.5f}, acc {ref_acc:.4f}")
+    trainer = ContrastiveTrainer(enc, learning_rate=TRAIN_LR)
+    losses, step_ms = [], []
+    for s in range(TRAIN_STEPS):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        loss, acc = trainer.step(*batch(s))
+        if cuda:
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        losses.append(loss)
+        if s == 0:
+            log(f"train: step 0 on {device}: loss {loss:.5f} (CPU {ref_loss:.5f}, "
+                f"|diff| {abs(loss - ref_loss):.2e}, tolerance {STEP0_LOSS_TOL}), acc "
+                f"{acc:.4f} (CPU {ref_acc:.4f})")
+            if abs(loss - ref_loss) > STEP0_LOSS_TOL or abs(acc - ref_acc) > STEP0_ACC_TOL:
+                raise AssertionError("train: step 0 on the card disagrees with the CPU")
+    last = statistics.mean(losses[-5:])
+    log(f"train: losses {[round(x, 4) for x in losses]}")
+    if not all(map(math.isfinite, losses)) or not last < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses[0]} -> mean {last}")
+    out = {"losses": (losses[0], last)}
+    if cuda:
+        tokens = 2 * TRAIN_BATCH * L
+        med = statistics.median(step_ms[TRAIN_WARM:])
+        flops = train_flops(arch, TRAIN_BATCH, L)
+        n_params = sum(p.numel() for p in trainer.params.values())
+        # each input read once, each output written once: ids and masks,
+        # the f32 masters and both moments in, all three out
+        nbytes = 2 * 2 * TRAIN_BATCH * L * 8 + 6 * 4 * n_params
+        bound_ms, bound_by = bound(nbytes, flops, spec[2], spec)
+        t = time.perf_counter()
+        for _ in range(3):
+            enc.tokenizer.encode_batch(batch(1)[0] + batch(1)[1])
+        tok_ms = (time.perf_counter() - t) / 3 * 1e3
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            trainer.step(*batch(TRAIN_STEPS))
+            sync()
+            wall = (time.perf_counter() - t) * 1e3
+        busy = device_busy_ms(prof)
+        # another step with the host ops recorded: device time by the op
+        # that launched it (aten::mm, aten::mul, ...), not by kernel name
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_ops:
+            trainer.step(*batch(TRAIN_STEPS + 1))
+            sync()
+        ops = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                      for e in prof_ops.key_averages()
+                      if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+                     key=lambda op: -op[2])
+        log(f"train: device time of a step by op, top 10 of {len(ops)} (sum "
+            f"{sum(op[2] for op in ops):.2f} ms): " + "; ".join(
+                f"{op} x{n} {ms:.2f} ms" for op, n, ms in ops[:10]))
+        log(f"train: step time median {med:.2f} ms over steps {TRAIN_WARM}-{TRAIN_STEPS - 1} "
+            f"(CUDA events around trainer.step; min {min(step_ms[TRAIN_WARM:]):.2f}, max "
+            f"{max(step_ms[TRAIN_WARM:]):.2f}), {tokens / med * 1e3:,.0f} tokens/s "
+            f"({tokens} a step); bound {bound_ms:.3f} ms ({bound_by}: {flops / 1e12:.3f} "
+            f"TFLOP a step at {spec[2] / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.0f} MB), "
+            f"{bound_ms / med:.3f} of it; host tokenization {tok_ms:.2f} ms a step; one "
+            f"profiled step: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle share "
+            f"{1 - busy / wall:.3f}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {n_params:,} parameters")
+        out.update(step_ms=med, bound_ms=bound_ms, busy_ms=busy, wall_ms=wall)
+
+    # ---- checkpoint round trip: the restored trainer takes the same step
+    ckpt = work / "trainer.pt"
+    trainer.save_checkpoint(str(ckpt))
+    twin = ContrastiveTrainer(build_default_encoder(RAGConfig(), device), learning_rate=TRAIN_LR)
+    twin.restore_checkpoint(str(ckpt))
+    la, _ = trainer.step(*batch(TRAIN_STEPS + 2))
+    lb, _ = twin.step(*batch(TRAIN_STEPS + 2))
+    gap = max((trainer.params[k] - twin.params[k]).abs().max().item() for k in trainer.params)
+    log(f"train: checkpoint round trip ({ckpt.stat().st_size / 1e6:.1f} MB): next-step loss "
+        f"{la:.6f} / {lb:.6f}, parameters after it within {gap:.2e}")
+    # the same weights and batch give the same loss; after the update an
+    # element can differ by at most the two Adam steps' sum (2 lr) where
+    # an order-dependent gradient sum flips a near-zero gradient's sign
+    if twin.step_count != trainer.step_count or abs(la - lb) > 1e-5 or gap > 2 * TRAIN_LR:
+        raise AssertionError(f"train: checkpoint round trip: {la} {lb} {gap}")
+    del trainer, twin, enc
+
+    # ---- build_default_encoder, in a process of its own beside the entry point
+    tool_dir = work / "built_encoder"
+    tool_cmd = [sys.executable, "-m", "modular_rag_system_tpu_torch.tools.build_default_encoder",
+                "--smoke", "--steps", str(TOOL_STEPS), "--device", device, "--out", str(tool_dir)]
+    t_tool = time.perf_counter()
+    tool = subprocess.Popen(tool_cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        out["fine_tune_launches"] = fine_tune_entry(work, kernels, know, questions, passages,
+                                                    order, device, out)
+        tool_out, tool_err = tool.communicate(timeout=900)
+    finally:
+        if tool.poll() is None:
+            tool.kill()
+            tool.communicate()
+    for line in tool_err.strip().splitlines()[-8:]:
+        log(f"  tool: {line}")
+    if tool.returncode != 0:
+        raise AssertionError(f"build_default_encoder exited {tool.returncode}")
+    res = json.loads(tool_out.strip().splitlines()[-1])
+    built = build_default_encoder(RAGConfig.load(overrides={
+        "embedding.bundled_checkpoint": str(tool_dir)}), device)
+    e = built.encode(questions[:64])
+    norms = torch.linalg.vector_norm(torch.from_numpy(e), dim=1)
+    if e.shape != (64, 384) or not torch.allclose(norms, torch.ones(64), atol=1e-3):
+        raise AssertionError(f"the built asset encodes {e.shape}, norms {norms[:4]}")
+    log(f"train: build_default_encoder --smoke --steps {TOOL_STEPS} exited 0 after "
+        f"{time.perf_counter() - t_tool:.1f} s (beside the entry point run): "
+        f"{res['size_mb']} MB, held-out QA recall@10 trained "
+        f"{res['heldout_qa_recall@10/trained']}, tuned lexical weight "
+        f"{res['tuned_lexical_weight']}; its asset ({built.name}) encodes on {device}")
+    return out
+
+
+def fine_tune_entry(work, kernels, know, questions, passages, order, device, out):
+    """``EnhancedRAGSystem`` on ``device`` (int8 tier, capacity 4096) with
+    the corpus uploaded as phase 5 does: positive feedback on
+    ``FEEDBACK_PAIRS`` QA pairs, ``fine_tune_from_feedback``, then the
+    questions through ``query_batch``.  Returns ``fused_topk_int8``'s
+    launches in that query run."""
+    import torch
+
+    from modular_rag_system_tpu_torch import RAGConfig
+    from modular_rag_system_tpu_torch.facade import EnhancedRAGSystem
+
+    cfg = RAGConfig.load(overrides={"index.tier": "int8", "store.storage_path":
+                                    str(work / "fine_tune"), "serving.file_server_port": 0})
+    system = EnhancedRAGSystem(cfg, device=device, enable_llm=False)
+    try:
+        eng = system.engine
+        src = work / "fine_tune_files"
+        src.mkdir()
+        (src / "knowledge.txt").write_text("\n\n".join(know))
+        for i, p in enumerate(passages):
+            (src / f"qa_passage_{i:03d}.txt").write_text(p)
+        for f in sorted(src.iterdir()):
+            if system.add_file_from_path(str(f)) is None:
+                raise AssertionError(f"upload of {f} failed")
+        if eng.index.capacity != 4096 or eng.index.effective_tier() != "int8":
+            raise AssertionError("the fine-tune system's index should be int8 at capacity 4096")
+        dense = eng.encoder.dense
+        probe = questions[:32]
+        e_before = dense.encode(probe)
+        r_before = gold_recall(eng, questions, passages)
+        for i in order[:FEEDBACK_PAIRS]:
+            system.record_feedback(questions[i], "positive", matched_content=passages[i])
+        t = time.perf_counter()
+        metrics = system.fine_tune_from_feedback(steps=FEEDBACK_STEPS)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        live = sum(1 for _ in eng.store.iter_all())
+        log(f"train: fine_tune_from_feedback({FEEDBACK_STEPS} steps, {FEEDBACK_PAIRS} pairs) "
+            f"in {dt:.2f} s: {metrics}; {live} live rows")
+        if metrics is None or metrics["rows_reembedded"] != live or metrics["pairs"] != \
+                FEEDBACK_PAIRS or not math.isfinite(metrics["final_loss"]):
+            raise AssertionError(f"fine_tune_from_feedback: {metrics}")
+        # the serving encoder now runs the trainer's weights cast to bf16
+        e_after = dense.encode(probe)
+        moved = float(abs(e_after - e_before).max())
+        ref_module = dense.make_module()
+        ref_module.load_state_dict(system._trainer.params)
+        ids, mask = dense._crop_seq(*dense.tokenizer.encode_batch(probe))
+        with torch.inference_mode():
+            ref = ref_module(torch.from_numpy(ids).to(dense.device, torch.long),
+                             torch.from_numpy(mask).to(dense.device)).cpu().numpy()
+        gap = float(abs(e_after - ref).max())
+        log(f"train: serving embeddings moved by up to {moved:.3e}; against a module cast "
+            f"from the trainer's masters within {gap:.1e}")
+        if moved < 1e-3 or gap > 1e-6:
+            raise AssertionError(f"the serving encoder after the fine-tune: {moved} {gap}")
+        n = route_only(kernels, f"train: query_batch x{len(questions)} after the re-embedding",
+                       "fused_topk_int8", lambda: eng.query_batch(
+                           questions, max_results=10, similarity_threshold=0.0))
+        q = eng.embed_queries(questions)
+        for lo in range(0, len(questions), 256):
+            rec = check_against_exact(eng, q[lo:lo + 256], 10, 1e-5,
+                                      "train: the re-embedded index")
+            if rec != 1.0:
+                raise AssertionError(f"recall@10 {rec} against the exact tier after the fine-tune")
+        r_after = gold_recall(eng, questions, passages)
+        log(f"train: gold recall@10 {r_before:.4f} before the fine-tune, {r_after:.4f} after")
+        out.update(fine_tune_s=dt, gold=(r_before, r_after))
+        return n
+    finally:
+        system.shutdown()
+
+
 def phase(name, t0):
     log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     return time.perf_counter()
@@ -2286,6 +2575,11 @@ def smoke(work: Path) -> int:
     # ---- phase 5: the facade, the HTTP server, the lifecycle, the launcher
     entry_launches = entry_points(work, kernels, know, questions, passages)
     tp = phase("5 (entry points)", tp)
+
+    # ---- phase 6: the trainer, fine_tune_from_feedback, build_default_encoder
+    trained = train_phase(work, kernels, know, questions, passages, spec)
+    entry_launches["fine_tune"] = trained["fine_tune_launches"]
+    tp = phase("6 (train)", tp)
 
     out = []
     replaces = {"binmax_int8": "modular_rag_system_tpu/ops/binmax_topk.py:450",

@@ -94,6 +94,7 @@ class EnhancedRAGSystem:
         self.keystrokes: Optional[KeystrokeCapture] = None
         self.ocr = None
         self._training_pairs: List = []
+        self._trainer = None  # lazily built, cached ContrastiveTrainer
         self.batcher = None
         if capture_batch_size > 1:
             from modular_rag_system_tpu_torch.pipeline import MicroBatcher
@@ -281,9 +282,8 @@ class EnhancedRAGSystem:
         (query, document) pairs, publish the weights, and re-embed the
         whole corpus so stored vectors stay in the new embedding space.
         A capability with no reference analog: its embedders were frozen.
-        Returns None when too few pairs exist or the encoder isn't
-        trainable (fake/ollama backends); otherwise raises
-        ``NotImplementedError`` until the trainer is ported."""
+        Returns training metrics, or None when too few pairs exist or the
+        encoder isn't trainable (fake/ollama backends)."""
         from modular_rag_system_tpu_torch.models.encoder import MiniLMEncoder
         from modular_rag_system_tpu_torch.models.lexical import HybridEncoder
 
@@ -297,11 +297,30 @@ class EnhancedRAGSystem:
             enc = enc.dense
         if len(pairs) < min_pairs or not isinstance(enc, MiniLMEncoder):
             return None
-        # the trainer is not ported: say so rather than return a result
-        # that no training produced
-        raise NotImplementedError(
-            "fine_tune_from_feedback needs the contrastive trainer, which is "
-            "not ported yet (ROADMAP section 1, the ContrastiveTrainer item)")
+        from modular_rag_system_tpu_torch.models.train import ContrastiveTrainer
+
+        # one trainer per facade keeps the optimizer moments warm across
+        # feedback rounds; a new learning rate builds a new one, which
+        # starts from the encoder's published weights
+        trainer = self._trainer
+        if trainer is None or trainer.learning_rate != learning_rate:
+            trainer = ContrastiveTrainer(enc, learning_rate=learning_rate)
+            self._trainer = trainer
+        qs = [q for q, _ in pairs]
+        ps = [p for _, p in pairs]
+        loss = acc = 0.0
+        for _ in range(steps):
+            loss, acc = trainer.step(qs, ps)
+        trainer.sync_encoder()
+        rebuilt = self.engine.reembed_all()
+        self._training_pairs.clear()
+        return {
+            "pairs": len(pairs),
+            "steps": steps,
+            "final_loss": float(loss),
+            "final_in_batch_acc": float(acc),
+            "rows_reembedded": rebuilt,
+        }
 
     # ------------------------------------------------------------------
     def get_system_stats(self) -> Dict[str, Any]:

