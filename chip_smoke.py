@@ -46,7 +46,17 @@ Phases (any failure exits non-zero and prints no result line):
    with ``index.ivf_fine_dtype="int4"``: the packed fine copy at half the
    int8 copy's bytes, the route at Q = 128, the refusal of Q = 256 (its
    rescore gather passes 1 GiB), and the int4 mode of the three fine
-   kernels at the engine's own lists;
+   kernels at the engine's own lists; then phase 4e, the sharded index:
+   ``create_engine`` with ``mesh.index_shards=4`` and
+   ``index_devices=[cuda:0] * 4`` over the 1,939 text rows
+   (``fused_topk_int8`` once a shard and search), the 5,636,096-row
+   snapshot restored into 4 shards (the ivf tier warm-started per shard
+   with an int8 fine copy, ``fine_scores`` once a shard; the k = 100
+   batch exact per shard, no kernel; the filtered deep refill through
+   ``search_deep``; a cold sharded build with ``kmeans_fit_sharded``
+   timed) and into a 2 x 2 layout with ``index.tier="int8"``
+   (``binmax_int8`` once a shard); each route held against an exact
+   reference that is each shard's exact top-k merged by this script;
 5. entry points: ``EnhancedRAGSystem`` on the card (bundled hybrid
    encoder, ``index.tier="auto"``, its own storage) ingests the bundled
    knowledge sentences and QA passages as uploaded text files; the HTTP
@@ -1486,7 +1496,7 @@ def exact_refill(eng, questions):
         _check_topk(v1, i1, v2, i2,
                     lambda qi, rows: (qd[qi] * E[rows].double()).sum(1), False,
                     f"exact top-k (blocks) at Q={q.shape[0]}, k={k}, vs 16 queries a call")
-    return peak - resident, peak
+    return dt
 
 
 def fill(eng, g, target):
@@ -1709,6 +1719,263 @@ def int4_route(storage, kernels, V, questions, passages, spec, rec_int8, r_full,
     log(f"peak device memory since the exact refill "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     eng.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: the sharded index, 4 shards on the one card
+SHARDS = 4
+
+
+def _live_s(idx, s):
+    return max(0, (idx.count - s + idx.S - 1) // idx.S)
+
+
+def sharded_exact(idx, q, k):
+    """The exact top-k over a sharded index without the package's merge:
+    each shard's exact top-k (``exact_topk_raw`` over its live rows, at
+    the same queries as the route, so the same arithmetic), merged here by
+    two stable sorts (global id, then score descending) -> (vals, gids
+    int64) on q's device."""
+    import torch
+
+    from modular_rag_system_tpu_torch.ops.exact import exact_topk_raw
+
+    S, vals, gids = idx.S, [], []
+    for s, E_s in enumerate(idx.E):
+        v, r = exact_topk_raw(E_s, _live_s(idx, s), q.to(E_s.device), min(k, idx.cap_s))
+        vals.append(v.to(q.device))
+        gids.append(torch.where(torch.isfinite(v), r.long() * S + s, 2**62).to(q.device))
+    v, g = torch.cat(vals, 1), torch.cat(gids, 1)
+    o = torch.argsort(g, dim=1, stable=True)
+    v, g = v.gather(1, o), g.gather(1, o)
+    o = torch.argsort(v, dim=1, descending=True, stable=True)[:, :k]
+    return v.gather(1, o), g.gather(1, o)
+
+
+def sharded_rows(idx, gids):
+    """The master rows of global ids (Q, k) -> (Q, k, d) f32."""
+    import torch
+
+    g = gids.long().clamp(min=0)
+    rows = torch.empty(g.shape + (idx.dim,), dtype=torch.float32, device=g.device)
+    for s, E_s in enumerate(idx.E):
+        m = g % idx.S == s
+        rows[m] = E_s[(g[m] // idx.S).to(E_s.device)].float().to(g.device)
+    return rows
+
+
+def check_sharded(eng, q, k, tol, what, equal=False):
+    """The sharded route's top-k (through the index's own protocol, as the
+    engine calls it) against ``sharded_exact``: recall@k, and the returned
+    scores against the exact f32 scores of the returned rows; with
+    ``equal`` the ids and scores must equal the reference's."""
+    import torch
+
+    idx = eng.index
+    with idx._lock:
+        vals, gids = idx.search_core(k)(idx.search_ops(k), idx.count, q)
+        ev, eg = sharded_exact(idx, q, k)
+        got = torch.bmm(sharded_rows(idx, gids), q.unsqueeze(2)).squeeze(2)
+    recall = sum(len(set(a) & set(b)) for a, b in
+                 zip(gids.tolist(), eg.tolist())) / eg.numel()
+    fin = torch.isfinite(vals)
+    err = (got[fin] - vals[fin]).abs().max().item()
+    if err > tol:
+        raise AssertionError(f"{what}: scores differ from exact scores by {err} > {tol}")
+    if equal and not (torch.equal(gids.long(), eg) and torch.equal(vals, ev)):
+        raise AssertionError(f"{what}: ids or scores differ from the exact reference")
+    log(f"{what} vs the exact reference: recall@{k} {recall:.4f}, returned scores within "
+        f"{err:.2e} of exact{', ids and scores equal' if equal else ''}")
+    return recall
+
+
+def drive_shards(kernels, name, expect, fn, calls):
+    """``drive``, and the route launched ``expect`` once per shard and search."""
+    n = drive(kernels, name, expect, fn)
+    if n != SHARDS * calls:
+        raise AssertionError(f"route {name}: {n} {expect} launches, expected "
+                             f"{SHARDS} shards x {calls} searches")
+    return n
+
+
+def sharded_refill(eng, questions, single_s):
+    """Phase 4b''s filtered Q=256 batch on the sharded index: the deep
+    refill reaches k = 1,200 and 16,384 through ``search_deep`` (exact per
+    shard, then the merge); each call's ids and scores held equal to
+    ``sharded_exact``'s at the same queries."""
+    import numpy as np
+    import torch
+
+    idx, calls, raw = eng.index, [], eng.index.search_deep
+
+    def spy(q, k):
+        out = raw(q, k)
+        calls.append((q, k, out))
+        return out
+
+    idx.search_deep = spy
+    t0 = time.perf_counter()
+    try:
+        res = eng.query_batch(questions[:256], max_results=300, source_filters=["qa"],
+                              similarity_threshold=0.0)
+    finally:
+        del idx.search_deep
+    dt = time.perf_counter() - t0
+    log(f"sharded exact refill (Q={len(res)}, source filter 'qa', max_results 300): "
+        f"search_deep calls (Q, k) {[(c[0].shape[0], c[1]) for c in calls]}, {dt:.1f} s "
+        f"(single-device exact refill, phase 4b': {single_s:.1f} s); matches returned per "
+        f"query {min(len(r.documents) for r in res)}..{max(len(r.documents) for r in res)}")
+    if not any(q.shape[0] == 256 and k >= 16384 for q, k, _ in calls):
+        raise AssertionError("the filtered batch did not reach search_deep at k = 16,384")
+    for q, k, (v, g) in calls:
+        ev, eg = sharded_exact(idx, torch.as_tensor(q, device=idx.device), k)
+        if not (np.array_equal(g, eg.cpu().numpy()) and np.array_equal(v, ev.cpu().numpy())):
+            raise AssertionError(f"search_deep at Q={q.shape[0]}, k={k}: ids or scores "
+                                 f"differ from the exact reference")
+    log(f"  every search_deep call's ids and scores equal the exact reference's")
+    return dt
+
+
+def sharded_phase(work, storage, kernels, know, questions, passages, r_ivf, refill_s,
+                  device="cuda"):
+    """Phase 4e: ``RAGEngine`` over a ``ShardedIndex`` of 4 shards on the
+    one card (``index_devices=[cuda:0] * 4``): (i) the 1,939 text rows
+    (int8 single-pass per shard); (ii) phase 4's 5,636,096-row snapshot
+    restored with ``tier="auto"`` (the ivf tier, warm-started per shard
+    with an int8 fine copy; the k = 100 batch exact per shard; the
+    filtered deep refill; a cold rebuild); (iii) the same snapshot in a
+    2 x 2 hierarchical layout with ``tier="int8"`` (two-pass per shard).
+    Each engine is freed before the next: the master alone is 25.8 GB."""
+    import torch
+
+    from modular_rag_system_tpu_torch import RAGConfig, create_engine
+    from modular_rag_system_tpu_torch.ops import kmeans as KM
+    from modular_rag_system_tpu_torch.parallel.sharded import ShardedIndex
+    from modular_rag_system_tpu_torch.types import Document
+
+    devs = [torch.device(device)] * SHARDS
+    shard_launches = {}
+
+    def free(eng):
+        eng.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- 4e-i: the text rows, cap_s 1,024 per shard
+    cfg = RAGConfig.load(overrides={"index.tier": "auto", "mesh.index_shards": SHARDS,
+                                    "store.storage_path": str(work / "sharded_small")})
+    eng = create_engine(cfg, device=device, index_devices=devs)
+    eng.add_documents([Document(content=t, source="knowledge") for t in know])
+    for p in passages:
+        eng.add_text(p, source="qa")
+    idx = eng.index
+    if not isinstance(idx, ShardedIndex) or idx.S != SHARDS or idx.cap_s != 1024:
+        raise AssertionError(f"expected 4 shards of 1,024 rows, got {idx.capacity}")
+    shard_launches["fused_topk_int8"] = drive_shards(
+        kernels, "sharded single-pass (4 shards)", "fused_topk_int8",
+        lambda: (eng.query_batch(questions[:256], similarity_threshold=0.0),
+                 eng.query(questions[0], similarity_threshold=0.0)), 2)
+    rec = check_sharded(eng, eng.embed_queries(questions[:256]), 10, 1e-5,
+                        f"sharded single-pass route ({idx.count} rows, 4 shards)")
+    if rec != 1.0:
+        raise AssertionError(f"sharded single-pass recall@10 {rec} != 1.0")
+    query_breakdown(eng, questions, "sharded single-pass route (4 shards)")
+    free(eng)
+    del eng, idx
+
+    # ---- 4e-ii: the 5,636,096-row snapshot, tier auto (ivf)
+    torch.cuda.reset_peak_memory_stats()
+    over = {"index.tier": "auto", "mesh.index_shards": SHARDS, "store.storage_path": storage,
+            "store.snapshot_on_shutdown": False}
+    t0 = time.perf_counter()
+    eng = create_engine(RAGConfig.load(overrides=over), device=device, index_devices=devs)
+    idx, iv = eng.index, eng.index._ivf2
+    log(f"sharded restore ({SHARDS} shards) from the {REBUILD_ROWS}-row snapshot: "
+        f"{time.perf_counter() - t0:.1f} s (ivf build {idx.ivf_last_build_s:.1f} s), cap_s "
+        f"{idx.cap_s}; ivf stats {eng.get_system_stats()['index']['ivf']}")
+    if (idx.count != REBUILD_ROWS or iv is None or not iv.warm_started
+            or iv.fine_dtype != "int8" or iv.built != REBUILD_ROWS):
+        raise AssertionError("the sharded restore did not warm-start an int8 ivf build")
+    q256 = eng.embed_queries(questions[:256])
+    shard_launches["fine_scores"] = drive_shards(
+        kernels, "sharded ivf (int8, 4 shards)", "fine_scores",
+        lambda: (eng.query_batch(questions[:256], similarity_threshold=0.0),
+                 eng.query(questions[0], similarity_threshold=0.0)), 2)
+    rec = check_sharded(eng, q256, 10, 1e-5, "sharded ivf route (int8 fine copy)")
+    if rec < 0.9:
+        raise AssertionError(f"sharded ivf recall@10 {rec} below the 0.9 floor")
+    r_sh = gold_recall(eng, questions, passages)
+    log(f"sharded ivf route: gold recall@10 {r_sh:.4f} (single-device ivf route {r_ivf:.4f})")
+    if abs(r_sh - r_ivf) > 0.05:
+        raise AssertionError(f"sharded gold recall {r_sh} vs the single-device {r_ivf}")
+    lat1, qps = query_timings(eng, questions)
+    query_breakdown(eng, questions, "sharded ivf route (4 shards)")
+    log(f"sharded ivf route at {idx.count} rows: Q=1 latency {lat1:.2f} ms, Q=256 "
+        f"{qps:.1f} QPS")
+    # k = 2 x 50 > 64: exact per shard, no kernel
+    kernels.reset_launches()
+    eng.query_batch(questions[:256], max_results=50, similarity_threshold=0.0)
+    if any(kernels.launches.values()):
+        raise AssertionError(f"the k = 100 batch launched {dict(kernels.launches)}")
+    log("route sharded ivf k=100 (exact per shard): no kernel launched")
+    check_sharded(eng, q256, 100, 1e-5, "sharded k=100 route", equal=True)
+    sharded_refill(eng, questions, refill_s)
+    # a cold rebuild: global k-means over the shards, then the fills
+    km_s, raw = [], KM.kmeans_fit_sharded
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = raw(*a, **kw)
+        torch.cuda.synchronize()
+        km_s.append(time.perf_counter() - t)
+        return out
+
+    KM.kmeans_fit_sharded = timed
+    try:
+        idx.build_ann()
+    finally:
+        KM.kmeans_fit_sharded = raw
+    iv = idx._ivf2
+    log(f"sharded cold build: kmeans_fit_sharded {sum(km_s):.2f} s ({len(km_s)} calls: "
+        f"{idx.ivf_iters} iterations, then 3 a balance round), whole build "
+        f"{idx.ivf_last_build_s:.2f} s; {iv.n_clusters} clusters, int8 fine copy "
+        f"{iv.fine_bytes() / 1e9:.2f} GB")
+    if iv.warm_started or not km_s:
+        raise AssertionError("the cold build did not run k-means")
+    drive_shards(kernels, "sharded ivf after the cold build", "fine_scores",
+                 lambda: eng.query_batch(questions[:256], similarity_threshold=0.0), 1)
+    rec = check_sharded(eng, q256, 10, 1e-5, "sharded ivf route (cold build)")
+    if rec < 0.9:
+        raise AssertionError(f"sharded ivf recall@10 after the cold build {rec} < 0.9")
+    log(f"peak device memory in 4e-ii {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    free(eng)
+    del eng, idx, iv
+
+    # ---- 4e-iii: 2 x 2 hierarchical, tier int8 (two-pass per shard)
+    over = {**over, "index.tier": "int8", "mesh.dcn_slices": 2}
+    t0 = time.perf_counter()
+    eng = create_engine(RAGConfig.load(overrides=over), device=device, index_devices=devs)
+    idx = eng.index
+    log(f"sharded restore, 2 x 2 layout, tier int8: {time.perf_counter() - t0:.1f} s, cap_s "
+        f"{idx.cap_s}")
+    cap_s = 1 << ((REBUILD_ROWS + SHARDS - 1) // SHARDS - 1).bit_length()  # 2,097,152
+    if not idx.hierarchical or idx.cap_s != cap_s:
+        raise AssertionError("expected a 2 x 2 layout of 2,097,152-row shards")
+    shard_launches["binmax_int8"] = drive_shards(
+        kernels, "sharded two-pass (2 x 2)", "binmax_int8",
+        lambda: (eng.query_batch(questions[:256], similarity_threshold=0.0),
+                 eng.query(questions[0], similarity_threshold=0.0)), 2)
+    rec = check_sharded(eng, eng.embed_queries(questions[:256]), 10, 1e-5,
+                        "sharded two-pass route (2 x 2)")
+    if rec != 1.0:
+        raise AssertionError(f"sharded two-pass recall@10 {rec} != 1.0")
+    query_breakdown(eng, questions, "sharded two-pass route (2 x 2)")
+    lat1, qps = query_timings(eng, questions)
+    log(f"sharded two-pass route (2 x 2) at {idx.count} rows: Q=1 latency {lat1:.2f} ms, "
+        f"Q=256 {qps:.1f} QPS")
+    free(eng)
+    return shard_launches
 
 
 # phase 5: the entry points
@@ -2535,7 +2802,7 @@ def smoke(work: Path) -> int:
 
     # the deep filtered refill: exact top-k per row block at Q=256 (the
     # peak counter restarts here)
-    exact_refill(eng2, questions)
+    refill_s = exact_refill(eng2, questions)
     tp = phase("4b' (the exact path at Q=256)", tp)
 
     # restart: the snapshot's clustering warm-starts the rebuild
@@ -2570,7 +2837,14 @@ def smoke(work: Path) -> int:
     # ---- phase 4d: the same snapshot served with an int4 fine copy
     int4_route(storage, kernels, V, questions, passages, spec, rec_int8, r_full,
                int8_fine_bytes, entries4, launches4, errs4)
+    gc.collect()
+    torch.cuda.empty_cache()
     tp = phase("4d (int4 restart, int4 fine kernels)", tp)
+
+    # ---- phase 4e: the sharded index (4 shards on the card)
+    shard_launches = sharded_phase(work, storage, kernels, know, questions, passages,
+                                   r_ivf, refill_s)
+    tp = phase("4e (sharded index)", tp)
 
     # ---- phase 5: the facade, the HTTP server, the lifecycle, the launcher
     entry_launches = entry_points(work, kernels, know, questions, passages)
@@ -2598,6 +2872,8 @@ def smoke(work: Path) -> int:
                  "max_abs_err": errs[kname], **entries[kname]}
         if kname == "fused_topk_int8":  # its launches through the entry points
             entry["entry_points_launches"] = entry_launches
+        if kname in shard_launches:  # per shard on the sharded routes (phase 4e)
+            entry["sharded_launches"] = shard_launches[kname]
         if kname in entries4:  # the same source's int4 mode, on the int4 route
             entry["int4"] = {"launches": launches4[kname], "max_abs_err": errs4[kname],
                              **entries4[kname]}

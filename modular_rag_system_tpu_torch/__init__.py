@@ -36,8 +36,9 @@ def __getattr__(name):
     raise AttributeError(name)
 
 
-def create_engine(config=None, device="cuda"):
-    """Build a ``RAGEngine`` on ``device``."""
+def create_engine(config=None, device="cuda", index_devices=None):
+    """Build a ``RAGEngine`` on ``device``; ``index_devices`` lists the
+    shards' devices of a sharded index (``mesh.index_shards > 1``)."""
     from modular_rag_system_tpu_torch.engine import RAGEngine
 
-    return RAGEngine(config, device=device)
+    return RAGEngine(config, device=device, index_devices=index_devices)

@@ -130,8 +130,9 @@ class ServingConfig:
 
 @dataclass
 class MeshConfig:
-    """Sharded / multihost layout (not ported yet: values other than the
-    single-device defaults raise in the engine)."""
+    """Sharded / multihost layout: ``index_shards > 1`` builds a
+    ``ShardedIndex`` (``dcn_slices > 1``: its two-level merge); multihost
+    is not ported yet and raises in the engine."""
 
     index_shards: int = 1
     dcn_slices: int = 1

@@ -8,7 +8,11 @@ document store resolves the rows.  Behaviour follows the JAX package's
 ``RAGEngine``: recent-context deque, rolling retrieval-time stats,
 overfetch-and-refill under filters, positional restore with tombstones,
 the enhanced-context builder and the lifecycle methods (retention
-cleanup, compaction, re-embedding, gzip JSON export).
+cleanup, compaction, re-embedding, gzip JSON export).  With
+``mesh.index_shards > 1`` the index is a ``ShardedIndex``
+(``parallel/sharded.py``) over the devices ``index_devices`` lists (by
+default one card a shard), and the engine's device runs the encoder and
+the merge.
 
 Threads: queries run from several threads at once (the HTTP server's
 query batcher flushes concurrently).  Each query searches one index
@@ -38,6 +42,11 @@ from modular_rag_system_tpu_torch.models import build_encoder
 from modular_rag_system_tpu_torch.models.encoder import MiniLMEncoder
 from modular_rag_system_tpu_torch.models.lexical import HybridEncoder
 from modular_rag_system_tpu_torch.ops import exact as exact_ops
+from modular_rag_system_tpu_torch.parallel.mesh import (
+    make_hierarchical_index_mesh,
+    make_index_mesh,
+)
+from modular_rag_system_tpu_torch.parallel.sharded import ShardedIndex
 from modular_rag_system_tpu_torch.store import DocumentStore
 from modular_rag_system_tpu_torch.types import Document, Query, RetrievalResult, as_matrix
 from modular_rag_system_tpu_torch.utils.device import resolve_device
@@ -68,14 +77,29 @@ _STOPWORDS = frozenset(
 
 
 class RAGEngine:
-    def __init__(self, config: Optional[RAGConfig] = None, device="cuda") -> None:
+    def __init__(self, config: Optional[RAGConfig] = None, device="cuda",
+                 index_devices: Optional[Sequence] = None) -> None:
+        """``index_devices``: the shards' devices when ``mesh.index_shards
+        > 1`` (may repeat a device; default ``cuda:0`` .. ``cuda:S-1``, or
+        S copies of ``cpu`` on the CPU)."""
         self.config = config or RAGConfig()
-        mesh = self.config.mesh
-        if mesh.multihost or mesh.index_shards > 1 or mesh.dcn_slices > 1:
+        mc = self.config.mesh
+        if mc.multihost:
             raise NotImplementedError(
-                "sharded and multihost index layouts are not ported yet "
-                "(ROADMAP: sharded index over torch.distributed, multihost)")
+                "multihost index layouts are not ported yet (ROADMAP section 1, "
+                "item 1: multihost over torch.distributed)")
         self.device = resolve_device(device)
+        # the shards' layout first: too few cards raises before any build
+        shard_mesh = None
+        if mc.index_shards > 1:
+            if mc.dcn_slices > 1:
+                if mc.index_shards % mc.dcn_slices:
+                    raise ValueError(f"index_shards ({mc.index_shards}) must divide by "
+                                     f"dcn_slices ({mc.dcn_slices})")
+                shard_mesh = make_hierarchical_index_mesh(
+                    mc.dcn_slices, mc.index_shards // mc.dcn_slices, index_devices, self.device)
+            else:
+                shard_mesh = make_index_mesh(mc.index_shards, index_devices, self.device)
         self.encoder = build_encoder(self.config, device=self.device)
         # the index is sized from the ENCODER's dim (a hybrid encoder is
         # wider than embedding.dim); the config is not written back
@@ -87,8 +111,13 @@ class RAGEngine:
         )
         self.store = DocumentStore(self.config.store.storage_path)
         ic = self.config.index
-        self.index = DeviceIndex(dim=self.embed_dim, capacity=ic.initial_capacity,
-                                 device=self.device, **_index_tier_kwargs(ic))
+        if shard_mesh is not None:
+            self.index = ShardedIndex(dim=self.embed_dim, mesh=shard_mesh,
+                                      capacity=ic.initial_capacity, device=self.device,
+                                      **_index_tier_kwargs(ic))
+        else:
+            self.index = DeviceIndex(dim=self.embed_dim, capacity=ic.initial_capacity,
+                                     device=self.device, **_index_tier_kwargs(ic))
         self.recent_context: deque = deque(
             maxlen=self.config.retrieval.recent_context_size)
         self.query_stats: Dict[str, float] = {
@@ -299,14 +328,19 @@ class RAGEngine:
         wl = math.sqrt(self.encoder.weight)
         return torch.cat([wd * q, wl * lex], dim=1)
 
-    def _device_query(self, index: DeviceIndex, texts: List[str], k: int):
+    def _device_query(self, index, texts: List[str], k: int):
         """Encode and search ``index`` on the device -> (scores, rows)
         numpy (Q, k), or None when the encoder has no device forward."""
         q = self.embed_queries(texts)
         if q is None:
             return None
         with index._lock:
-            vals, rows = index.search_core(k)(index.search_ops(), index.count, q)
+            if isinstance(index, ShardedIndex):
+                # past cap_s the deep route serves k; only S * cap_s bounds it
+                k = min(k, index.capacity)
+                vals, rows = index.search_core(k)(index.search_ops(k), index.count, q)
+            else:
+                vals, rows = index.search_core(k)(index.search_ops(), index.count, q)
         return vals.cpu().numpy(), rows.cpu().numpy()
 
     # kernel-path refills stop at _REFILL_KERNEL_MAX; one final deep pass
@@ -321,11 +355,15 @@ class RAGEngine:
             return min(self._REFILL_EXACT_MAX, self.index.count)
         return None
 
-    def _search_batch(self, index: DeviceIndex, texts: List[str], k: int):
+    def _search_batch(self, index, texts: List[str], k: int):
         """(scores (Q,k), rows (Q,k), q_emb (Q,d) or None) from ``index``."""
         if k > self._REFILL_KERNEL_MAX:
-            # deep filtered refill: exact path, any k
+            # deep filtered refill: exact path, any k (on a sharded index,
+            # exact per shard and the merge)
             q_emb = np.asarray(self.encoder.encode_queries(texts))
+            if isinstance(index, ShardedIndex):
+                scores, rows = index.search_deep(q_emb, min(k, index.count))
+                return scores, rows, q_emb
             with index._lock:
                 scores, rows = exact_ops.exact_topk_raw(
                     index.E, index.count,
@@ -526,10 +564,13 @@ class RAGEngine:
         with self._write_lock:
             return self._compact_locked()
 
-    def _rebuilt_index(self, capacity: int) -> DeviceIndex:
-        """A fresh single-device index with the current one's knobs."""
-        return DeviceIndex(dim=self.index.dim, capacity=max(capacity, 4096),
-                           device=self.device, **_index_tier_kwargs(self.index))
+    def _rebuilt_index(self, capacity: int):
+        """A fresh index of the current one's kind, devices and knobs."""
+        kw = dict(dim=self.index.dim, capacity=max(capacity, 4096), device=self.device,
+                  **_index_tier_kwargs(self.index))
+        if isinstance(self.index, ShardedIndex):
+            return ShardedIndex(mesh=self.index.mesh, **kw)
+        return DeviceIndex(**kw)
 
     def _compact_locked(self) -> int:
         before = self.index.count
@@ -599,7 +640,7 @@ class RAGEngine:
         }
 
     @staticmethod
-    def _ivf_stats(index: DeviceIndex) -> Optional[Dict[str, Any]]:
+    def _ivf_stats(index) -> Optional[Dict[str, Any]]:
         """The ivf structure's state (None before a build): clustered vs
         exact-tail rows, drift since the build, rebuilds, fine-copy bytes."""
         with index._lock:

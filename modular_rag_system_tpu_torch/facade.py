@@ -48,6 +48,7 @@ class EnhancedRAGSystem:
         capture_batch_size: int = 1,
         enable_llm: bool = True,
         device="cuda",
+        index_devices=None,
     ) -> None:
         """``capture_batch_size > 1`` routes capture callbacks through a
 
@@ -55,9 +56,10 @@ class EnhancedRAGSystem:
         semantics: flush at batch_size or 30 s); the default is immediate
         per-callback ingest.  ``enable_llm=False`` skips LLM probing
         entirely (hermetic tests / air-gapped deployments).  ``device`` is
-        the engine's (``"cuda"``, or ``"cpu"`` when asked for)."""
+        the engine's (``"cuda"``, or ``"cpu"`` when asked for);
+        ``index_devices`` the shards' of a sharded index."""
         self.config = config or RAGConfig()
-        self.engine = RAGEngine(self.config, device=device)
+        self.engine = RAGEngine(self.config, device=device, index_devices=index_devices)
         self.pipeline = EmbeddingPipeline(
             self.engine.encoder,
             self.engine.chunker,

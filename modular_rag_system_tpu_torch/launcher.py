@@ -40,7 +40,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--encoder", default=None, choices=["auto", "minilm", "fake"],
                    help="encoder override")
     p.add_argument("--shards", type=int, default=None,
-                   help="index mesh shards (not ported yet beyond 1)")
+                   help="index shards, one card each (cuda:0 .. cuda:N-1); "
+                        "with --device cpu, N shards on the CPU")
     p.add_argument("--multihost", action="store_true",
                    help="multi-host index layout (not ported yet: the "
                         "engine raises NotImplementedError)")

@@ -24,7 +24,8 @@ from modular_rag_system_tpu_torch import RAGConfig, create_engine
 from modular_rag_system_tpu_torch.types import Document
 
 _TRAIN = Path(__file__).resolve().parents[1] / "modular_rag_system_tpu" / "assets" / "train"
-KNOWLEDGE = json.loads((_TRAIN / "knowledge.json").read_text())["sentences"][:200]
+KNOWLEDGE_ALL = json.loads((_TRAIN / "knowledge.json").read_text())["sentences"]
+KNOWLEDGE = KNOWLEDGE_ALL[:200]
 QUERIES = [it["query"] for it in json.loads((_TRAIN / "qa_pairs.json").read_text())["items"][:6]]
 
 
@@ -103,10 +104,175 @@ def test_delete_readd_and_restart(tmp_path):
     _assert_same(before, eng2.query_batch(QUERIES, max_results=3))
 
 
-@pytest.mark.parametrize("extra", [{"mesh.index_shards": 2}, {"mesh.multihost": True}])
+@pytest.mark.parametrize("extra", [{"mesh.multihost": True, "mesh.index_shards": 2},
+                                   {"mesh.multihost": True}])
 def test_unported_configurations_raise(tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # multihost is still queued (ROADMAP section 1), also with shards
+    with pytest.raises(NotImplementedError, match="not ported.*multihost"):
         _port(tmp_path, **extra)
+
+
+# ---------------------------------------------------------------- sharded
+def _fake(path, **extra):
+    return {"embedding.model": "fake", "embedding.dim": 384, "store.storage_path": str(path),
+            "retrieval.similarity_threshold": 0.0, "retrieval.time_weight": 0.0, **extra}
+
+
+def _fields(results):
+    """query_batch results as JSON-like fields (``assert_same_fields``)."""
+    return [{"ids": [d.id for d in r.documents], "sources": [d.source for d in r.documents],
+             "similarities": list(r.similarities),
+             "total_documents_searched": r.total_documents_searched} for r in results]
+
+
+def _sharded_pair(tmp_path, shards, **extra):
+    """The JAX engine with ``mesh.index_shards`` on the 8 virtual CPU
+    devices, and the port's with the same shards on the CPU."""
+    from modular_rag_system_tpu.parallel.sharded import ShardedIndex as JaxSharded
+    from modular_rag_system_tpu_torch.parallel.sharded import ShardedIndex
+
+    over = _fake(tmp_path / "jax", **{"mesh.index_shards": shards, **extra})
+    jeng = JaxEngine(JaxConfig.load(overrides=over))
+    over = _fake(tmp_path / "port", **{"mesh.index_shards": shards, **extra})
+    peng = create_engine(RAGConfig.load(overrides=over), device="cpu")
+    assert isinstance(jeng.index, JaxSharded) and isinstance(peng.index, ShardedIndex)
+    assert peng.index.S == jeng.index.S == shards
+    return jeng, peng
+
+
+_CORPUS = [(t, ["animals", "tech", "finance"][i % 3]) for i, t in enumerate(KNOWLEDGE[:120])]
+_QUESTIONS = ["programming language machine learning", "household pets", "stock market",
+              *QUERIES[:3]]
+
+
+@pytest.mark.parametrize("shards", [2, 8])
+def test_sharded_engine_parity_with_jax(tmp_path, shards):
+    from tests.torch_parity import assert_same_fields
+
+    jeng, peng = _sharded_pair(tmp_path, shards, **{"index.tier": "exact"})
+    for eng, Doc in ((jeng, JaxDocument), (peng, Document)):
+        eng.add_documents([Doc(content=t, source=src) for t, src in _CORPUS])
+    assert peng.index.count == jeng.index.count == len(_CORPUS)
+
+    def both(**kw):
+        assert_same_fields(_fields(jeng.query_batch(_QUESTIONS, **kw)),
+                           _fields(peng.query_batch(_QUESTIONS, **kw)))
+
+    both(max_results=5)
+    both(max_results=3, source_filters=["finance"])
+    # a filter that few rows pass, asking 300 results: k = 1,200 > 1,024
+    # from the first pass, so the deep refill serves it through
+    # search_deep (exact per shard + the merge), then deepens to count
+    for eng, Doc in ((jeng, JaxDocument), (peng, Document)):
+        eng.add_documents([Doc(content=t, source="filler") for t in KNOWLEDGE_ALL[120:1320]])
+        eng.add_documents([Doc(content=f"rare note {i}", source="rare") for i in range(3)])
+    both(max_results=300, source_filters=["rare"])
+    assert_same_fields(jeng.get_system_stats()["index"]["count"],
+                       peng.get_system_stats()["index"]["count"])
+    # the lifecycle rebuilds a sharded index of the same layout
+    for eng in (jeng, peng):
+        eng.store.delete_ids([eng.store.get_by_rows([4])[0].id])
+        eng.index.delete_rows(np.array([4]))
+    assert peng.compact() == jeng.compact() == 1
+    assert peng.index.S == shards and peng.index.devices == [torch.device("cpu")] * shards
+    both(max_results=5)
+    assert peng.reembed_all() == jeng.reembed_all()
+    both(max_results=300, source_filters=["rare"])
+    jeng.shutdown()
+    peng.shutdown()
+
+
+def test_sharded_engine_bundled_encoder(tmp_path, monkeypatch):
+    # the device query path (embed, then each shard's search and the
+    # merge) with the bundled encoder: 2 shards of capacity 2048, the
+    # int8 single-pass route on each, against the JAX engine
+    from modular_rag_system_tpu_torch import index as pindex
+
+    extra = {"mesh.index_shards": 2}
+    jeng = JaxEngine(JaxConfig.load(overrides={**_overrides(tmp_path / "jax"), **extra}))
+    peng = _port(tmp_path / "port", **extra)
+    jeng.add_documents([JaxDocument(content=t) for t in KNOWLEDGE])
+    peng.add_documents([Document(content=t) for t in KNOWLEDGE])
+    called = []
+    fn = pindex.fused_topk_int8_raw
+    monkeypatch.setattr(pindex, "fused_topk_int8_raw",
+                        lambda *a, **kw: called.append(1) or fn(*a, **kw))
+    _assert_same(jeng.query_batch(QUERIES, max_results=5),
+                 peng.query_batch(QUERIES, max_results=5))
+    _assert_same([jeng.query(QUERIES[0])], [peng.query(QUERIES[0])])
+    assert len(called) == 4  # once per shard and call
+    assert peng.get_system_stats()["index"]["effective_tier"] == "int8"
+
+
+def test_sharded_engine_ivf_parity_with_jax(tmp_path):
+    # test_engine.py's ivf-with-shards case: 8 shards, the ivf tier built
+    # from the write path, the same answers as the JAX engine; then the
+    # tier knobs survive compact and reembed_all on both index kinds
+    from tests.torch_parity import assert_same_fields
+
+    ivf = {"index.tier": "ivf", "index.ivf_clusters": 8, "index.ivf_nprobe": 8,
+           "index.ivf_rebuild_min": 64, "index.ivf_iters": 4, "index.ivf_refine_extra": 7}
+    jeng, peng = _sharded_pair(tmp_path, 8, **ivf)
+    for eng, Doc in ((jeng, JaxDocument), (peng, Document)):
+        eng.add_documents([Doc(content=t, source=src) for t, src in _CORPUS])
+    assert peng.index._ivf2 is not None and jeng.index._ivf2 is not None
+    np.testing.assert_allclose(peng.index._ivf2.shards[0].centroids.numpy(),
+                               np.asarray(jeng.index._ivf2.centroids), rtol=0, atol=1e-5)
+    assert_same_fields(_fields(jeng.query_batch(_QUESTIONS, max_results=5)),
+                       _fields(peng.query_batch(_QUESTIONS, max_results=5)))
+    assert_same_fields(jeng.get_system_stats()["index"]["ivf"],
+                       peng.get_system_stats()["index"]["ivf"])
+    jeng.shutdown()
+    peng.shutdown()
+    for shards in (1, 8):
+        eng = create_engine(RAGConfig.load(overrides=_fake(
+            tmp_path / f"knobs{shards}", **ivf, **{"mesh.index_shards": shards})), device="cpu")
+        eng.add_documents([Document(content=t, source=src) for t, src in _CORPUS[:40]])
+        for where in ("init", "compact", "reembed"):
+            if where == "compact":
+                eng.compact()
+            elif where == "reembed":
+                eng.reembed_all()
+            for key in ("ivf_clusters", "ivf_nprobe", "ivf_iters", "ivf_refine_extra"):
+                assert getattr(eng.index, key) == getattr(eng.config.index, key), (where, key)
+            assert type(eng.index).__name__ == ("ShardedIndex" if shards > 1 else "DeviceIndex")
+        assert eng.query("household pets", max_results=2).documents
+        eng.shutdown()
+
+
+def test_sharded_engine_restart_warm_starts(tmp_path):
+    ivf = {"index.tier": "ivf", "index.ivf_clusters": 8, "index.ivf_rebuild_min": 64,
+           "mesh.index_shards": 4}
+    cfg = RAGConfig.load(overrides=_fake(tmp_path, **ivf))
+    eng = create_engine(cfg, device="cpu")
+    eng.add_documents([Document(content=t, source=src) for t, src in _CORPUS])
+    before = eng.query_batch(_QUESTIONS, max_results=3)
+    eng.shutdown()
+    # the snapshot restores on another layout and kind, warm-started
+    for shards in (4, 2, 1):
+        cfg = RAGConfig.load(overrides=_fake(tmp_path, **{**ivf, "mesh.index_shards": shards}))
+        eng2 = create_engine(cfg, device="cpu", index_devices=["cpu"] * shards)
+        assert eng2.index._ivf2.warm_started and eng2.index.ivf_warmstart is None
+        assert [[d.id for d in r.documents] for r in eng2.query_batch(_QUESTIONS, max_results=3)] \
+            == [[d.id for d in r.documents] for r in before]
+        eng2.config.store.snapshot_on_shutdown = False
+        eng2.shutdown()
+
+
+def test_sharded_engine_layouts(tmp_path, monkeypatch):
+    base = _fake(tmp_path / "h", **{"mesh.index_shards": 4, "mesh.dcn_slices": 2})
+    eng = create_engine(RAGConfig.load(overrides=base), device="cpu")
+    assert eng.index.hierarchical and [len(m) for m in eng.index.mesh] == [2, 2]
+    eng.shutdown()
+    with pytest.raises(ValueError, match="must divide by dcn_slices"):
+        create_engine(RAGConfig.load(overrides={**base, "mesh.dcn_slices": 3}), device="cpu")
+    # on cuda without index_devices, 4 shards need 4 visible cards: it
+    # raises before the encoder is built, and never doubles up a card
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    cfg = RAGConfig.load(overrides=_fake(tmp_path / "c", **{"mesh.index_shards": 4}))
+    with pytest.raises(ValueError, match="only 1 CUDA devices are visible"):
+        create_engine(cfg)
 
 
 @pytest.mark.parametrize("extra", [

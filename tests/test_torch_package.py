@@ -40,7 +40,9 @@ def test_import_leaves_jax_unloaded():
             "modular_rag_system_tpu_torch.models.corpus, modular_rag_system_tpu_torch.models.synth, "
             "modular_rag_system_tpu_torch.models.wordpiece_train, "
             "modular_rag_system_tpu_torch.tools.build_default_encoder, "
-            "modular_rag_system_tpu_torch.tools.build_lexical_assets; "
+            "modular_rag_system_tpu_torch.tools.build_lexical_assets, "
+            "modular_rag_system_tpu_torch.parallel.mesh, "
+            "modular_rag_system_tpu_torch.parallel.sharded; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(bool(bad))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
