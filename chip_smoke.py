@@ -80,7 +80,22 @@ Phases (any failure exits non-zero and prints no result line):
    re-embedded, the 316 questions run ``fused_topk_int8`` alone with ids
    equal to the exact tier's), beside the ``build_default_encoder
    --smoke`` tool in a process of its own, whose asset must load and
-   encode.
+   encode;
+7. HF encoder: a BERT checkpoint at all-MiniLM-L6-v2's published widths
+   (6 layers, hidden 384, 12 heads, FFN 1536, vocab 30,522, 512
+   positions; random weights from a seeded generator) written by this
+   script as ``config.json``, ``vocab.txt`` and ``model.safetensors``,
+   served through ``embedding.hf_checkpoint`` at the default
+   ``max_seq_len`` 256 in the default hybrid (index dim 768) and
+   tokenized by the native engine: the corpus ingested, the questions at
+   Q=256 and Q=1 (``fused_topk_int8``), ids against the exact tier, the
+   card's bf16 embeddings against the f32 CPU forward (min cosine
+   0.995); the same checkpoint with ``attention_impl="flash"``
+   (``mea_attention`` in each of the 6 layers; timed alone at B = 256, L
+   = 256); the native tokenizer's ids against the Python path's under
+   the bundled and the checkpoint's vocab, both timed; the external
+   eval's recall@10 of the shipped hybrid on the card and on the host
+   CPU, equal within one pair of 304.
 
 Each kernel is also held against its plain version at the inputs the
 main path gives it (the engine's own rows, queries and probe lists), and
@@ -90,7 +105,8 @@ call that computes the same function where there is one, and the card's
 bound.  Kernel launch counts are set to 0 just before each route is
 driven and read just after (``fused_topk_int8``'s entry also gives its
 launches in phase 5's HTTP and lifecycle runs and phase 6's queries
-after the fine-tune).  The last three lines are
+after the fine-tune, and it and ``mea_attention``'s those of phase 7's
+HF engines).  The last three lines are
 the ``nvidia-smi`` line, the kernels JSON line and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -2405,10 +2421,17 @@ def train_phase(work, kernels, know, questions, passages, spec, device="cuda"):
         # the f32 masters and both moments in, all three out
         nbytes = 2 * 2 * TRAIN_BATCH * L * 8 + 6 * 4 * n_params
         bound_ms, bound_by = bound(nbytes, flops, spec[2], spec)
-        t = time.perf_counter()
-        for _ in range(3):
-            enc.tokenizer.encode_batch(batch(1)[0] + batch(1)[1])
-        tok_ms = (time.perf_counter() - t) / 3 * 1e3
+        from modular_rag_system_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+        py_tok = WordPieceTokenizer(enc.tokenizer.vocab, enc.max_seq_len, use_native=False)
+        tok_ms = {}
+        for name, tok in (("native", enc.tokenizer), ("Python", py_tok)):
+            t = time.perf_counter()
+            for _ in range(3):
+                tok.encode_batch(batch(1)[0] + batch(1)[1])
+            tok_ms[name] = (time.perf_counter() - t) / 3 * 1e3
+        if enc.tokenizer._wp_native is None:
+            raise AssertionError("train: the tokenizer did not take the native engine")
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -2435,7 +2458,8 @@ def train_phase(work, kernels, know, questions, passages, spec, device="cuda"):
             f"{max(step_ms[TRAIN_WARM:]):.2f}), {tokens / med * 1e3:,.0f} tokens/s "
             f"({tokens} a step); bound {bound_ms:.3f} ms ({bound_by}: {flops / 1e12:.3f} "
             f"TFLOP a step at {spec[2] / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.0f} MB), "
-            f"{bound_ms / med:.3f} of it; host tokenization {tok_ms:.2f} ms a step; one "
+            f"{bound_ms / med:.3f} of it; host tokenization {tok_ms['native']:.2f} ms a step "
+            f"(native engine; the Python path {tok_ms['Python']:.2f} ms); one "
             f"profiled step: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle share "
             f"{1 - busy / wall:.3f}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {n_params:,} parameters")
@@ -2564,6 +2588,264 @@ def fine_tune_entry(work, kernels, know, questions, passages, order, device, out
         return n
     finally:
         system.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: an encoder from a local HF checkpoint, the native tokenizer, the
+# external eval
+# all-MiniLM-L6-v2's published config (its config.json), weights random
+MINILM_CONFIG = {"architectures": ["BertModel"], "model_type": "bert", "vocab_size": 30522,
+                 "hidden_size": 384, "num_hidden_layers": 6, "num_attention_heads": 12,
+                 "intermediate_size": 1536, "max_position_embeddings": 512,
+                 "hidden_act": "gelu", "hidden_dropout_prob": 0.1,
+                 "attention_probs_dropout_prob": 0.1, "layer_norm_eps": 1e-12,
+                 "type_vocab_size": 2, "initializer_range": 0.02, "pad_token_id": 0,
+                 "position_embedding_type": "absolute"}
+HF_COS_FLOOR = 0.995  # bf16 card forward against the f32 CPU forward
+CPU_REF_PASSAGES = 64  # the longest passages, through the f32 CPU forward
+HF_LONG_DOCS = 4  # documents long enough for the 256-token bucket
+
+
+def minilm_vocab():
+    """The bundled vocab's pieces padded with ``[unusedN]`` to 30,522 ids."""
+    from modular_rag_system_tpu_torch.models.default_ckpt import ASSET_DIR
+    from modular_rag_system_tpu_torch.models.tokenizer import load_vocab
+
+    vocab = load_vocab(str(ASSET_DIR / "vocab.txt"))
+    n = len(vocab)
+    vocab.update({f"[unused{i}]": n + i for i in range(MINILM_CONFIG["vocab_size"] - n)})
+    return vocab
+
+
+def native_tokenizers(questions, passages, hf_vocab, cuda):
+    """The native engine is loaded; under the bundled vocab and the
+    checkpoint's, the questions and passages tokenize to the same ids and
+    masks natively and in Python; the tokenize stage at Q=256 both ways."""
+    from modular_rag_system_tpu_torch import native
+    from modular_rag_system_tpu_torch.models.default_ckpt import load_default_assets
+    from modular_rag_system_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+    eng = native.get_engine()
+    if eng is None:
+        raise AssertionError("the native text engine did not load")
+    _, arch, bundled = load_default_assets()
+    times = {}
+    for name, vocab, L in (("bundled", bundled, arch["max_len"]),
+                           ("checkpoint", hf_vocab, MINILM_CONFIG["max_position_embeddings"])):
+        L = min(L, 256)
+        nat, py = WordPieceTokenizer(vocab, L), WordPieceTokenizer(vocab, L, use_native=False)
+        if nat._wp_native is None:
+            raise AssertionError("the WordPiece tokenizer did not take the native engine")
+        for what, texts in (("questions", questions), ("passages", passages)):
+            (a, am), (b, bm) = nat.encode_batch(texts), py.encode_batch(texts)
+            if not ((a == b).all() and (am == bm).all()):
+                raise AssertionError(f"native ids differ from Python's: {name} {what}")
+        batch = questions[:256]
+        t_nat = wall_ms(lambda: nat.encode_batch(batch), reps=5) if cuda else 0.0
+        t_py = wall_ms(lambda: py.encode_batch(batch), reps=5) if cuda else 0.0
+        p_nat = wall_ms(lambda: nat.encode_batch(passages[:256]), reps=5) if cuda else 0.0
+        p_py = wall_ms(lambda: py.encode_batch(passages[:256]), reps=5) if cuda else 0.0
+        log(f"native tokenizer, {name} vocab ({len(vocab)} pieces, max_len {L}): ids and "
+            f"masks of {len(questions)} questions and {len(passages)} passages equal to the "
+            f"Python path's; tokenize Q=256 questions native {t_nat:.2f} ms, Python "
+            f"{t_py:.2f} ms; 256 passages native {p_nat:.2f} ms, Python {p_py:.2f} ms")
+        times[name] = (t_nat, t_py, p_nat, p_py)
+    return times
+
+
+def external_eval_phase(device):
+    """recall@10 of the shipped hybrid encoder on the external eval (304
+    pairs) on the card and on the host CPU: equal within one pair."""
+    from modular_rag_system_tpu_torch import RAGConfig
+    from modular_rag_system_tpu_torch.models import build_encoder
+    from modular_rag_system_tpu_torch.models import external_eval as X
+    from modular_rag_system_tpu_torch.models.fake import FeatureHashEncoder
+
+    n = len(X.load_external_qa()[1])
+    t0 = time.perf_counter()
+    card = build_encoder(RAGConfig(), device)
+    r_card = X.recall_at_k_external(card, k=10)
+    legacy = X.recall_at_k_legacy96(card, k=10)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r_cpu = X.recall_at_k_external(build_encoder(RAGConfig(), "cpu"), k=10)
+    t_cpu = time.perf_counter() - t0
+    dense = X.bundled_encoder_external_recall(k=10, device=device)
+    hashed = X.recall_at_k_external(FeatureHashEncoder(dim=384), k=10)
+    lo, hi = X.wilson_interval(r_card, n)
+    log(f"external eval ({n} pairs, k=10): {card.name} on {device} {r_card:.4f} "
+        f"({round(r_card * n)}/{n}, 95% Wilson [{lo:.4f}, {hi:.4f}], {t_card:.1f} s with "
+        f"legacy96), on the host CPU {r_cpu:.4f} ({round(r_cpu * n)}/{n}, {t_cpu:.1f} s); "
+        f"legacy96 {legacy:.4f}; dense half only {dense:.4f}; feature-hash baseline "
+        f"{hashed:.4f}; chance {10 / n:.4f}")
+    if abs(r_card - r_cpu) > 1 / n + 1e-12:
+        raise AssertionError(f"external recall on the card {r_card} vs the CPU {r_cpu}")
+    return {"card": r_card, "cpu": r_cpu, "legacy96": legacy, "dense": dense, "hash": hashed}
+
+
+def hf_phase(work, kernels, know, questions, passages, spec, step_ms=None, device="cuda"):
+    """Phase 7: ``create_engine`` over an encoder read from a local HF
+    checkpoint at all-MiniLM-L6-v2's published widths (6 layers, hidden
+    384, 12 heads, FFN 1536, vocab 30,522, 512 positions; random weights
+    from a seeded generator, written by this script), served at the
+    default ``max_seq_len`` 256 in the default hybrid (index dim 768),
+    tokenized by the native engine: ingest of the bundled corpus, the
+    questions at Q=256 and Q=1 (``fused_topk_int8``), ids against the
+    exact tier, the card's bf16 embeddings against the f32 CPU forward;
+    the same checkpoint with ``attention_impl="flash"`` (``mea_attention``
+    in each of the 6 layers, timed alone at B = 256, L = 256); the native
+    tokenizer against the Python path; the external eval on the card and
+    on the CPU.  Returns the launches and the L = 256 attention timing."""
+    import torch
+
+    from modular_rag_system_tpu_torch import RAGConfig, create_engine
+    from modular_rag_system_tpu_torch.models import hf_loader as H
+    from modular_rag_system_tpu_torch.types import Document
+
+    cuda = device != "cpu"
+    out = {}
+    t0 = time.perf_counter()
+    vocab = minilm_vocab()
+    ckpt = H.save_hf_checkpoint(work / "minilm_l6_v2_widths",
+                                H.random_hf_weights(MINILM_CONFIG, seed=0), MINILM_CONFIG,
+                                vocab)
+    size = sum(f.stat().st_size for f in ckpt.iterdir())
+    log(f"hf: checkpoint at all-MiniLM-L6-v2's widths written in "
+        f"{time.perf_counter() - t0:.1f} s ({size / 1e6:.1f} MB: config.json, vocab.txt "
+        f"{len(vocab)} pieces, model.safetensors)")
+
+    def config(name, **extra):
+        return RAGConfig.load(overrides={"index.tier": "auto", "embedding.hf_checkpoint":
+                                         str(ckpt), "store.storage_path": str(work / name),
+                                         **extra})
+
+    t0 = time.perf_counter()
+    eng = create_engine(config("hf"), device=device)
+    dense = eng.encoder.dense
+    log(f"hf engine: {eng.encoder.name}, index dim {eng.index.dim}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if (dense.name != "minilm-l6-h384" or len(dense.module.blocks) != 6
+            or dense.max_seq_len != 256 or dense.module.pos_embed.weight.shape[0] != 256
+            or dense.tokenizer.name != "wordpiece" or dense.tokenizer.vocab_size != 30522
+            or dense.tokenizer._wp_native is None or eng.index.dim != D):
+        raise AssertionError("the HF engine is not the checkpoint's encoder on the native "
+                             "tokenizer in the 768-wide hybrid")
+    # every passage is under 128 tokens: four of them joined make a chunk
+    # that the tokenizer cuts at 256, the longest bucket
+    long_docs = [" ".join(passages[i:i + 4]) for i in range(0, 4 * HF_LONG_DOCS, 4)]
+
+    def ingest(e):
+        e.add_documents([Document(content=t, source="knowledge") for t in know])
+        for p in passages:
+            e.add_text(p, source="qa")
+        for t in long_docs:
+            e.add_text(t, source="long")
+
+    t0 = time.perf_counter()
+    ingest(eng)
+    if cuda:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    log(f"hf engine ingest: {eng.index.count} rows in {dt:.2f} s "
+        f"({eng.index.count / dt:.1f} rows/s), capacity {eng.index.capacity}")
+    if eng.index.capacity != 4096 or eng.index.effective_tier() != "int8":
+        raise AssertionError("the HF engine's index should be int8 at capacity 4096")
+    if not any(d.source == "long" for d in eng.query(long_docs[0], max_results=1,
+                                                      similarity_threshold=0.0).documents):
+        raise AssertionError("a long document is not its own nearest row")
+    out["fused_topk_int8"] = {
+        "Q256": drive(kernels, "hf engine Q=256 (int8 single-pass)", "fused_topk_int8",
+                      lambda: eng.query_batch(questions[:256], similarity_threshold=0.0)),
+        "Q1": drive(kernels, "hf engine Q=1 (int8 single-pass)", "fused_topk_int8",
+                    lambda: eng.query(questions[0], similarity_threshold=0.0))}
+    q = eng.embed_queries(questions)
+    for lo, hi in ((0, 256), (256, len(questions)), (0, 1)):
+        rec = check_against_exact(eng, q[lo:hi], 10, 1e-5,
+                                  f"hf engine, questions {lo}..{hi - 1}")
+        if rec != 1.0:
+            raise AssertionError(f"hf engine: recall@10 {rec} against the exact tier")
+
+    # the card's bf16 dense half against the f32 forward on the host CPU
+    longest = sorted(passages, key=len, reverse=True)[:CPU_REF_PASSAGES]
+    texts = questions + longest + long_docs
+    t0 = time.perf_counter()
+    ref = H.try_build_pretrained_encoder(config("unused", **{"embedding.dtype": "float32"}),
+                                         "cpu").encode(texts)
+    t_ref = time.perf_counter() - t0
+    got = dense.encode(texts)
+    cos = (got * ref).sum(1)
+    buckets = sorted({dense._crop_seq(*dense.tokenizer.encode_batch([t]))[0].shape[1]
+                      for t in texts})
+    log(f"hf encoder on {device} (bf16) vs the f32 CPU forward ({t_ref:.1f} s) over "
+        f"{len(questions)} questions, the {len(longest)} longest passages and "
+        f"{len(long_docs)} long documents (sequence buckets {buckets}): min cosine {cos.min():.6f}, mean {cos.mean():.6f} (floor "
+        f"{HF_COS_FLOOR})")
+    if buckets[-1] != 256:
+        raise AssertionError(f"the HF forwards reached buckets {buckets}, not 256")
+    if not (got.shape == ref.shape == (len(texts), 384) and cos.min() >= HF_COS_FLOOR):
+        raise AssertionError("the card's HF embeddings differ from the f32 CPU forward")
+    out["gold"] = gold_recall(eng, questions, passages)
+    if cuda:
+        out["lat1"], out["qps"] = query_timings(eng, questions)
+        query_breakdown(eng, questions, "hf engine (int8 single-pass)")
+        log(f"hf engine: gold recall@10 {out['gold']:.4f} (random weights), Q=1 latency "
+            f"{out['lat1']:.2f} ms, Q=256 {out['qps']:.1f} QPS")
+    e_dense = dense.encode_device(questions)
+
+    # the same checkpoint with the mea_attention kernel in every layer
+    flash = create_engine(config("hf_flash", **{"embedding.attention_impl": "flash"}),
+                          device=device)
+    fd = flash.encoder.dense
+    forwards = [0]
+    forward_tokens = fd.forward_tokens
+
+    def counted(ids, mask):
+        forwards[0] += 1
+        return forward_tokens(ids, mask)
+
+    fd.forward_tokens = counted
+
+    n_ingest = drive(kernels, "hf flash engine ingest", "mea_attention", lambda: ingest(flash))
+    if n_ingest != 6 * forwards[0]:
+        raise AssertionError(f"{n_ingest} mea_attention launches for {forwards[0]} forwards")
+    forwards[0] = 0
+    n_query = run_route(flash, kernels, questions, "hf flash engine (int8 single-pass)",
+                        "mea_attention")
+    if n_query != 6 * forwards[0]:
+        raise AssertionError(f"{n_query} mea_attention launches for {forwards[0]} forwards")
+    fd.forward_tokens = forward_tokens
+    e_flash = fd.encode_device(questions)
+    cos = (e_flash * e_dense).sum(1)
+    log(f"hf flash vs dense encoder over {len(questions)} questions (bf16): min cosine "
+        f"{cos.min().item():.6f}, max |d| {(e_flash - e_dense).abs().max().item():.2e} "
+        f"(floor: cosine 0.999); mea_attention launches: ingest {n_ingest}, queries {n_query}")
+    if not (torch.isfinite(e_flash).all() and cos.min().item() >= 0.999):
+        raise AssertionError("hf flash embeddings differ from the dense encoder's")
+    out["mea_attention"] = {"ingest": n_ingest, "queries": n_query}
+    flash.shutdown()
+    eng.shutdown()
+    del eng, flash, dense, fd
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        # the bucket a 256-token sequence of this checkpoint reaches
+        g = torch.Generator(device=device).manual_seed(3)
+        qkv = [torch.randn((256, 256, 12, 32), generator=g, device=device)
+               .to(torch.bfloat16) for _ in range(3)]
+        pad = torch.ones((256, 256), dtype=torch.int32, device=device)
+        pad[0, 200:] = 0
+        pad[1, 100:] = 0
+        out["mea_L256"], out["mea_L256_err"] = time_mea(*qkv, pad, spec,
+                                                        "alone (hf bucket, B x H = 3072)")
+        del qkv
+        torch.cuda.empty_cache()
+
+    out["tokenize"] = native_tokenizers(questions, passages + long_docs, vocab, cuda)
+    if step_ms is not None:
+        log(f"hf: phase 6's training step (native tokenizer): {step_ms:.2f} ms median; "
+            "reported, not claimed")
+    out["external"] = external_eval_phase(device)
+    return out
 
 
 def phase(name, t0):
@@ -2855,6 +3137,12 @@ def smoke(work: Path) -> int:
     entry_launches["fine_tune"] = trained["fine_tune_launches"]
     tp = phase("6 (train)", tp)
 
+    # ---- phase 7: an HF checkpoint at all-MiniLM-L6-v2's widths, the native
+    # tokenizer, the external eval
+    hf = hf_phase(work, kernels, know, questions, passages, spec, trained.get("step_ms"))
+    errs["mea_attention"] = max(errs["mea_attention"], hf["mea_L256_err"])
+    tp = phase("7 (HF encoder, native tokenizer, external eval)", tp)
+
     out = []
     replaces = {"binmax_int8": "modular_rag_system_tpu/ops/binmax_topk.py:450",
                 "fused_topk_int8": "modular_rag_system_tpu/ops/fused_topk.py:282",
@@ -2874,6 +3162,10 @@ def smoke(work: Path) -> int:
             entry["entry_points_launches"] = entry_launches
         if kname in shard_launches:  # per shard on the sharded routes (phase 4e)
             entry["sharded_launches"] = shard_launches[kname]
+        if kname in ("fused_topk_int8", "mea_attention"):  # the HF engines (phase 7)
+            entry["hf_launches"] = hf[kname]
+        if kname == "mea_attention":  # alone at the HF checkpoint's L = 256 bucket
+            entry["L256"] = hf["mea_L256"]
         if kname in entries4:  # the same source's int4 mode, on the int4 route
             entry["int4"] = {"launches": launches4[kname], "max_abs_err": errs4[kname],
                              **entries4[kname]}

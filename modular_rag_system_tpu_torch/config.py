@@ -39,6 +39,8 @@ class EmbeddingConfig:
     num_heads: int = 12
     mlp_dim: int = 1536
     vocab_size: int = 30522
+    # a local HF BERT checkpoint directory (or a hub name held in an
+    # offline cache) to serve before the bundled one: models/hf_loader.py
     hf_checkpoint: str = ""
     # bundled checkpoint directory: "auto" = the packaged asset
     bundled_checkpoint: str = "auto"

@@ -1,0 +1,309 @@
+"""Load a local HuggingFace BERT checkpoint (the ``all-MiniLM-L6-v2`` family)
+into the port's encoder, without ``transformers``.
+
+Nothing is downloaded: a checkpoint is read from a local directory
+(``embedding.hf_checkpoint``) or from an offline hub cache that already
+holds it.  A checkpoint directory holds
+
+* ``config.json``: the architecture (``num_hidden_layers``,
+  ``hidden_size``, ``num_attention_heads``, ``intermediate_size``,
+  ``vocab_size``, ``max_position_embeddings``);
+* ``vocab.txt``: the WordPiece vocab, one piece a line;
+* ``model.safetensors`` (parsed here: an 8-byte little-endian header
+  length, a JSON header of name -> dtype, shape and byte range, then the
+  raw little-endian tensors) or else ``pytorch_model.bin``
+  (``torch.load(..., weights_only=True)``).
+
+A hub cache directory ``models--<org>--<name>`` names its current
+snapshot in ``refs/main``; its files are in ``snapshots/<sha>/``.  The
+cache roots are searched as ``huggingface_hub`` resolves them:
+``HF_HUB_CACHE``, ``TRANSFORMERS_CACHE``, then ``HF_HOME/hub`` or
+``~/.cache/huggingface/hub``.
+
+The HF BERT names map straight onto ``SentenceEncoderModule``'s state
+dict (``nn.Linear`` weights are (out, in) in both)::
+
+  embeddings.word_embeddings (+ token_type_embeddings[0]) -> tok_embed
+  embeddings.position_embeddings                        -> pos_embed
+  embeddings.LayerNorm                                  -> embed_ln
+  encoder.layer.N.attention.self.{query,key,value}      -> blocks.N.attn.{query,key,value}
+  encoder.layer.N.attention.output.dense                -> blocks.N.attn.out
+  encoder.layer.N.attention.output.LayerNorm            -> blocks.N.ln0
+  encoder.layer.N.intermediate.dense                    -> blocks.N.ffn_in
+  encoder.layer.N.output.dense                          -> blocks.N.ffn_out
+  encoder.layer.N.output.LayerNorm                      -> blocks.N.ln1
+
+The encoder always runs with segment id 0, so folding
+``token_type_embeddings[0]`` into the word embeddings is exact.  The
+weights equal the JAX package's ``load_minilm_params`` mapped through
+``default_ckpt.params_from_flax``, bit for bit.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import struct
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from modular_rag_system_tpu_torch.models.tokenizer import load_vocab
+
+DEFAULT_MODEL = "sentence-transformers/all-MiniLM-L6-v2"
+
+logger = logging.getLogger(__name__)
+
+_SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
+
+
+def read_safetensors(path, names=None) -> Dict[str, torch.Tensor]:
+    """The tensors of a ``.safetensors`` file as f32 CPU tensors (only
+    ``names`` when given).  Raises ``ValueError`` on a malformed file or a
+    dtype other than F32, F16 or BF16 among the tensors read."""
+    data = Path(path).read_bytes()
+    if len(data) < 8:
+        raise ValueError(f"{path}: too short for a safetensors header")
+    (n,) = struct.unpack("<Q", data[:8])
+    if 8 + n > len(data):
+        raise ValueError(f"{path}: header length {n} past the end of the file")
+    header = json.loads(data[8:8 + n])
+    header.pop("__metadata__", None)
+    base = 8 + n
+    out = {}
+    for name, info in header.items():
+        if names is not None and name not in names:
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: tensor {name} has unsupported dtype {info['dtype']}")
+        begin, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        count = int(np.prod(shape, dtype=np.int64))
+        if end - begin != count * dtype.itemsize or base + end > len(data):
+            raise ValueError(f"{path}: tensor {name} byte range {begin}..{end} does not "
+                             f"hold {shape} {info['dtype']}")
+        # a copy of the range: aligned, writable, owned by the tensor
+        buf = bytearray(data[base + begin:base + end])
+        t = torch.frombuffer(buf, dtype=dtype, count=count) if count else torch.empty(0, dtype=dtype)
+        out[name] = t.reshape(shape).float()
+    return out
+
+
+def write_safetensors(path, tensors: Dict[str, torch.Tensor]) -> None:
+    """Write ``tensors`` (F32, F16 or BF16) as a ``.safetensors`` file, in
+    name order, the header padded with spaces to a multiple of 8 bytes."""
+    names = {v: k for k, v in _SAFETENSORS_DTYPES.items()}
+    header, blobs, offset = {}, [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().cpu().contiguous()
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(head)))
+        fh.write(head)
+        for raw in blobs:
+            fh.write(raw)
+
+
+def random_hf_weights(config: dict, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """f32 BERT weights under their HF names for ``config`` (a
+    ``config.json`` dict), drawn from a ``torch.Generator`` seeded with
+    ``seed`` with BERT's initialisation: matrices and embedding tables
+    normal with std ``initializer_range`` (0.02), biases 0, LayerNorm
+    scale 1 and bias 0."""
+    g = torch.Generator().manual_seed(seed)
+    std = config.get("initializer_range", 0.02)
+    h, m = config["hidden_size"], config["intermediate_size"]
+
+    def normal(*shape):
+        return torch.empty(shape).normal_(0.0, std, generator=g)
+
+    w = {"embeddings.word_embeddings.weight": normal(config["vocab_size"], h),
+         "embeddings.position_embeddings.weight": normal(config["max_position_embeddings"], h),
+         "embeddings.token_type_embeddings.weight": normal(config.get("type_vocab_size", 2), h)}
+    linears = {"attention.self.query": (h, h), "attention.self.key": (h, h),
+               "attention.self.value": (h, h), "attention.output.dense": (h, h),
+               "intermediate.dense": (m, h), "output.dense": (h, m)}
+    lns = ["embeddings.LayerNorm"] + [f"encoder.layer.{n}.{ln}"
+                                      for n in range(config["num_hidden_layers"])
+                                      for ln in ("attention.output.LayerNorm",
+                                                 "output.LayerNorm")]
+    for n in range(config["num_hidden_layers"]):
+        for name, shape in linears.items():
+            w[f"encoder.layer.{n}.{name}.weight"] = normal(*shape)
+            w[f"encoder.layer.{n}.{name}.bias"] = torch.zeros(shape[0])
+    for name in lns:
+        w[f"{name}.weight"], w[f"{name}.bias"] = torch.ones(h), torch.zeros(h)
+    return w
+
+
+def save_hf_checkpoint(out_dir, weights: Dict[str, torch.Tensor], config: dict,
+                       vocab: Dict[str, int]) -> Path:
+    """Write a BERT checkpoint directory that ``load_minilm_params`` (and
+    ``transformers``) reads: ``config.json``, ``vocab.txt`` (pieces in id
+    order) and ``model.safetensors`` of ``weights`` under their HF names."""
+    d = Path(out_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "config.json").write_text(json.dumps(config, indent=1))
+    (d / "vocab.txt").write_text("".join(p + "\n" for p, _ in
+                                         sorted(vocab.items(), key=lambda kv: kv[1])))
+    write_safetensors(d / "model.safetensors", weights)
+    return d
+
+
+def _read_weights(src: Path) -> Dict[str, torch.Tensor]:
+    """The checkpoint's tensors as f32, a leading ``bert.`` dropped from
+    the names (``BertFor*`` checkpoints) and old ``gamma``/``beta``
+    LayerNorm names read as ``weight``/``bias``."""
+    if (src / "model.safetensors").is_file():
+        raw = read_safetensors(src / "model.safetensors")
+    elif (src / "pytorch_model.bin").is_file():
+        raw = torch.load(src / "pytorch_model.bin", map_location="cpu", weights_only=True)
+        raw = {k: v.float() for k, v in raw.items() if v.is_floating_point()}
+    else:
+        raise FileNotFoundError(f"{src} holds neither model.safetensors nor pytorch_model.bin")
+    sd = {}
+    for name, t in raw.items():
+        name = name.removeprefix("bert.")
+        if ".LayerNorm." in name:
+            name = name.replace(".gamma", ".weight").replace(".beta", ".bias")
+        sd[name] = t
+    return sd
+
+
+def _cache_roots():
+    roots = [Path(v) for v in (os.environ.get("HF_HUB_CACHE"),
+                               os.environ.get("TRANSFORMERS_CACHE")) if v]
+    home = os.environ.get("HF_HOME")
+    roots.append(Path(home) / "hub" if home else Path.home() / ".cache" / "huggingface" / "hub")
+    return roots
+
+
+def _cache_dirs(model_name: str):
+    """``model_name``'s hub cache directories that exist, in root order."""
+    model_dir = "models--" + model_name.replace("/", "--")
+    return [root / model_dir for root in _cache_roots() if (root / model_dir).is_dir()]
+
+
+def _hf_cache_present(model_name: str) -> bool:
+    """Whether a hub cache directory of ``model_name`` exists in any cache
+    root (the JAX package's probe: existence only)."""
+    return bool(_cache_dirs(model_name))
+
+
+def cache_snapshot(model_name: str) -> Optional[Path]:
+    """The snapshot directory that ``refs/main`` of ``model_name``'s first
+    cache directory names, or None when no cache root holds the model.
+    Raises ``FileNotFoundError`` when the cache directory names no
+    snapshot that exists."""
+    dirs = _cache_dirs(model_name)
+    if not dirs:
+        return None
+    ref = dirs[0] / "refs" / "main"
+    if not ref.is_file():
+        raise FileNotFoundError(f"{dirs[0]} has no refs/main")
+    snap = dirs[0] / "snapshots" / ref.read_text().strip()
+    if not snap.is_dir():
+        raise FileNotFoundError(f"{ref} names {snap.name}, which is not in {snap.parent}")
+    return snap
+
+
+def resolve_checkpoint(src: str) -> Path:
+    """A checkpoint directory, or a hub model name resolved through the
+    cache; raises ``FileNotFoundError`` when neither exists."""
+    p = Path(src).expanduser()
+    if p.is_dir():
+        return p
+    snap = cache_snapshot(src) if "/" in src and not p.is_absolute() else None
+    if snap is None:
+        raise FileNotFoundError(f"HF checkpoint {src!r} is neither a directory nor in a "
+                                "hub cache")
+    return snap
+
+
+def load_minilm_params(model_name: str = DEFAULT_MODEL, local_dir: Optional[str] = None
+                       ) -> Tuple[Dict[str, torch.Tensor], Dict[str, int], dict]:
+    """(f32 state dict of ``SentenceEncoderModule``, vocab, arch) of the
+    checkpoint in ``local_dir``, or of ``model_name`` in a hub cache.  The
+    position table keeps all ``max_position_embeddings`` rows (``arch
+    ["max_len"]``).  Raises when the checkpoint cannot be read or lacks a
+    weight its config implies."""
+    src = resolve_checkpoint(local_dir or model_name)
+    cfg = json.loads((src / "config.json").read_text())
+    arch = {"num_layers": cfg["num_hidden_layers"], "hidden": cfg["hidden_size"],
+            "heads": cfg["num_attention_heads"], "mlp_dim": cfg["intermediate_size"],
+            "vocab_size": cfg["vocab_size"], "max_len": cfg["max_position_embeddings"]}
+    vocab = load_vocab(str(src / "vocab.txt"))
+    if max(vocab.values()) >= arch["vocab_size"]:
+        raise ValueError(f"{src}: vocab.txt has {max(vocab.values()) + 1} pieces, the "
+                         f"embedding table {arch['vocab_size']} rows")
+    w = _read_weights(src)
+    sd = {"tok_embed.weight": w["embeddings.word_embeddings.weight"]
+          + w["embeddings.token_type_embeddings.weight"][0][None, :],
+          "pos_embed.weight": w["embeddings.position_embeddings.weight"],
+          "embed_ln.weight": w["embeddings.LayerNorm.weight"],
+          "embed_ln.bias": w["embeddings.LayerNorm.bias"]}
+    names = {"attn.query": "attention.self.query", "attn.key": "attention.self.key",
+             "attn.value": "attention.self.value", "attn.out": "attention.output.dense",
+             "ln0": "attention.output.LayerNorm", "ffn_in": "intermediate.dense",
+             "ffn_out": "output.dense", "ln1": "output.LayerNorm"}
+    for n in range(arch["num_layers"]):
+        for ours, theirs in names.items():
+            for part in ("weight", "bias"):
+                sd[f"blocks.{n}.{ours}.{part}"] = w[f"encoder.layer.{n}.{theirs}.{part}"]
+    return {k: v.contiguous() for k, v in sd.items()}, vocab, arch
+
+
+def try_build_pretrained_encoder(config, device="cuda"):
+    """``MiniLMEncoder`` with HF weights on ``device``, or None.
+
+    An explicit ``embedding.hf_checkpoint`` must load: a checkpoint that
+    cannot be read raises.  Without one, the hub cache of
+    ``all-MiniLM-L6-v2`` is tried, and a cache that cannot be read is
+    logged and skipped (None).  A checkpoint whose hidden size is not
+    ``embedding.dim`` (the index dim) cannot serve the engine: None.  The
+    position table is cut to ``min(embedding.max_seq_len,
+    max_position_embeddings)`` rows, the longest sequence served."""
+    from modular_rag_system_tpu_torch.models.encoder import MiniLMEncoder
+    from modular_rag_system_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+    emb = config.embedding
+    if emb.hf_checkpoint:
+        sd, vocab, arch = load_minilm_params(local_dir=emb.hf_checkpoint)
+    else:
+        if not _hf_cache_present(DEFAULT_MODEL):
+            return None
+        try:
+            sd, vocab, arch = load_minilm_params(DEFAULT_MODEL)
+        except (OSError, ValueError, KeyError) as exc:
+            logger.warning("hub cache of %s not usable, not loaded: %r", DEFAULT_MODEL, exc)
+            return None
+    if arch["hidden"] != emb.dim:
+        logger.warning("HF checkpoint hidden size %d != embedding.dim %d: not served",
+                       arch["hidden"], emb.dim)
+        return None
+    max_len = min(emb.max_seq_len, arch["max_len"])
+    sd["pos_embed.weight"] = sd["pos_embed.weight"][:max_len]
+    return MiniLMEncoder(
+        state_dict=sd,
+        dim=arch["hidden"],
+        max_seq_len=max_len,
+        batch_size=emb.batch_size,
+        dtype=emb.dtype,
+        num_layers=arch["num_layers"],
+        num_heads=arch["heads"],
+        mlp_dim=arch["mlp_dim"],
+        vocab_size=arch["vocab_size"],
+        tokenizer=WordPieceTokenizer(vocab, max_len=max_len),
+        attention_impl=emb.attention_impl,
+        device=device,
+    )

@@ -1,14 +1,19 @@
-"""Tokenizers of the encoder (pure-Python path).
+"""Tokenizers of the encoder.
 
 * ``WordPieceTokenizer`` — greedy longest-match-first WordPiece over an
-  explicit vocab (the bundled checkpoint's ``vocab.txt``).
+  explicit vocab (the bundled checkpoint's or an HF checkpoint's
+  ``vocab.txt``).
 * ``HashingTokenizer`` — dependency-free fallback: lowercase word split,
   long words broken into fixed-size pieces, pieces hashed (FNV-1a) into
   the vocab id space.
 
-Both produce static-shape ``(batch, max_len)`` int32 ids + masks and are
-id-for-id the JAX package's pure-Python tokenizers; that package's native
-C++ engine (bit-exact with this path on ASCII input) is not ported yet.
+Both produce static-shape ``(batch, max_len)`` int32 ids + masks, id for
+id the JAX package's tokenizers.  With ``use_native=True`` (the default)
+ASCII texts run through the native C++ engine (``native/text_engine.cpp``,
+bit-exact with the Python path on ASCII input); non-ASCII texts, and
+every call when the engine cannot be built, take the Python path.  The
+JAX package sends a whole batch to Python when one text is non-ASCII;
+here only that text goes (the ids are the same either way).
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from modular_rag_system_tpu_torch.native import get_engine
 
 _WORD_RE = re.compile(r"[a-z0-9]+|[^\sa-z0-9]", re.IGNORECASE)
 
@@ -48,6 +55,25 @@ def _first_regular(vocab_size: int) -> int:
     return SEP_ID + 1
 
 
+def _by_row(texts: Sequence[str], native, python) -> Tuple[np.ndarray, np.ndarray]:
+    """(ids, mask) of ``texts``: the ASCII rows through ``native``, the
+    others through ``python`` (rows tokenize independently, and the two
+    paths give the same ids on ASCII text)."""
+    rows = [i for i, t in enumerate(texts) if t.isascii()]
+    if len(rows) == len(texts):
+        return native(texts)
+    if not rows:
+        return python(texts)
+    other = [i for i, t in enumerate(texts) if not t.isascii()]
+    ids_a, mask_a = native([texts[i] for i in rows])
+    ids_o, mask_o = python([texts[i] for i in other])
+    ids = np.empty((len(texts), ids_a.shape[1]), np.int32)
+    mask = np.empty_like(ids)
+    ids[rows], mask[rows] = ids_a, mask_a
+    ids[other], mask[other] = ids_o, mask_o
+    return ids, mask
+
+
 def _hash_id(piece: str, vocab_size: int) -> int:
     first = _first_regular(vocab_size)
     span = vocab_size - first
@@ -58,10 +84,13 @@ class HashingTokenizer:
     name = "hashing"
 
     def __init__(self, vocab_size: int = 30522, max_len: int = 256,
-                 piece_len: int = 6) -> None:
+                 piece_len: int = 6, use_native: bool = True) -> None:
         self.vocab_size = vocab_size
         self.max_len = max_len
         self.piece_len = piece_len
+        # a vocab too small for a hash span raises on the Python path
+        # (``_first_regular``); the native engine would divide by zero
+        self._native = get_engine() if use_native and vocab_size > SEP_ID + 2 else None
 
     def tokenize(self, text: str) -> List[str]:
         pieces: List[str] = []
@@ -75,10 +104,18 @@ class HashingTokenizer:
         return pieces
 
     def token_count(self, text: str) -> int:
+        if self._native is not None and text.isascii():
+            return self._native.token_count(text, self.piece_len)
         return len(self.tokenize(text)) + 2  # [CLS] + [SEP]
 
     def encode_batch(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
         """Returns (ids (B, max_len) int32, mask (B, max_len) int32)."""
+        if self._native is not None and texts:
+            return _by_row(texts, lambda rows: self._native.tokenize_batch(
+                rows, self.max_len, self.vocab_size, self.piece_len), self._encode_python)
+        return self._encode_python(texts)
+
+    def _encode_python(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
         B = len(texts)
         ids = np.full((B, self.max_len), PAD_ID, dtype=np.int32)
         mask = np.zeros((B, self.max_len), dtype=np.int32)
@@ -100,11 +137,17 @@ def load_vocab(path: str) -> Dict[str, int]:
 
 
 class WordPieceTokenizer:
-    """Greedy longest-match-first WordPiece over an explicit vocab."""
+    """Greedy longest-match-first WordPiece over an explicit vocab.
+
+    The native table holds the vocab's ASCII pieces other than the
+    bracketed specials: a non-ASCII piece never matches ASCII input and
+    ``_WORD_RE`` never yields a bracketed word, so ASCII batches stay
+    bit-exact with the Python path."""
 
     name = "wordpiece"
 
-    def __init__(self, vocab: Dict[str, int], max_len: int = 256) -> None:
+    def __init__(self, vocab: Dict[str, int], max_len: int = 256,
+                 use_native: bool = True) -> None:
         self.vocab = vocab
         self.max_len = max_len
         self.vocab_size = max(vocab.values()) + 1
@@ -113,6 +156,15 @@ class WordPieceTokenizer:
         self.sep = vocab.get("[SEP]", SEP_ID)
         self.pad = vocab.get("[PAD]", PAD_ID)
         self._max_chars = 100
+        self._wp_native = None
+        eng = get_engine() if use_native else None
+        if eng is not None:
+            items = [(p, i) for p, i in vocab.items()
+                     if p and p.isascii() and not (p.startswith("[") and p.endswith("]"))]
+            self._wp_native = eng.wp_create(
+                [p.encode("ascii") for p, _ in items],
+                np.array([i for _, i in items], dtype=np.int32),
+                self.unk, self.cls, self.sep, self.pad)
 
     @classmethod
     def from_vocab_file(cls, path: str, max_len: int = 256) -> "WordPieceTokenizer":
@@ -147,9 +199,17 @@ class WordPieceTokenizer:
         return ids
 
     def token_count(self, text: str) -> int:
+        if self._wp_native is not None and text.isascii():
+            return self._wp_native.token_count(text)
         return len(self.tokenize_ids(text)) + 2
 
     def encode_batch(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+        if self._wp_native is not None and texts:
+            return _by_row(texts, lambda rows: self._wp_native.tokenize_batch(
+                rows, self.max_len), self._encode_python)
+        return self._encode_python(texts)
+
+    def _encode_python(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
         B = len(texts)
         ids = np.full((B, self.max_len), self.pad, dtype=np.int32)
         mask = np.zeros((B, self.max_len), dtype=np.int32)

@@ -1,6 +1,7 @@
 """Boundaries of the PyTorch port: it imports neither JAX, flax nor the
-JAX package (not even its host-only modules), and neither does the
-chip smoke script."""
+JAX package (not even its host-only modules), nor the HF libraries
+(``transformers``, ``safetensors``, ``huggingface_hub``: the card's
+machine has none of them), and neither does the chip smoke script."""
 
 import ast
 import subprocess
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "modular_rag_system_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "modular_rag_system_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "modular_rag_system_tpu", "transformers",
+             "safetensors", "huggingface_hub")
 
 
 def _imported_modules(path: Path):
@@ -42,7 +44,10 @@ def test_import_leaves_jax_unloaded():
             "modular_rag_system_tpu_torch.tools.build_default_encoder, "
             "modular_rag_system_tpu_torch.tools.build_lexical_assets, "
             "modular_rag_system_tpu_torch.parallel.mesh, "
-            "modular_rag_system_tpu_torch.parallel.sharded; "
+            "modular_rag_system_tpu_torch.parallel.sharded, "
+            "modular_rag_system_tpu_torch.models.hf_loader, "
+            "modular_rag_system_tpu_torch.models.external_eval, "
+            "modular_rag_system_tpu_torch.native; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(bool(bad))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
