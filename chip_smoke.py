@@ -96,6 +96,24 @@ Phases (any failure exits non-zero and prints no result line):
    the bundled and the checkpoint's vocab, both timed; the external
    eval's recall@10 of the shipped hybrid on the card and on the host
    CPU, equal within one pair of 304.
+8. multihost: two processes on the card, one gloo group of 2
+   (``parallel/multihost.py``): ``mh_check`` with CUDA tensors (its four
+   markers in both ranks), then two ranks of this script
+   (``--multihost-rank``), each: a ``mesh.multihost`` engine (bundled
+   hybrid encoder, ``index.tier="auto"``, its own storage, 2 local shards
+   of a 2 x 2 layout whose slices are the processes) ingests the text
+   rows under the SPMD contract and answers the 316 questions at Q=256
+   and Q=1 (``fused_topk_int8`` once a local shard and search), ids
+   equal across the ranks and to phase 3's one device; filled with
+   phase 3's seeded rows to 1,048,576 (``binmax_int8`` once a local shard
+   and search), ids held against an exact top-k merged by the script;
+   the trainer on (2, 1) and (1, 2) layouts at phase 6's width and
+   batches (step 0 against phase 6's loss, 5 steps, a 255-pair batch
+   with a clone row, a (1, 2) checkpoint restored on one device);
+   ``fine_tune_from_feedback`` on the (1, 2) layout the group gives,
+   then the questions through ``fused_topk_int8`` against the exact
+   tier; the search stage, its all-gather, the step and the gradient
+   all-reduce timed beside phases 4e and 6.
 
 Each kernel is also held against its plain version at the inputs the
 main path gives it (the engine's own rows, queries and probe lists), and
@@ -106,7 +124,7 @@ bound.  Kernel launch counts are set to 0 just before each route is
 driven and read just after (``fused_topk_int8``'s entry also gives its
 launches in phase 5's HTTP and lifecycle runs and phase 6's queries
 after the fine-tune, and it and ``mea_attention``'s those of phase 7's
-HF engines).  The last three lines are
+HF engines; it and ``binmax_int8``'s each phase-8 rank's).  The last three lines are
 the ``nvidia-smi`` line, the kernels JSON line and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1363,7 +1381,7 @@ def device_busy_ms(prof) -> float:
 def query_breakdown(eng, questions, route):
     """Wall time of each stage of one query call at Q=1 and Q=256 (each
     stage synchronized), and the device's busy share over one
-    ``query_batch`` from ``torch.profiler``."""
+    ``query_batch`` from ``torch.profiler``.  Returns {Q: {stage: ms}}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1371,6 +1389,7 @@ def query_breakdown(eng, questions, route):
     from modular_rag_system_tpu_torch import kernels
 
     dense, lex = eng.encoder.dense, eng.encoder.lexical
+    times = {}
     for Q in (1, 256):
         texts = questions[:Q]
         stages = {
@@ -1383,7 +1402,8 @@ def query_breakdown(eng, questions, route):
         stages["search"] = lambda: eng.index.search_core(k)(
             eng.index.search_ops(), eng.index.count, q)
         stages["whole query_batch"] = lambda: eng.query_batch(texts, similarity_threshold=0.0)
-        parts = ", ".join(f"{name} {wall_ms(fn, reps=5):.2f} ms" for name, fn in stages.items())
+        times[Q] = {name: wall_ms(fn, reps=5) for name, fn in stages.items()}
+        parts = ", ".join(f"{name} {ms:.2f} ms" for name, ms in times[Q].items())
         log(f"{route} Q={Q} stages: {parts}")
     batch = questions[:256]
     eng.query_batch(batch, similarity_threshold=0.0)
@@ -1401,6 +1421,7 @@ def query_breakdown(eng, questions, route):
     log(f"{route} Q=256 query_batch under the profiler: wall {wall:.2f} ms, device "
         f"busy {busy:.2f} ms, device idle share {1 - busy / wall:.3f} ({recorded} device "
         f"kernels of the port recorded for {launched} wrapper launches)")
+    return times
 
 
 def drive(kernels, name, expect, fn):
@@ -1740,6 +1761,10 @@ def int4_route(storage, kernels, V, questions, passages, spec, rec_int8, r_full,
 # ---------------------------------------------------------------------------
 # phase 4e: the sharded index, 4 shards on the one card
 SHARDS = 4
+# the sharded deep refill's queries: the route and its k = 16,384 depth
+# as at Q=256, at an eighth of the store fetch (Q=256 took 90.7 s of a
+# 1,063 s smoke on an H100 80GB HBM3)
+SHARDED_REFILL_Q = 32
 
 
 def _live_s(idx, s):
@@ -1815,10 +1840,10 @@ def drive_shards(kernels, name, expect, fn, calls):
 
 
 def sharded_refill(eng, questions, single_s):
-    """Phase 4b''s filtered Q=256 batch on the sharded index: the deep
-    refill reaches k = 1,200 and 16,384 through ``search_deep`` (exact per
-    shard, then the merge); each call's ids and scores held equal to
-    ``sharded_exact``'s at the same queries."""
+    """Phase 4b''s filtered batch on the sharded index, at Q =
+    ``SHARDED_REFILL_Q``: the deep refill reaches k = 1,200 and 16,384
+    through ``search_deep`` (exact per shard, then the merge); each call's
+    ids and scores held equal to ``sharded_exact``'s at the same queries."""
     import numpy as np
     import torch
 
@@ -1832,16 +1857,17 @@ def sharded_refill(eng, questions, single_s):
     idx.search_deep = spy
     t0 = time.perf_counter()
     try:
-        res = eng.query_batch(questions[:256], max_results=300, source_filters=["qa"],
-                              similarity_threshold=0.0)
+        res = eng.query_batch(questions[:SHARDED_REFILL_Q], max_results=300,
+                              source_filters=["qa"], similarity_threshold=0.0)
     finally:
         del idx.search_deep
     dt = time.perf_counter() - t0
     log(f"sharded exact refill (Q={len(res)}, source filter 'qa', max_results 300): "
         f"search_deep calls (Q, k) {[(c[0].shape[0], c[1]) for c in calls]}, {dt:.1f} s "
-        f"(single-device exact refill, phase 4b': {single_s:.1f} s); matches returned per "
+        f"(single-device exact refill at Q=256, phase 4b': {single_s:.1f} s); matches "
+        f"returned per "
         f"query {min(len(r.documents) for r in res)}..{max(len(r.documents) for r in res)}")
-    if not any(q.shape[0] == 256 and k >= 16384 for q, k, _ in calls):
+    if not any(q.shape[0] == SHARDED_REFILL_Q and k >= 16384 for q, k, _ in calls):
         raise AssertionError("the filtered batch did not reach search_deep at k = 16,384")
     for q, k, (v, g) in calls:
         ev, eg = sharded_exact(idx, torch.as_tensor(q, device=idx.device), k)
@@ -1895,7 +1921,7 @@ def sharded_phase(work, storage, kernels, know, questions, passages, r_ivf, refi
                         f"sharded single-pass route ({idx.count} rows, 4 shards)")
     if rec != 1.0:
         raise AssertionError(f"sharded single-pass recall@10 {rec} != 1.0")
-    query_breakdown(eng, questions, "sharded single-pass route (4 shards)")
+    stages = query_breakdown(eng, questions, "sharded single-pass route (4 shards)")
     free(eng)
     del eng, idx
 
@@ -1991,7 +2017,7 @@ def sharded_phase(work, storage, kernels, know, questions, passages, r_ivf, refi
     log(f"sharded two-pass route (2 x 2) at {idx.count} rows: Q=1 latency {lat1:.2f} ms, "
         f"Q=256 {qps:.1f} QPS")
     free(eng)
-    return shard_launches
+    return shard_launches, stages
 
 
 # phase 5: the entry points
@@ -2848,6 +2874,407 @@ def hf_phase(work, kernels, know, questions, passages, spec, step_ms=None, devic
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: two processes on the card, one gloo group (parallel/multihost.py)
+MH_RANKS = 2
+MH_SHARDS = 2  # index shards a process: a 2 x 2 layout whose slices are the processes
+MH_Q1 = 16  # the Q=1 queries held against phase 3's answers
+MH_TRAIN_STEPS = 5
+MH_FEEDBACK_STEPS = 5
+# the ranks' answers against phase 3's one device: equal ids, except where
+# two documents tie within the f32 master rescore's rounding (the same
+# rows rescored in another shape)
+MH_TIE_TOL = 1e-6
+
+
+def mh_answers(eng, questions):
+    """(ids, similarities) of every question at Q=256 (``query_batch``
+    calls of at most 256) and of the first ``MH_Q1`` at Q=1; no recency
+    weight, so the similarities are the search's scores (the documents'
+    ages differ between engines)."""
+    kw = dict(similarity_threshold=0.0, time_weight=0.0)
+    q256 = [r for lo in range(0, len(questions), 256)
+            for r in eng.query_batch(questions[lo:lo + 256], **kw)]
+    q1 = [eng.query(t, **kw) for t in questions[:MH_Q1]]
+    return {"q256": _lists(q256), "q1": _lists(q1)}
+
+
+def _wall(fn, cuda, reps=10):
+    """Median wall ms of ``fn`` (after a warm-up call), synchronized."""
+    import torch
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    fn()
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def mh_exact(idx, q, k):
+    """The exact top-k across the ranks without the package's merge or
+    collectives: each local shard's ``exact_topk_raw``, gathered with
+    ``all_gather_object`` and merged here by two stable sorts (global id,
+    then score descending) -> (vals, gids int64) on q's device."""
+    import torch
+    import torch.distributed as dist
+
+    from modular_rag_system_tpu_torch.ops.exact import exact_topk_raw
+
+    S, vals, gids = idx.S, [], []
+    for c, E_s in enumerate(idx.E):
+        s = idx._s0 + c
+        v, r = exact_topk_raw(E_s, max(0, (idx.count - s + S - 1) // S), q.to(E_s.device),
+                              min(k, idx.cap_s))
+        vals.append(v.cpu())
+        gids.append(torch.where(torch.isfinite(v), r.long() * S + s, 2**62).cpu())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (vals, gids))
+    v = torch.cat([x for vs, _ in every for x in vs], 1).to(q.device)
+    g = torch.cat([x for _, gs in every for x in gs], 1).to(q.device)
+    o = torch.argsort(g, dim=1, stable=True)
+    v, g = v.gather(1, o), g.gather(1, o)
+    o = torch.argsort(v, dim=1, descending=True, stable=True)[:, :k]
+    return v.gather(1, o), g.gather(1, o)
+
+
+def mh_check_exact(idx, q, k, what):
+    """The route's top-k (the index's own protocol, collectives included)
+    against ``mh_exact``: recall@k, and the scores, both lists sorted,
+    within 1e-5.  Returns the recall."""
+    with idx._lock:
+        vals, gids = idx.search_core(k)(idx.search_ops(k), idx.count, q)
+    ev, eg = mh_exact(idx, q, k)
+    recall = sum(len(set(a) & set(b)) for a, b in
+                 zip(gids.tolist(), eg.tolist())) / eg.numel()
+    err = (vals - ev).abs().max().item()
+    log(f"{what} vs the exact reference merged here: recall@{k} {recall:.4f}, scores "
+        f"within {err:.2e}")
+    if err > 1e-5:
+        raise AssertionError(f"{what}: scores differ from the exact reference by {err}")
+    return recall
+
+
+def mh_search_stages(eng, questions, cuda):
+    """Per Q in (1, 256): the embed stage, the search stage (each local
+    shard's search, the merge within the rank, the all-gather and the
+    merge across ranks) and the all-gather alone at the search's
+    candidate shape, median wall ms."""
+    from modular_rag_system_tpu_torch.parallel.multihost import all_gather_candidates
+
+    idx, out = eng.index, {}
+    k = eng._initial_k(eng.config.retrieval.max_results, False)
+    for Q in (1, 256):
+        texts = questions[:Q]
+        q = eng.embed_queries(texts)
+
+        def search():
+            return idx.search_core(k)(idx.search_ops(k), idx.count, q)
+
+        v, g = search()
+        out[Q] = {"embed": _wall(lambda: eng.embed_queries(texts), cuda),
+                  "search": _wall(search, cuda),
+                  "gather": _wall(lambda: all_gather_candidates(v, g), cuda),
+                  "gather_bytes": v.numel() * 8}
+    return out
+
+
+def mh_engine(work, kernels, know, questions, passages, ref, device, rank, out):
+    """Phase 8 (b), (c) in one rank: a ``mesh.multihost`` engine, the text
+    rows (single-pass per local shard), then the fill to 1,048,576 rows
+    (two-pass per local shard)."""
+    import torch
+
+    from modular_rag_system_tpu_torch import RAGConfig, create_engine
+    from modular_rag_system_tpu_torch.types import Document
+
+    cuda = device != "cpu"
+    cfg = RAGConfig.load(overrides={"index.tier": "auto", "mesh.multihost": True,
+                                    "store.storage_path": str(work / f"mh_engine{rank}"),
+                                    "store.snapshot_on_shutdown": False})
+    eng = create_engine(cfg, device=device, index_devices=[device] * MH_SHARDS)
+    idx = eng.index
+    layout = (cfg.mesh.index_shards, cfg.mesh.dcn_slices, idx.S, idx._s0, len(idx.devices))
+    log(f"engine: {eng.encoder.name}, dim {idx.dim}, (index_shards, dcn_slices, S, first "
+        f"global shard, local shards) {layout}, cap_s {idx.cap_s}")
+    if layout != (MH_RANKS * MH_SHARDS, MH_RANKS, MH_RANKS * MH_SHARDS, rank * MH_SHARDS,
+                  MH_SHARDS) or idx.group is None:
+        raise AssertionError(f"unexpected multihost layout {layout}")
+    t0 = time.perf_counter()
+    eng.add_documents([Document(content=t, source="knowledge") for t in know])
+    for p in passages:
+        eng.add_text(p, source="qa")
+    dt = time.perf_counter() - t0
+    log(f"ingest text (SPMD, every rank the same calls): {idx.count} rows in {dt:.2f} s "
+        f"({idx.count / dt:.1f} rows/s)")
+    if idx.count != ref["n_text"]:
+        raise AssertionError(f"{idx.count} text rows, phase 3 had {ref['n_text']}")
+    got = {}
+    searches = len(range(0, len(questions), 256)) + MH_Q1
+    n = drive(kernels, "multihost single-pass (2 local shards)", "fused_topk_int8",
+              lambda: got.update(mh_answers(eng, questions)))
+    if n != MH_SHARDS * searches:
+        raise AssertionError(f"{n} fused_topk_int8 launches, expected {MH_SHARDS} local "
+                             f"shards x {searches} searches")
+    out["text"], out["launches"] = got, {"text": n}
+    out["stages_text"] = mh_search_stages(eng, questions, cuda)
+
+    g = torch.Generator(device=idx.device).manual_seed(1)  # phase 3's fill rows
+    fill(eng, g, FULL_ROWS)
+    if idx.capacity != FULL_ROWS or idx.effective_tier() != "int8":
+        raise AssertionError(f"capacity {idx.capacity}, tier {idx.effective_tier()}")
+    n = drive(kernels, "multihost two-pass (2 local shards)", "binmax_int8",
+              lambda: (eng.query_batch(questions[:256], similarity_threshold=0.0),
+                       eng.query(questions[0], similarity_threshold=0.0)))
+    if n != MH_SHARDS * 2:
+        raise AssertionError(f"{n} binmax_int8 launches, expected {MH_SHARDS} x 2")
+    out["launches"]["two_pass"] = n
+    rec = mh_check_exact(idx, eng.embed_queries(questions[:256]), 10,
+                         f"multihost two-pass route ({idx.count} rows)")
+    if rec != 1.0:
+        raise AssertionError(f"multihost two-pass recall@10 {rec} != 1.0")
+    out["stages_two_pass"] = mh_search_stages(eng, questions, cuda)
+    out["index_bytes"] = idx.memory_bytes()
+    eng.shutdown()
+
+
+def mh_train(work, questions, passages, ref, device, rank, out):
+    """Phase 8 (d) in one rank: the trainer on (2, 1) and (1, 2) over the
+    bundled dense half at full width, phase 6's batches."""
+    import random
+
+    import torch
+
+    from modular_rag_system_tpu_torch import RAGConfig
+    from modular_rag_system_tpu_torch.models.default_ckpt import build_default_encoder
+    from modular_rag_system_tpu_torch.models.train import ContrastiveTrainer
+    from modular_rag_system_tpu_torch.parallel import multihost
+    from modular_rag_system_tpu_torch.parallel.mesh import make_train_mesh
+
+    cuda = device != "cpu"
+    order = list(range(len(questions)))  # phase 6's batches
+    random.Random(0).shuffle(order)
+
+    def batch(s, size=TRAIN_BATCH):
+        rows = [order[(s * TRAIN_BATCH + i) % len(order)] for i in range(size)]
+        return [questions[i] for i in rows], [passages[i] for i in rows]
+
+    out["train"] = {}
+    for D, M in ((2, 1), (1, 2)):
+        name = f"{D}x{M}"
+        mesh = make_train_mesh(D, M)
+        trainer = ContrastiveTrainer(build_default_encoder(RAGConfig(), device), mesh,
+                                     learning_rate=TRAIN_LR)
+        losses, step_ms = [], []
+        for s in range(MH_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss, acc = trainer.step(*batch(s))
+            if cuda:
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+        # the loss falls: step 0's batch again, at the trained weights
+        after, _ = trainer.evaluate(*batch(0))
+        res = {"losses": losses, "step_ms": step_ms, "batch0_after": after}
+        log(f"train {name}: losses {[round(x, 5) for x in losses]}, step 0's batch after "
+            f"{MH_TRAIN_STEPS} steps {after:.5f}; step ms {[round(x, 1) for x in step_ms]}")
+        if abs(losses[0] - ref["step0"]) > STEP0_LOSS_TOL:
+            raise AssertionError(f"train {name}: step 0 loss {losses[0]} against phase 6's "
+                                 f"{ref['step0']}")
+        if not all(map(math.isfinite, losses)) or not after < losses[0]:
+            raise AssertionError(f"train {name}: the loss did not fall: {losses}, {after}")
+        if D == 2:
+            # 255 pairs: one clone row pads the batch to 256; its loss
+            # before the step against one device's over the 255 pairs
+            q255, p255 = batch(MH_TRAIN_STEPS, TRAIN_BATCH - 1)
+            l_mesh, _ = trainer.evaluate(q255, p255)
+            trainer.sync_encoder()
+            l_one, _ = ContrastiveTrainer(trainer.encoder).evaluate(q255, p255)
+            loss, _ = trainer.step(q255, p255)
+            log(f"train {name}: 255-pair batch (a clone row) loss {l_mesh:.5f}, one device "
+                f"over the 255 pairs {l_one:.5f}; its step {loss:.5f}")
+            if abs(l_mesh - l_one) > STEP0_LOSS_TOL or not math.isfinite(loss):
+                raise AssertionError(f"train {name}: the clone-row batch {l_mesh} {l_one}")
+            flat = torch.cat([p.detach().reshape(-1) for p in trainer.params.values()])
+            res["allreduce_ms"] = _wall(lambda: multihost.all_reduce_sum(flat, mesh.data_group),
+                                        cuda, reps=5)
+            res["allreduce_mb"] = flat.numel() * 4 / 1e6
+            log(f"train {name}: gradient all-reduce ({res['allreduce_mb']:.1f} MB of f32 over "
+                f"the data group, staged through the host) {res['allreduce_ms']:.2f} ms")
+        else:
+            ckpt = work / "mh_ckpt.pt"
+            trainer.save_checkpoint(str(ckpt))
+            full = trainer.full(trainer.params)
+            one = ContrastiveTrainer(build_default_encoder(RAGConfig(), device),
+                                     learning_rate=TRAIN_LR)
+            one.restore_checkpoint(str(ckpt))
+            same = all(torch.equal(one.params[k].detach(), v) for k, v in full.items())
+            log(f"train {name}: checkpoint ({ckpt.stat().st_size / 1e6:.1f} MB, written by "
+                f"rank 0) restored into a one-device trainer: tensors equal {same}, step "
+                f"{one.step_count}")
+            if not same or one.step_count != trainer.step_count:
+                raise AssertionError(f"train {name}: the checkpoint restored other tensors")
+        out["train"][name] = res
+        del trainer
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+def mh_fine_tune(work, kernels, know, questions, passages, device, rank, out):
+    """Phase 8 (e) in one rank: ``fine_tune_from_feedback`` under the live
+    group of 2 (a (1, 2) layout), then the questions through
+    ``fused_topk_int8`` on the re-embedded index, held against the exact
+    tier."""
+    import random
+
+    from modular_rag_system_tpu_torch import RAGConfig
+    from modular_rag_system_tpu_torch.facade import EnhancedRAGSystem
+    from modular_rag_system_tpu_torch.types import Document
+
+    cfg = RAGConfig.load(overrides={"index.tier": "int8", "serving.file_server_port": 0,
+                                    "store.storage_path": str(work / f"mh_fine_tune{rank}")})
+    system = EnhancedRAGSystem(cfg, device=device, enable_llm=False)
+    try:
+        eng = system.engine
+        eng.add_documents([Document(content=t, source="knowledge") for t in know])
+        for p in passages:
+            eng.add_text(p, source="qa")
+        order = list(range(len(questions)))
+        random.Random(0).shuffle(order)
+        for i in order[:FEEDBACK_PAIRS]:
+            system.record_feedback(questions[i], "positive", matched_content=passages[i])
+        t0 = time.perf_counter()
+        metrics = system.fine_tune_from_feedback(steps=MH_FEEDBACK_STEPS)
+        dt = time.perf_counter() - t0
+        shape = system._trainer.mesh.shape
+        log(f"fine_tune_from_feedback({MH_FEEDBACK_STEPS} steps, {FEEDBACK_PAIRS} pairs) on "
+            f"a {shape} layout in {dt:.2f} s: {metrics}")
+        if shape != {"data": 1, "model": 2} or metrics is None or not math.isfinite(
+                metrics["final_loss"]):
+            raise AssertionError(f"fine_tune_from_feedback: {shape} {metrics}")
+        got = {}
+        n = route_only(kernels, f"query_batch x{len(questions)} after the fine-tune",
+                       "fused_topk_int8", lambda: got.update(mh_answers(eng, questions)))
+        q = eng.embed_queries(questions)
+        for lo in range(0, len(questions), 256):
+            rec = check_against_exact(eng, q[lo:lo + 256], 10, 1e-5,
+                                      "the re-embedded index")
+            if rec != 1.0:
+                raise AssertionError(f"recall@10 {rec} against the exact tier after the "
+                                     f"fine-tune")
+        out["fine_tune"], out["launches"]["fine_tune"] = got, n
+        out["fine_tune_s"] = dt
+    finally:
+        system.shutdown()
+
+
+def multihost_rank(argv) -> int:
+    """One rank of phase 8 (``chip_smoke.py --multihost-rank WORK DEVICE
+    RANK N HOST:PORT``): (b)-(e), its report to ``WORK/mh_rank<RANK>.json``."""
+    work, device, rank, n, coord = Path(argv[0]), argv[1], int(argv[2]), int(argv[3]), argv[4]
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from modular_rag_system_tpu_torch import kernels
+    from modular_rag_system_tpu_torch.parallel import multihost
+
+    if device != "cpu" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    multihost.initialize_multihost(coord, n, rank)
+    ref = json.loads((work / "mh_ref.json").read_text())
+    know, questions, passages = load_corpus()
+    out = {}
+    t0 = time.perf_counter()
+    mh_engine(work, kernels, know, questions, passages, ref, device, rank, out)
+    t1 = time.perf_counter()
+    mh_train(work, questions, passages, ref, device, rank, out)
+    t2 = time.perf_counter()
+    mh_fine_tune(work, kernels, know, questions, passages, device, rank, out)
+    out["seconds"] = {"engine": t1 - t0, "train": t2 - t1, "fine_tune": time.perf_counter() - t2}
+    if device != "cpu":
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    (work / f"mh_rank{rank}.json").write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def multihost_phase(work, ref, device="cuda"):
+    """Phase 8: two processes on ``device``, one gloo group of 2.  (a)
+    ``mh_check`` with tensors on the device; (b)-(e) in two ranks of this
+    script (``multihost_rank``), each failure of a rank failing the
+    phase: a ``mesh.multihost`` engine over the text rows and at
+    1,048,576 rows, the trainer on (2, 1) and (1, 2), and
+    ``fine_tune_from_feedback``.  The ranks' answers must equal each
+    other's and phase 3's (``ref``).  Returns each rank's launches of
+    ``fused_topk_int8`` and ``binmax_int8``."""
+    from modular_rag_system_tpu_torch.parallel.mh_check import (
+        spawn_ranks,
+        spawn_two_process_cluster,
+    )
+
+    t0 = time.perf_counter()
+    res = spawn_two_process_cluster(device=device, shards_per_process=MH_SHARDS, timeout=300,
+                                    repo_dir=str(ROOT))
+    for r, (_, out, _) in enumerate(res):
+        for line in out.strip().splitlines():
+            log(f"  mh_check rank {r}: {line}")
+    log(f"multihost (a): mh_check, 2 processes x {MH_SHARDS} shards on {device}: every "
+        f"marker in both ranks, {time.perf_counter() - t0:.1f} s")
+    (work / "mh_ref.json").write_text(json.dumps(ref))
+    t0 = time.perf_counter()
+    res = spawn_ranks([str(ROOT / "chip_smoke.py"), "--multihost-rank", str(work), device],
+                      MH_RANKS, timeout=720, cwd=str(ROOT))
+    for r, (_, out, _) in enumerate(res):
+        for line in out.strip().splitlines():
+            log(f"  rank {r}: {line}")
+    reps = [json.loads((work / f"mh_rank{r}.json").read_text()) for r in range(MH_RANKS)]
+    log(f"multihost (b)-(e): both ranks exited 0 after {time.perf_counter() - t0:.1f} s "
+        f"(rank 0's seconds {reps[0]['seconds']}, peak device memory a rank "
+        f"{[round(r.get('peak_gb', 0.0), 2) for r in reps]} GB)")
+    for key in ("text", "fine_tune"):
+        if reps[0][key] != reps[1][key]:
+            raise AssertionError(f"multihost: the ranks' {key} answers differ")
+    for key in ("q256", "q1"):
+        hold_near_ties(reps[0]["text"][key], ref["text"][key], MH_TIE_TOL,
+                       f"multihost {key} answers (both ranks) against phase 3's one device")
+    for name, key in (("single-pass (text rows)", "stages_text"),
+                      (f"two-pass ({FULL_ROWS:,} rows)", "stages_two_pass")):
+        for Q in ("1", "256"):
+            st = [r[key][Q] for r in reps]
+            log(f"multihost {name} Q={Q}: search stage {[round(x['search'], 3) for x in st]} ms "
+                f"(ranks 0, 1; the all-gather of {st[0]['gather_bytes']} bytes a rank "
+                f"{[round(x['gather'], 3) for x in st]} ms, share "
+                f"{[round(x['gather'] / x['search'], 3) for x in st]}); embed "
+                f"{[round(x['embed'], 2) for x in st]} ms")
+    for Q in (1, 256):
+        log(f"  beside phase 4e (4 shards, one process, single-pass) Q={Q}: search "
+            f"{ref['stages_4e'][Q]['search']:.3f} ms, embed "
+            f"{ref['stages_4e'][Q]['embed (tokenize+lexical+forward)']:.2f} ms")
+    for name in ("2x1", "1x2"):
+        st = [r["train"][name] for r in reps]
+        log(f"multihost train {name}: step ms median over steps 1-{MH_TRAIN_STEPS - 1} "
+            f"{[round(statistics.median(x['step_ms'][1:]), 2) for x in st]} (ranks 0, 1; "
+            f"phase 6's one device {ref['step_ms']} ms), step 0 loss {st[0]['losses'][0]:.5f} "
+            f"(phase 6 {ref['step0']:.5f})"
+            + (f"; gradient all-reduce {[round(x['allreduce_ms'], 2) for x in st]} ms for "
+               f"{st[0]['allreduce_mb']:.1f} MB" if "allreduce_ms" in st[0] else ""))
+    launches = {"fused_topk_int8": {f"rank{r}": {"text": x["launches"]["text"],
+                                                 "fine_tune": x["launches"]["fine_tune"]}
+                                    for r, x in enumerate(reps)},
+                "binmax_int8": {f"rank{r}": {"two_pass": x["launches"]["two_pass"]}
+                                for r, x in enumerate(reps)}}
+    log(f"multihost launches (per rank, {MH_SHARDS} local shards a search): {launches}")
+    return launches
+
+
 def phase(name, t0):
     log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     return time.perf_counter()
@@ -2929,6 +3356,7 @@ def smoke(work: Path) -> int:
         f"capacity {eng.index.capacity}")
     launches["fused_topk_int8"] = run_route(eng, kernels, questions, "single-pass",
                                             "fused_topk_int8")
+    text_ref = mh_answers(eng, questions)  # phase 8's ranks answer the same
     entries["fused_topk_int8"], err = time_fused(eng, eng.embed_queries(questions[:256]), spec)
     errs["fused_topk_int8"] = max(errs["fused_topk_int8"], err)
     r_small = gold_recall(eng, questions, passages)
@@ -3124,8 +3552,8 @@ def smoke(work: Path) -> int:
     tp = phase("4d (int4 restart, int4 fine kernels)", tp)
 
     # ---- phase 4e: the sharded index (4 shards on the card)
-    shard_launches = sharded_phase(work, storage, kernels, know, questions, passages,
-                                   r_ivf, refill_s)
+    shard_launches, stages_4e = sharded_phase(work, storage, kernels, know, questions,
+                                              passages, r_ivf, refill_s)
     tp = phase("4e (sharded index)", tp)
 
     # ---- phase 5: the facade, the HTTP server, the lifecycle, the launcher
@@ -3142,6 +3570,14 @@ def smoke(work: Path) -> int:
     hf = hf_phase(work, kernels, know, questions, passages, spec, trained.get("step_ms"))
     errs["mea_attention"] = max(errs["mea_attention"], hf["mea_L256_err"])
     tp = phase("7 (HF encoder, native tokenizer, external eval)", tp)
+
+    # ---- phase 8: two processes on the card, one gloo group
+    gc.collect()
+    torch.cuda.empty_cache()
+    mh_launches = multihost_phase(work, {
+        "text": text_ref, "n_text": n_text, "step0": trained["losses"][0],
+        "step_ms": trained.get("step_ms"), "stages_4e": stages_4e})
+    tp = phase("8 (two processes: mh_check, engine, trainer layouts, fine-tune)", tp)
 
     out = []
     replaces = {"binmax_int8": "modular_rag_system_tpu/ops/binmax_topk.py:450",
@@ -3162,6 +3598,8 @@ def smoke(work: Path) -> int:
             entry["entry_points_launches"] = entry_launches
         if kname in shard_launches:  # per shard on the sharded routes (phase 4e)
             entry["sharded_launches"] = shard_launches[kname]
+        if kname in mh_launches:  # each rank's, per local shard (phase 8)
+            entry["multihost_launches"] = mh_launches[kname]
         if kname in ("fused_topk_int8", "mea_attention"):  # the HF engines (phase 7)
             entry["hf_launches"] = hf[kname]
         if kname == "mea_attention":  # alone at the HF checkpoint's L = 256 bucket
@@ -3179,4 +3617,6 @@ def smoke(work: Path) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-rank"]:  # one rank of phase 8
+        sys.exit(multihost_rank(sys.argv[2:]))
     sys.exit(main())

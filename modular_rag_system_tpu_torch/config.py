@@ -133,8 +133,13 @@ class ServingConfig:
 @dataclass
 class MeshConfig:
     """Sharded / multihost layout: ``index_shards > 1`` builds a
-    ``ShardedIndex`` (``dcn_slices > 1``: its two-level merge); multihost
-    is not ported yet and raises in the engine."""
+    ``ShardedIndex`` (``dcn_slices > 1``: its two-level merge).
+    ``multihost`` joins a ``torch.distributed`` group (``coordinator``,
+    ``num_processes``, ``process_id``, else the ``RAG_*`` or torchrun
+    environment) before the engine builds its index: the slices are then
+    the processes, and unset ``index_shards`` / ``dcn_slices`` default to
+    the global shard count and the process count
+    (``parallel/multihost.py``)."""
 
     index_shards: int = 1
     dcn_slices: int = 1

@@ -12,7 +12,12 @@ cleanup, compaction, re-embedding, gzip JSON export).  With
 ``mesh.index_shards > 1`` the index is a ``ShardedIndex``
 (``parallel/sharded.py``) over the devices ``index_devices`` lists (by
 default one card a shard), and the engine's device runs the encoder and
-the merge.
+the merge.  With ``mesh.multihost`` every process of a
+``torch.distributed`` group runs the same engine (``parallel/
+multihost.py``): the index's slices are the processes, each holding its
+own shards, every process issues the same writes (the SPMD ingest
+contract) and keeps its own store, and a search merges the ranks'
+candidates.
 
 Threads: queries run from several threads at once (the HTTP server's
 query batcher flushes concurrently).  Each query searches one index
@@ -84,14 +89,30 @@ class RAGEngine:
         S copies of ``cpu`` on the CPU)."""
         self.config = config or RAGConfig()
         mc = self.config.mesh
-        if mc.multihost:
-            raise NotImplementedError(
-                "multihost index layouts are not ported yet (ROADMAP section 1, "
-                "item 1: multihost over torch.distributed)")
         self.device = resolve_device(device)
+        group = None
+        if mc.multihost:
+            # join the group and derive the mesh defaults before the
+            # layout is built: a process's local shards are
+            # index_devices, else the engine's one device
+            from modular_rag_system_tpu_torch.parallel import multihost
+
+            multihost.ensure_multihost(self.config, index_devices or [self.device])
+            if multihost.world_size() > 1:
+                group = torch.distributed.group.WORLD
         # the shards' layout first: too few cards raises before any build
         shard_mesh = None
-        if mc.index_shards > 1:
+        if group is not None:
+            W = multihost.world_size()
+            if mc.dcn_slices != W or mc.index_shards % W:
+                raise ValueError(
+                    f"across {W} processes the index's slices are the processes: "
+                    f"dcn_slices must be {W} (got {mc.dcn_slices}) and index_shards "
+                    f"a multiple of it (got {mc.index_shards})")
+            per = mc.index_shards // W
+            shard_mesh = ([self.device] if per == 1 and index_devices is None
+                          else make_index_mesh(per, index_devices, self.device))
+        elif mc.index_shards > 1:
             if mc.dcn_slices > 1:
                 if mc.index_shards % mc.dcn_slices:
                     raise ValueError(f"index_shards ({mc.index_shards}) must divide by "
@@ -114,7 +135,7 @@ class RAGEngine:
         if shard_mesh is not None:
             self.index = ShardedIndex(dim=self.embed_dim, mesh=shard_mesh,
                                       capacity=ic.initial_capacity, device=self.device,
-                                      **_index_tier_kwargs(ic))
+                                      group=group, **_index_tier_kwargs(ic))
         else:
             self.index = DeviceIndex(dim=self.embed_dim, capacity=ic.initial_capacity,
                                      device=self.device, **_index_tier_kwargs(ic))
@@ -569,7 +590,7 @@ class RAGEngine:
         kw = dict(dim=self.index.dim, capacity=max(capacity, 4096), device=self.device,
                   **_index_tier_kwargs(self.index))
         if isinstance(self.index, ShardedIndex):
-            return ShardedIndex(mesh=self.index.mesh, **kw)
+            return ShardedIndex(mesh=self.index.mesh, group=self.index.group, **kw)
         return DeviceIndex(**kw)
 
     def _compact_locked(self) -> int:

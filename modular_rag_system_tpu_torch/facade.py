@@ -300,13 +300,23 @@ class EnhancedRAGSystem:
         if len(pairs) < min_pairs or not isinstance(enc, MiniLMEncoder):
             return None
         from modular_rag_system_tpu_torch.models.train import ContrastiveTrainer
+        from modular_rag_system_tpu_torch.parallel import multihost
+        from modular_rag_system_tpu_torch.parallel.mesh import make_train_mesh
 
         # one trainer per facade keeps the optimizer moments warm across
         # feedback rounds; a new learning rate builds a new one, which
-        # starts from the encoder's published weights
+        # starts from the encoder's published weights.  With a live
+        # process group of W ranks (every rank calls this), the JAX
+        # facade's rule with ranks for devices: a (W / mp, mp) layout,
+        # mp = 2 when W is even
         trainer = self._trainer
         if trainer is None or trainer.learning_rate != learning_rate:
-            trainer = ContrastiveTrainer(enc, learning_rate=learning_rate)
+            mesh = None
+            if multihost.is_initialized():
+                n = multihost.world_size()
+                model_par = 2 if n % 2 == 0 and n > 1 else 1
+                mesh = make_train_mesh(n // model_par, model_par)
+            trainer = ContrastiveTrainer(enc, mesh, learning_rate=learning_rate)
             self._trainer = trainer
         qs = [q for q, _ in pairs]
         ps = [p for _, p in pairs]

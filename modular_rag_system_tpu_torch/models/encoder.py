@@ -24,6 +24,14 @@ name, rewritten as ``nn.Module``s with the same numerics:
 * erf GELU; masked mean-pool in f32, then L2 normalisation with a 1e-12
   floor.
 
+With ``tp`` (the trainer's model axis, ``models/train.py``) a module holds
+one rank's part of each block, Megatron's split: its share of the heads in
+q, k, v and the columns of ``out``, its share of the FFN width in
+``ffn_in`` and the columns of ``ffn_out``; ``tp.enter`` marks where a
+block's replicated input enters the split layers, ``tp.reduce`` sums the
+ranks' partial ``out`` and ``ffn_out`` products, and the replicated bias
+is added after that sum.
+
 ``MiniLMEncoder`` is the host wrapper: tokenize, crop to the pow-2
 sequence bucket (min 32), pad the batch to a power of two, forward.  It
 keeps the f32 weights as ``params``; without a state dict it draws them
@@ -64,32 +72,47 @@ class LayerNormF32(nn.Module):
         return (x - mean) * mul + self.bias
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def _dense(layer: nn.Linear, x: torch.Tensor, tp=None) -> torch.Tensor:
     # weights cast to the compute dtype; product rounded to it first, bias
-    # added after (flax)
-    return F.linear(x, layer.weight.to(x.dtype)) + layer.bias.to(x.dtype)
+    # added after (flax); under tp the ranks' partial products are summed
+    # before the bias
+    y = F.linear(x, layer.weight.to(x.dtype))
+    return (y if tp is None else tp.reduce(y)) + layer.bias.to(x.dtype)
+
+
+def _split(n: int, tp, what: str) -> int:
+    """This rank's share of ``n`` heads or FFN units under ``tp``."""
+    size = 1 if tp is None else tp.size
+    if n % size:
+        raise ValueError(f"{n} {what} do not split over {size} model ranks")
+    return n // size
 
 
 class SelfAttention(nn.Module):
     def __init__(self, hidden: int, heads: int, param_dtype: torch.dtype,
-                 attention_impl: str = "dense") -> None:
+                 attention_impl: str = "dense", tp=None) -> None:
         super().__init__()
-        self.heads = heads
+        self.dh = hidden // heads
+        self.heads = _split(heads, tp, "heads")  # this rank's
         self.attention_impl = attention_impl
-        self.query = nn.Linear(hidden, hidden, dtype=param_dtype)
-        self.key = nn.Linear(hidden, hidden, dtype=param_dtype)
-        self.value = nn.Linear(hidden, hidden, dtype=param_dtype)
-        self.out = nn.Linear(hidden, hidden, dtype=param_dtype)
+        self.tp = tp
+        width = self.heads * self.dh
+        self.query = nn.Linear(hidden, width, dtype=param_dtype)
+        self.key = nn.Linear(hidden, width, dtype=param_dtype)
+        self.value = nn.Linear(hidden, width, dtype=param_dtype)
+        self.out = nn.Linear(width, hidden, dtype=param_dtype)
 
     def forward(self, x: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
-        B, L, H = x.shape
-        dh = H // self.heads
+        B, L, _ = x.shape
+        dh, W = self.dh, self.heads * self.dh
+        if self.tp is not None:
+            x = self.tp.enter(x)
         q = _dense(self.query, x).view(B, L, self.heads, dh)
         k = _dense(self.key, x).view(B, L, self.heads, dh)
         v = _dense(self.value, x).view(B, L, self.heads, dh)
         if self.attention_impl == "flash":
             # the kernel scales the f32 scores itself and masks keys only
-            return _dense(self.out, mea_attention(q, k, v, pad).reshape(B, L, H))
+            return _dense(self.out, mea_attention(q, k, v, pad).reshape(B, L, W), self.tp)
         q = q / torch.tensor(math.sqrt(dh), dtype=torch.float32).to(x.dtype)
         w = torch.einsum("bqhd,bkhd->bhqk", q, k)
         # nn.make_attention_mask: query mask x key mask
@@ -98,37 +121,41 @@ class SelfAttention(nn.Module):
         # jax.nn.softmax in the compute dtype (the sum accumulates in f32)
         u = torch.exp(w - w.amax(-1, keepdim=True))
         w = u / u.sum(-1, keepdim=True, dtype=torch.float32).to(x.dtype)
-        o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, H)
-        return _dense(self.out, o)
+        o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, W)
+        return _dense(self.out, o, self.tp)
 
 
 class TransformerBlock(nn.Module):
     def __init__(self, hidden: int, heads: int, mlp_dim: int,
-                 param_dtype: torch.dtype, attention_impl: str = "dense") -> None:
+                 param_dtype: torch.dtype, attention_impl: str = "dense", tp=None) -> None:
         super().__init__()
-        self.attn = SelfAttention(hidden, heads, param_dtype, attention_impl)
+        self.attn = SelfAttention(hidden, heads, param_dtype, attention_impl, tp)
         self.ln0 = LayerNormF32(hidden)
-        self.ffn_in = nn.Linear(hidden, mlp_dim, dtype=param_dtype)
-        self.ffn_out = nn.Linear(mlp_dim, hidden, dtype=param_dtype)
+        mlp = _split(mlp_dim, tp, "FFN units")
+        self.ffn_in = nn.Linear(hidden, mlp, dtype=param_dtype)
+        self.ffn_out = nn.Linear(mlp, hidden, dtype=param_dtype)
         self.ln1 = LayerNormF32(hidden)
+        self.tp = tp
 
     def forward(self, x: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
         x = self.ln0(x + self.attn(x, pad)).to(dtype)
-        h = _dense(self.ffn_out, F.gelu(_dense(self.ffn_in, x)))
+        h = x if self.tp is None else self.tp.enter(x)
+        h = _dense(self.ffn_out, F.gelu(_dense(self.ffn_in, h)), self.tp)
         return self.ln1(x + h).to(dtype)
 
 
 class SentenceEncoderModule(nn.Module):
     """(ids, mask) (B, L) int -> (B, hidden) f32 unit rows.  ``dtype``
     is the compute dtype, ``param_dtype`` that of the Dense and embedding
-    weights (the compute dtype unless given); LayerNorms keep f32."""
+    weights (the compute dtype unless given); LayerNorms keep f32.
+    ``tp``: one model rank's part of each block (see the module doc)."""
 
     def __init__(self, vocab_size: int = 30522, hidden: int = 384,
                  layers: int = 6, heads: int = 12, mlp_dim: int = 1536,
                  max_len: int = 256, dtype: torch.dtype = torch.bfloat16,
                  attention_impl: str = "dense",
-                 param_dtype: Optional[torch.dtype] = None) -> None:
+                 param_dtype: Optional[torch.dtype] = None, tp=None) -> None:
         super().__init__()
         if attention_impl not in ("dense", "flash"):
             raise ValueError(
@@ -139,7 +166,7 @@ class SentenceEncoderModule(nn.Module):
         self.pos_embed = nn.Embedding(max_len, hidden, dtype=param_dtype)
         self.embed_ln = LayerNormF32(hidden)
         self.blocks = nn.ModuleList(
-            TransformerBlock(hidden, heads, mlp_dim, param_dtype, attention_impl)
+            TransformerBlock(hidden, heads, mlp_dim, param_dtype, attention_impl, tp)
             for _ in range(layers))
         self.dtype = dtype
 
@@ -238,12 +265,13 @@ class MiniLMEncoder:
         self.publish(state_dict)
         self.name = f"minilm-l{num_layers}-h{dim}"
 
-    def make_module(self, param_dtype: Optional[torch.dtype] = None
+    def make_module(self, param_dtype: Optional[torch.dtype] = None, tp=None
                     ) -> SentenceEncoderModule:
         """An uninitialised module of this encoder's architecture on its
-        device, weights in ``param_dtype`` (default: the compute dtype)."""
+        device, weights in ``param_dtype`` (default: the compute dtype);
+        with ``tp``, one model rank's part of it."""
         with torch.device("meta"):
-            module = SentenceEncoderModule(**self._arch, param_dtype=param_dtype)
+            module = SentenceEncoderModule(**self._arch, param_dtype=param_dtype, tp=tp)
         return module.to_empty(device=self.device)
 
     def publish(self, params: Dict[str, torch.Tensor]) -> None:

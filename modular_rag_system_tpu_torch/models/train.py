@@ -1,12 +1,13 @@
-"""Contrastive encoder fine-tuning on one device.
+"""Contrastive encoder fine-tuning, on one device or over a (data, model)
+layout of ranks.
 
 Symmetric InfoNCE with in-batch negatives over (query, positive) text
 pairs, the JAX package's recipe step for step:
 
 * the logits ``q_emb @ p_emb.T / temperature`` in f32 (TF32 is off on
   the card, ``utils/device.resolve_device``); the loss is the mean of
-  the row-wise and column-wise cross entropies, the accuracy the share
-  of rows whose argmax is their own positive;
+  the row-wise and column-wise cross entropies over the valid rows, the
+  accuracy the share of valid rows whose argmax is their own positive;
 * texts are tokenized to the full ``max_len`` with no bucket crop;
 * the gradient is clipped by its global norm as optax's
   ``clip_by_global_norm`` does (scaled by ``max / norm`` only when
@@ -18,24 +19,145 @@ pairs, the JAX package's recipe step for step:
   ``params``; the forward casts them to the encoder's compute dtype, as
   flax's ``param_dtype`` split does.
 
-The JAX trainer's (data, model) mesh, ``param_spec`` / ``shard_params``
-and the mask of the clone rows that pad a batch to the data axis are not
-here: on one device a batch is never padded.  A ``flash`` encoder is
-refused, as JAX cannot differentiate its Pallas kernel either.
+Over a ``parallel/mesh.make_train_mesh`` layout (the JAX trainer's
+(data, model) mesh, one rank a device; every rank of it runs the same
+calls):
+
+* data: every rank tokenizes the whole batch, padded by cycling to a
+  multiple of ``data``; a rank embeds its slice of the rows, and the
+  embeddings are all-gathered across ``data``.  Every rank then computes
+  the same whole-batch loss, so the gather's backward keeps only the
+  rank's own rows of the gradient, and the sum of the ranks' gradients
+  over ``data`` (one flat all-reduce) is the whole batch's.  The clone
+  rows that padding adds are masked as in the JAX trainer: out of every
+  other row's softmax, and out of the loss and the accuracy.
+* model: ``param_spec`` splits each block's heads (q, k, v rows, ``out``
+  columns) and FFN width (``ffn_in`` rows and bias, ``ffn_out``
+  columns) over ``model``, the JAX ``param_spec`` in PyTorch's layouts;
+  the rest is replicated.  Megatron's pair sits around each split block
+  (``_ModelAxis``): identity forward and all-reduce backward where the
+  replicated input enters, all-reduce forward and identity backward
+  after ``out`` and ``ffn_out``.
+* update: the clip's global norm sums the split tensors' squares across
+  ``model`` and counts each replicated tensor once; AdamW runs on each
+  rank's own tensors, so replicated ones stay bit-identical.
+* checkpoints hold full tensors (gathered across ``model``, written by
+  rank 0), so one restores onto any layout, one device included;
+  ``sync_encoder`` publishes full weights to every rank's encoder.
+
+A ``flash`` encoder is refused, as JAX cannot differentiate its Pallas
+kernel either.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from modular_rag_system_tpu_torch.parallel import multihost
+
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
 
+def param_spec(name: str) -> Optional[int]:
+    """The dim of state-dict tensor ``name`` that the model axis splits,
+    None when it is replicated: JAX ``models/train.py param_spec`` in
+    ``nn.Linear``'s (out, in) layout.  q/k/v weights and biases split on
+    dim 0 (whole heads: their rows are head-major), ``out.weight`` on dim
+    1, ``ffn_in`` weight and bias on dim 0, ``ffn_out.weight`` on dim 1;
+    the ``out`` and ``ffn_out`` biases, the embeddings and the LayerNorms
+    are replicated."""
+    parts = name.split(".")
+    layer, kind = parts[-2], parts[-1]
+    if len(parts) > 2 and parts[-3] == "attn":
+        if layer in ("query", "key", "value"):
+            return 0
+        return 1 if layer == "out" and kind == "weight" else None
+    if layer == "ffn_in":
+        return 0
+    return 1 if layer == "ffn_out" and kind == "weight" else None
+
+
+def shard_params(params: Dict[str, torch.Tensor], model: int, index: int
+                 ) -> Dict[str, torch.Tensor]:
+    """Model rank ``index``'s part of full tensors (views)."""
+    out = {}
+    for k, v in params.items():
+        dim = param_spec(k)
+        out[k] = v if dim is None or model == 1 else v.chunk(model, dim)[index]
+    return out
+
+
+def gather_params(local: Dict[str, torch.Tensor], group, model: int
+                  ) -> Dict[str, torch.Tensor]:
+    """Full tensors from each model rank's part (the inverse of
+    ``shard_params``); every rank of ``group`` calls it."""
+    out = {}
+    for k, v in local.items():
+        dim = param_spec(k)
+        v = v.detach()
+        out[k] = v if dim is None or model == 1 else torch.cat(
+            multihost.all_gather(v.contiguous(), group), dim=dim)
+    return out
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward, all-reduce backward over the model group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return multihost.all_reduce_sum(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce forward over the model group, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return multihost.all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every data rank's rows, in rank order; the backward keeps this
+    rank's rows of the gradient (every rank computes the same loss)."""
+
+    @staticmethod
+    def forward(ctx, x, group, index):
+        ctx.rows = slice(index * x.shape[0], (index + 1) * x.shape[0])
+        return torch.cat(multihost.all_gather(x.contiguous(), group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rows], None, None
+
+
+class _ModelAxis:
+    """The encoder's ``tp`` hook: Megatron's conjugate pair."""
+
+    def __init__(self, group, size: int) -> None:
+        self.group, self.size = group, size
+
+    def enter(self, x):
+        return _Enter.apply(x, self.group)
+
+    def reduce(self, x):
+        return _Reduce.apply(x, self.group)
+
+
 class ContrastiveTrainer:
-    """Symmetric-InfoNCE trainer on the encoder's device.
+    """Symmetric-InfoNCE trainer on the encoder's device, alone
+    (``mesh=None``) or as one rank of a ``make_train_mesh`` layout.
 
     ``sync_encoder`` publishes the trained weights to the serving
     encoder; a later trainer over the same encoder starts from them."""
@@ -43,6 +165,7 @@ class ContrastiveTrainer:
     def __init__(
         self,
         encoder,
+        mesh=None,
         learning_rate: float = 2e-5,
         temperature: float = 0.05,
         weight_decay: float = 0.01,
@@ -57,15 +180,21 @@ class ContrastiveTrainer:
             raise ValueError(
                 "ContrastiveTrainer trains only attention_impl='dense' encoders: "
                 "the flash attention kernel has no backward")
+        if mesh is not None and mesh.data_index is None:
+            raise ValueError(f"this rank lies outside the {mesh.data}x{mesh.model} mesh")
         self.encoder = encoder
+        self.mesh = mesh
         self.device = encoder.device
         self.learning_rate = learning_rate
         self.temperature = temperature
         self.weight_decay = weight_decay
         self.clip_norm = clip_norm
         self.warmup_steps = warmup_steps
-        self.model = encoder.make_module(param_dtype=torch.float32)
-        self.model.load_state_dict(encoder.params)
+        self._n_model = 1 if mesh is None else mesh.model
+        self._m_idx = 0 if mesh is None else mesh.model_index
+        self._tp = _ModelAxis(mesh.model_group, mesh.model) if self._n_model > 1 else None
+        self.model = encoder.make_module(param_dtype=torch.float32, tp=self._tp)
+        self.model.load_state_dict(shard_params(encoder.params, self._n_model, self._m_idx))
         self.model.train()
         self.params: Dict[str, torch.nn.Parameter] = dict(self.model.named_parameters())
         self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
@@ -79,17 +208,49 @@ class ContrastiveTrainer:
         return (torch.from_numpy(ids).to(self.device, torch.long),
                 torch.from_numpy(mask).to(self.device))
 
+    def _embed(self, texts: Sequence[str]) -> torch.Tensor:
+        """The whole batch's embeddings: this rank's data slice through
+        the module, then gathered across ``data``."""
+        ids, mask = self._tokenize(texts)
+        m = self.mesh
+        if m is None or m.data == 1:
+            return self.model(ids, mask)
+        n = ids.shape[0] // m.data
+        rows = slice(m.data_index * n, (m.data_index + 1) * n)
+        return _GatherRows.apply(self.model(ids[rows], mask[rows]), m.data_group,
+                                 m.data_index)
+
     def _loss(self, queries: Sequence[str], positives: Sequence[str]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         if len(queries) != len(positives):
             raise ValueError("queries and positives must align")
-        q = self.model(*self._tokenize(queries))  # (B, d) f32
-        p = self.model(*self._tokenize(positives))
+        n_data = 1 if self.mesh is None else self.mesh.data
+        n_real = len(queries)
+        if n_real % n_data:
+            # pad to a multiple of the data axis by cycling the batch; the
+            # clone rows are masked out of the loss
+            target = -(-n_real // n_data) * n_data
+            queries = [queries[i % n_real] for i in range(target)]
+            positives = [positives[i % n_real] for i in range(target)]
+        B = len(queries)
+        valid = (torch.arange(B, device=self.device) < n_real).float()
+        q = self._embed(queries)  # (B, d) f32
+        p = self._embed(positives)
         logits = (q @ p.T) / self.temperature
-        labels = torch.arange(logits.shape[0], device=self.device)
-        loss = 0.5 * (F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels))
-        acc = (logits.argmax(dim=1) == labels).float().mean()
-        return loss, acc
+        labels = torch.arange(B, device=self.device)
+        # a clone row's logit against its original equals the positive's:
+        # clone columns leave every other row's softmax, clone rows weigh 0
+        eye = torch.eye(B, dtype=torch.bool, device=self.device)
+        clone_col = (valid[None, :] == 0) & ~eye
+        n_valid = torch.clamp(valid.sum(), min=1.0)
+
+        def masked_ce(L):
+            ls = F.cross_entropy(torch.where(clone_col, -1e9, L), labels, reduction="none")
+            return (ls * valid).sum() / n_valid
+
+        loss = 0.5 * (masked_ce(logits) + masked_ce(logits.T))
+        hits = (torch.where(clone_col, -1e9, logits).argmax(dim=1) == labels).float()
+        return loss, (hits * valid).sum() / n_valid
 
     def _lr(self, count: int) -> float:
         """optax ``linear_schedule(0, lr, warmup)`` at update ``count``."""
@@ -98,9 +259,27 @@ class ContrastiveTrainer:
         frac = 1.0 - min(count, self.warmup_steps) / self.warmup_steps
         return -self.learning_rate * frac + self.learning_rate
 
+    def _sum_over_data(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The data ranks' gradients summed: one flat all-reduce."""
+        flat = multihost.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads.values()]),
+                                        self.mesh.data_group)
+        out, at = {}, 0
+        for k, g in grads.items():
+            out[k] = flat[at:at + g.numel()].view_as(g)
+            at += g.numel()
+        return out
+
     @torch.no_grad()
     def _update(self, grads: Dict[str, torch.Tensor]) -> None:
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        sq = {k: torch.sum(g * g) for k, g in grads.items()}
+        if self._tp is None:
+            total = sum(sq.values())
+        else:
+            # split tensors' squares summed across model, replicated once
+            split = sum(v for k, v in sq.items() if param_spec(k) is not None)
+            total = multihost.all_reduce_sum(split.reshape(1), self._tp.group)[0] + sum(
+                v for k, v in sq.items() if param_spec(k) is None)
+        norm = torch.sqrt(total)
         keep = norm < self.clip_norm
         count = self.step_count + 1
         bc1, bc2 = 1.0 - _B1 ** count, 1.0 - _B2 ** count
@@ -117,8 +296,10 @@ class ContrastiveTrainer:
         returns the batch's (loss, in-batch accuracy) before the update."""
         loss, acc = self._loss(queries, positives)
         names = list(self.params)
-        grads = torch.autograd.grad(loss, [self.params[k] for k in names])
-        self._update(dict(zip(names, grads)))
+        grads = dict(zip(names, torch.autograd.grad(loss, [self.params[k] for k in names])))
+        if self.mesh is not None and self.mesh.data > 1:
+            grads = self._sum_over_data(grads)
+        self._update(grads)
         self.step_count += 1
         return float(loss.detach()), float(acc)
 
@@ -129,29 +310,46 @@ class ContrastiveTrainer:
         loss, acc = self._loss(queries, positives)
         return float(loss), float(acc)
 
+    def full(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Full tensors of this rank's ``params``, ``mu`` or ``nu``
+        (gathered across ``model``; every model rank calls it)."""
+        if self._tp is None:
+            return {k: v.detach() for k, v in tensors.items()}
+        return gather_params(tensors, self._tp.group, self._n_model)
+
     def sync_encoder(self) -> None:
         """Publish the trained weights to the serving encoder: a new
-        serving module cast from a copy of the f32 masters, swapped in
-        whole (``MiniLMEncoder.publish``); the encoder's ``params`` are
-        that copy."""
-        self.encoder.publish({k: p.detach() for k, p in self.params.items()})
+        serving module cast from a copy of the full f32 masters, swapped
+        in whole (``MiniLMEncoder.publish``); the encoder's ``params`` are
+        that copy.  Every rank of a layout calls it."""
+        self.encoder.publish(self.full(self.params))
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str) -> None:
-        """Masters, moments and step count to one ``torch.save`` file."""
+        """Full masters, moments and step count to one ``torch.save``
+        file; on a layout every rank calls it and rank 0 writes."""
         def host(d):
-            return {k: v.detach().cpu() for k, v in d.items()}
+            return {k: v.cpu() for k, v in self.full(d).items()}
 
-        torch.save({"params": host(self.params), "mu": host(self.mu),
-                    "nu": host(self.nu), "step": self.step_count}, path)
+        state = {"params": host(self.params), "mu": host(self.mu), "nu": host(self.nu),
+                 "step": self.step_count}
+        if self.mesh is None:
+            torch.save(state, path)
+            return
+        if multihost.rank() == 0:  # the grid's first rank
+            torch.save(state, path)
+        multihost.barrier(self.mesh.group)
 
     @torch.no_grad()
     def restore_checkpoint(self, path: str) -> None:
+        """Load a checkpoint of any layout onto this trainer's."""
         state = torch.load(path, map_location=self.device, weights_only=True)
         for name, dst in (("params", self.params), ("mu", self.mu), ("nu", self.nu)):
             if set(state[name]) != set(dst):
                 raise ValueError(f"checkpoint {path} does not match this encoder's {name}")
-            for k, v in state[name].items():
+            for k, v in shard_params(state[name], self._n_model, self._m_idx).items():
+                if v.shape != dst[k].shape:
+                    raise ValueError(f"checkpoint {path} does not match this encoder's "
+                                     f"{name} {k}: {tuple(v.shape)}")
                 dst[k].copy_(v)
         self.step_count = int(state["step"])
-

@@ -23,6 +23,18 @@ This is the single-process counterpart of the JAX package's
 ``parallel/sharded.py``, whose one ``shard_map`` program all-gathers the
 candidates over the mesh: here the merge's copies are peer-to-peer copies
 between cards, and stay on the device when the shards share one.
+
+Across processes (``group``: a ``torch.distributed`` group, one slice of
+the layout a rank, in rank order) each rank holds only its own slice's
+shards: rank r's shard c is global shard ``r * P + c`` of S = W * P.
+Writes follow the SPMD ingest contract: every rank runs the same call
+with the same rows and writes the rows its shards own, and ``count`` is
+global.  A search merges within the rank's slice, all-gathers k
+candidates a rank (``parallel/multihost.all_gather_candidates``) and
+merges them again, so every rank returns the same ids as one process
+holding every shard.  ivf builds (the ``auto`` tier's promotion
+included), ``snapshot`` and ``load`` need every row on one host and
+raise, as the JAX package's multihost index does.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ from modular_rag_system_tpu_torch.ops import exact as exact_ops
 from modular_rag_system_tpu_torch.ops.fused_topk import _select_topk
 from modular_rag_system_tpu_torch.ops.quantize import quantize_rows
 from modular_rag_system_tpu_torch.parallel.mesh import make_index_mesh
+from modular_rag_system_tpu_torch.parallel.multihost import all_gather_candidates, group_size
 from modular_rag_system_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -70,6 +83,15 @@ def _on(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
+def _refuse_across_processes(what: str) -> None:
+    raise RuntimeError(
+        f"ShardedIndex across processes cannot {what}: each rank holds only its own "
+        f"slice of the rows, and this needs every row on one host (the JAX package's "
+        f"multihost index raises here too: it cannot fetch a global array that spans "
+        f"another process's devices).  Across processes the index serves add, delete "
+        f"and search under the SPMD ingest contract")
+
+
 def _merge(vals, gids, k: int, device):
     """The global top-k of per-shard (Q, kk) candidates, copied to
     ``device`` and concatenated in shard order, by (score desc, gid asc):
@@ -85,7 +107,9 @@ class ShardedIndex:
     ``mesh`` is a flat list of the shards' devices, or (slices, chips)
     nested lists for the two-level merge (``parallel/mesh.py``); None
     takes every visible card of ``device``'s type.  The lead device
-    (``device``, default the first shard's) holds the merged results."""
+    (``device``, default the first shard's) holds the merged results.
+    With ``group`` (a process group of W ranks), ``mesh`` is this rank's
+    slice (a flat list) of a W-slice layout."""
 
     def __init__(
         self,
@@ -105,6 +129,7 @@ class ShardedIndex:
         ivf_refine_extra: Optional[int] = None,
         ivf_balance: float = 0.0,
         device=None,
+        group=None,
     ) -> None:
         from modular_rag_system_tpu_torch.ops.ivf2 import check_fine_dtype
 
@@ -125,7 +150,14 @@ class ShardedIndex:
         self.devices = ([d for m in self.mesh for d in m] if self.hierarchical
                         else self.mesh)
         self.device = resolve_device(device) if device is not None else self.devices[0]
-        self.S = len(self.devices)
+        self.group = group
+        if group is not None and self.hierarchical:
+            raise ValueError("across processes the slices are the ranks: pass this "
+                             "rank's shards as a flat list")
+        # this process's first global shard, and the global shard count
+        n_proc = 1 if group is None else group_size(group)
+        self._s0 = 0 if group is None else torch.distributed.get_rank(group) * len(self.devices)
+        self.S = n_proc * len(self.devices)
         self.dim = dim
         self.tier = tier
         self.store_dtype = store_dtype
@@ -198,13 +230,14 @@ class ShardedIndex:
         shard s takes every S-th row from its first one, at a run of
         local rows."""
         S = self.S
-        for s, dev in enumerate(self.devices):
+        for c, dev in enumerate(self.devices):
+            s = self._s0 + c
             sub = x[(s - start) % S::S]
             if sub.shape[0]:
-                self._write_shard(s, slice(_count_s(start, s, S), None), sub.to(dev))
+                self._write_shard(c, slice(_count_s(start, s, S), None), sub.to(dev))
 
     def _write_shard(self, s: int, rows, m: torch.Tensor) -> None:
-        """Write store-dtype rows ``m`` of shard s at local ``rows`` (a
+        """Write store-dtype rows ``m`` of local shard s at local ``rows`` (a
         slice from its start, or an index tensor) into the master and the
         derived copies."""
         if isinstance(rows, slice):
@@ -233,13 +266,14 @@ class ShardedIndex:
         self._E_q = self._scales = self._E_bf16 = None
 
     def _rows_by_shard(self, rows: np.ndarray):
-        """(shard, positions in ``rows``, local rows) of rows given by id."""
+        """(local shard, positions in ``rows``, local rows) of the rows
+        given by id that this process's shards own."""
         rows = np.asarray(rows, dtype=np.int64)
         s_idx, j_idx = rows % self.S, rows // self.S
-        for s in range(self.S):
-            pos = np.nonzero(s_idx == s)[0]
+        for c in range(len(self.devices)):
+            pos = np.nonzero(s_idx == self._s0 + c)[0]
             if pos.size:
-                yield s, pos, j_idx[pos]
+                yield c, pos, j_idx[pos]
 
     def _set(self, rows: np.ndarray, mat: Optional[torch.Tensor]) -> None:
         """Overwrite rows (``mat`` f32 on the lead device) or zero them
@@ -333,7 +367,7 @@ class ShardedIndex:
         return t
 
     def _shard_core(self, tier: str, k: int):
-        """fn(s, ops_s, count_s, q_s) -> shard s's (vals, local rows)."""
+        """fn(s, ops_s, count_s, q_s) -> global shard s's (vals, local rows)."""
         if tier in ("exact", "deep"):
             return lambda s, ops, n, q: exact_ops.exact_topk_raw(ops[0], n, q, k)
         bin_width = self.fused_bin_width
@@ -374,16 +408,24 @@ class ShardedIndex:
         k_s = min(k_eff, self.cap_s)
         shard = self._shard_core(tier, k_s)
         S, devices, mesh, hier = self.S, self.devices, self.mesh, self.hierarchical
+        s0, group = self._s0, self.group
 
         def core(ops, count, q):
             vals, gids = [], []
-            for s, dev in enumerate(devices):
+            for c, dev in enumerate(devices):
+                s = s0 + c
                 with _on(dev):
-                    v, loc = shard(s, ops[s], _count_s(count, s, S), q.to(dev))
+                    v, loc = shard(s, ops[c], _count_s(count, s, S), q.to(dev))
                 gids.append(torch.where(torch.isfinite(v) & (loc >= 0), loc * S + s,
                                         _BIG_I32).to(torch.int32))
                 vals.append(torch.where(gids[-1] < _BIG_I32, v, _NEG_INF))
-            if hier:
+            if group is not None:
+                # within this rank's slice, then k candidates a rank
+                # across the ranks, merged in rank order on every rank
+                v, g = _merge(vals, gids, min(k_eff, len(devices) * k_s), q.device)
+                part = all_gather_candidates(v, g, group)
+                v, g = _merge([p[0] for p in part], [p[1] for p in part], k_eff, q.device)
+            elif hier:
                 # within each slice first (on the slice's first device),
                 # then k candidates per slice across slices
                 n = len(mesh[0])
@@ -454,6 +496,8 @@ class ShardedIndex:
         from modular_rag_system_tpu_torch.ops import ivf2 as V
         from modular_rag_system_tpu_torch.ops import kmeans as km
 
+        if self.group is not None:
+            _refuse_across_processes("build the ivf structure")
         with self._build_gate:
             # a consistent view under the state lock, then the heavy
             # k-means + fill without it (writers are excluded by the gate)
@@ -580,6 +624,8 @@ class ShardedIndex:
         format of ``DeviceIndex.snapshot`` and of both JAX indexes, so a
         file loads into any of them); a built ivf structure adds its
         centroids and global per-row labels for a warm start."""
+        if self.group is not None:
+            _refuse_across_processes("write a snapshot")
         with self._lock:
             count, S = self.count, self.S
             live = torch.empty((count, self.dim), dtype=self._dtype)
@@ -604,6 +650,8 @@ class ShardedIndex:
         constructor knob through, ``store_dtype`` is inferred from the
         file, and saved ivf centroids + labels warm-start the rebuild that
         the append triggers."""
+        if tier_kwargs.get("group") is not None:
+            _refuse_across_processes("load a snapshot")
         data = np.load(path)
         count = int(data["count"])
         store_dtype = "bfloat16" if "embeddings_bf16" in data else "float32"
@@ -620,12 +668,13 @@ class ShardedIndex:
 
     def memory_bytes(self) -> int:
         """Device bytes of the masters, the derived copies and the ivf
-        structure, over all shards."""
-        b = self.capacity * self.dim * self.E[0].element_size()
+        structure, over this process's shards."""
+        rows = len(self.devices) * self.cap_s
+        b = rows * self.dim * self.E[0].element_size()
         if self._E_q is not None:
-            b += self.capacity * self.dim + self.capacity * 4
+            b += rows * self.dim + rows * 4
         if self._E_bf16 is not None:
-            b += self.capacity * self.dim * 2
+            b += rows * self.dim * 2
         if self._ivf2 is not None:
             b += self._ivf2.memory_bytes()
         return b

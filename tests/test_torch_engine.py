@@ -106,10 +106,45 @@ def test_delete_readd_and_restart(tmp_path):
 
 @pytest.mark.parametrize("extra", [{"mesh.multihost": True, "mesh.index_shards": 2},
                                    {"mesh.multihost": True}])
-def test_unported_configurations_raise(tmp_path, extra):
-    # multihost is still queued (ROADMAP section 1), also with shards
-    with pytest.raises(NotImplementedError, match="not ported.*multihost"):
-        _port(tmp_path, **extra)
+def test_multihost_engine_in_a_one_process_group(tmp_path, extra):
+    """``mesh.multihost`` joins a process group (here one process, from
+    the RAG_* variables, in a fresh interpreter: no group outlives the
+    test) and builds the one-process layout, whose answers equal the
+    same engine's without it."""
+    import os
+    import subprocess
+    import sys
+
+    from modular_rag_system_tpu_torch.parallel.mh_check import free_port
+
+    env = dict(os.environ, RAG_COORDINATOR=f"127.0.0.1:{free_port()}",
+               RAG_NUM_PROCESSES="1", RAG_PROCESS_ID="0")
+    prog = f"""
+import json
+from modular_rag_system_tpu_torch import RAGConfig, create_engine
+from modular_rag_system_tpu_torch.parallel import multihost
+from modular_rag_system_tpu_torch.types import Document
+texts = json.loads({json.dumps(json.dumps(KNOWLEDGE[:40]))})
+out = []
+for mh, path in ((True, {str(tmp_path / "mh")!r}), (False, {str(tmp_path / "plain")!r})):
+    over = {{**{_fake(tmp_path, **extra)!r}, "store.storage_path": path,
+             "mesh.multihost": mh}}
+    eng = create_engine(RAGConfig.load(overrides=over), device="cpu")
+    eng.add_documents([Document(content=t) for t in texts])
+    res = eng.query_batch(["household pets", "stock market"], max_results=3)
+    out.append([type(eng.index).__name__, eng.index.count, multihost.is_initialized(),
+                [[d.id for d in r.documents] for r in res]])
+    eng.shutdown()
+print(json.dumps(out))
+"""
+    proc = subprocess.run([sys.executable, "-c", prog], env=env, capture_output=True,
+                          text=True, timeout=120, cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    (mh_kind, mh_count, live, mh_ids), (kind, count, _, ids) = json.loads(
+        proc.stdout.strip().splitlines()[-1])
+    assert live and mh_kind == kind == ("ShardedIndex" if "mesh.index_shards" in extra
+                                        else "DeviceIndex")
+    assert mh_count == count == 40 and mh_ids == ids
 
 
 # ---------------------------------------------------------------- sharded

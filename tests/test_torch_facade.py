@@ -409,8 +409,10 @@ def test_launcher_flags(tmp_path):
             "--device", "cpu"]
     # --shards builds the sharded index (two shards on the CPU here)
     assert plauncher.main([*init, "--shards", "2"]) == 0
-    with pytest.raises(NotImplementedError, match="not ported"):
-        plauncher.main([*init, "--multihost"])
+    # --multihost joins a process group in the engine: driven in a child
+    # process by tests/test_torch_multihost.py::test_launcher_multihost_init_only
+    args = plauncher.build_arg_parser().parse_args([*init, "--multihost"])
+    assert plauncher.load_config(args).mesh.multihost is True
 
 
 def test_default_device_raises_without_gpu(tmp_path):

@@ -45,6 +45,8 @@ def test_import_leaves_jax_unloaded():
             "modular_rag_system_tpu_torch.tools.build_lexical_assets, "
             "modular_rag_system_tpu_torch.parallel.mesh, "
             "modular_rag_system_tpu_torch.parallel.sharded, "
+            "modular_rag_system_tpu_torch.parallel.multihost, "
+            "modular_rag_system_tpu_torch.parallel.mh_check, "
             "modular_rag_system_tpu_torch.models.hf_loader, "
             "modular_rag_system_tpu_torch.models.external_eval, "
             "modular_rag_system_tpu_torch.native; "
