@@ -55,6 +55,7 @@ from modular_rag_system_tpu_torch.parallel.sharded import ShardedIndex
 from modular_rag_system_tpu_torch.store import DocumentStore
 from modular_rag_system_tpu_torch.types import Document, Query, RetrievalResult, as_matrix
 from modular_rag_system_tpu_torch.utils.device import resolve_device
+from modular_rag_system_tpu_torch.utils.profiling import TRACER
 from modular_rag_system_tpu_torch.utils.resilience import retry_transient
 
 # every index knob the engine passes through (attribute names match the
@@ -215,20 +216,21 @@ class RAGEngine:
         docs = list(docs)
         if not docs:
             return []
-        emb_dev = None
-        if all(d.embedding is None for d in docs) and hasattr(self.encoder, "encode_device"):
-            # device-resident bulk path: embeddings never touch the host
-            emb_dev = retry_transient(
-                lambda: self.encoder.encode_device([d.content for d in docs]),
-                what="encoder forward")
-        else:
-            need = [d for d in docs if d.embedding is None]
-            if need:
-                mat = self._encode([d.content for d in need])
-                for d, e in zip(need, mat):
-                    d.embedding = e
-        with self._write_lock:
-            return self._place_documents(docs, emb_dev)
+        with TRACER.root("engine.add_documents"):
+            emb_dev = None
+            if all(d.embedding is None for d in docs) and hasattr(self.encoder, "encode_device"):
+                # device-resident bulk path: embeddings never touch the host
+                emb_dev = retry_transient(
+                    lambda: self.encoder.encode_device([d.content for d in docs]),
+                    what="encoder forward")
+            else:
+                need = [d for d in docs if d.embedding is None]
+                if need:
+                    mat = self._encode([d.content for d in need])
+                    for d, e in zip(need, mat):
+                        d.embedding = e
+            with self._write_lock:
+                return self._place_documents(docs, emb_dev)
 
     def _place_documents(self, docs: Sequence[Document], emb_dev=None) -> List[str]:
         placements = self.store.upsert_batch(docs)
@@ -245,7 +247,8 @@ class RAGEngine:
                 new_mat = as_matrix(
                     [np.asarray(docs[i].embedding, dtype=np.float32) for i in new_pos],
                     self.index.dim)
-            self.index.add(new_mat)
+            with TRACER.span("index.add"):
+                self.index.add(new_mat)
         # re-ingest of previously deleted docs: their index rows were
         # zeroed by delete_rows, so write the fresh embeddings back
         res_pos = [i for i, (_r, status) in enumerate(placements) if status == "resurrected"]

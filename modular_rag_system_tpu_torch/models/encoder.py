@@ -51,6 +51,7 @@ from torch import nn
 from modular_rag_system_tpu_torch.models.tokenizer import HashingTokenizer
 from modular_rag_system_tpu_torch.ops.flash_attention import mea_attention
 from modular_rag_system_tpu_torch.utils.device import resolve_device
+from modular_rag_system_tpu_torch.utils.profiling import TRACER
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -319,14 +320,19 @@ class MiniLMEncoder:
         parts = []
         for i in range(0, len(texts), bs):
             chunk = list(texts[i : i + bs])
-            ids, mask = self.tokenizer.encode_batch(chunk)
-            ids, mask = self._crop_seq(ids, mask)
-            n = len(chunk)
-            padded = min(_next_pow2(n), bs)
-            if padded > n:
-                ids = np.pad(ids, ((0, padded - n), (0, 0)))
-                mask = np.pad(mask, ((0, padded - n), (0, 0)))
-            parts.append(self.forward_tokens(ids, mask)[:n])
+            with TRACER.span("encoder.tokenize"):
+                ids, mask = self.tokenizer.encode_batch(chunk)
+                ids, mask = self._crop_seq(ids, mask)
+                n = len(chunk)
+                padded = min(_next_pow2(n), bs)
+                if padded > n:
+                    ids = np.pad(ids, ((0, padded - n), (0, 0)))
+                    mask = np.pad(mask, ((0, padded - n), (0, 0)))
+                if TRACER.on:
+                    TRACER.count("encoder.real_tokens", int(mask.sum()))
+                    TRACER.count("encoder.padded_tokens", mask.size)
+            with TRACER.span("encoder.forward"):
+                parts.append(self.forward_tokens(ids, mask)[:n])
         return torch.cat(parts) if len(parts) > 1 else parts[0]
 
     def encode(self, texts: Sequence[str]) -> np.ndarray:

@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from modular_rag_system_tpu_torch.parallel import multihost
+from modular_rag_system_tpu_torch.utils.profiling import TRACER
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
@@ -204,21 +205,26 @@ class ContrastiveTrainer:
     # ------------------------------------------------------------------
     def _tokenize(self, texts: Sequence[str]):
         # padded to max_len, no bucket crop (the JAX trainer's shapes)
-        ids, mask = self.encoder.tokenizer.encode_batch(list(texts))
-        return (torch.from_numpy(ids).to(self.device, torch.long),
-                torch.from_numpy(mask).to(self.device))
+        with TRACER.span("trainer.tokenize"):
+            ids, mask = self.encoder.tokenizer.encode_batch(list(texts))
+            if TRACER.on:
+                TRACER.count("trainer.real_tokens", int(mask.sum()))
+                TRACER.count("trainer.padded_tokens", mask.size)
+            return (torch.from_numpy(ids).to(self.device, torch.long),
+                    torch.from_numpy(mask).to(self.device))
 
     def _embed(self, texts: Sequence[str]) -> torch.Tensor:
         """The whole batch's embeddings: this rank's data slice through
         the module, then gathered across ``data``."""
         ids, mask = self._tokenize(texts)
-        m = self.mesh
-        if m is None or m.data == 1:
-            return self.model(ids, mask)
-        n = ids.shape[0] // m.data
-        rows = slice(m.data_index * n, (m.data_index + 1) * n)
-        return _GatherRows.apply(self.model(ids[rows], mask[rows]), m.data_group,
-                                 m.data_index)
+        with TRACER.span("trainer.forward"):
+            m = self.mesh
+            if m is None or m.data == 1:
+                return self.model(ids, mask)
+            n = ids.shape[0] // m.data
+            rows = slice(m.data_index * n, (m.data_index + 1) * n)
+            return _GatherRows.apply(self.model(ids[rows], mask[rows]), m.data_group,
+                                     m.data_index)
 
     def _loss(self, queries: Sequence[str], positives: Sequence[str]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -233,24 +239,27 @@ class ContrastiveTrainer:
             queries = [queries[i % n_real] for i in range(target)]
             positives = [positives[i % n_real] for i in range(target)]
         B = len(queries)
-        valid = (torch.arange(B, device=self.device) < n_real).float()
         q = self._embed(queries)  # (B, d) f32
         p = self._embed(positives)
-        logits = (q @ p.T) / self.temperature
-        labels = torch.arange(B, device=self.device)
-        # a clone row's logit against its original equals the positive's:
-        # clone columns leave every other row's softmax, clone rows weigh 0
-        eye = torch.eye(B, dtype=torch.bool, device=self.device)
-        clone_col = (valid[None, :] == 0) & ~eye
-        n_valid = torch.clamp(valid.sum(), min=1.0)
+        with TRACER.span("trainer.forward"):
+            valid = (torch.arange(B, device=self.device) < n_real).float()
+            logits = (q @ p.T) / self.temperature
+            labels = torch.arange(B, device=self.device)
+            # a clone row's logit against its original equals the
+            # positive's: clone columns leave every other row's softmax,
+            # clone rows weigh 0
+            eye = torch.eye(B, dtype=torch.bool, device=self.device)
+            clone_col = (valid[None, :] == 0) & ~eye
+            n_valid = torch.clamp(valid.sum(), min=1.0)
 
-        def masked_ce(L):
-            ls = F.cross_entropy(torch.where(clone_col, -1e9, L), labels, reduction="none")
-            return (ls * valid).sum() / n_valid
+            def masked_ce(L):
+                ls = F.cross_entropy(torch.where(clone_col, -1e9, L), labels,
+                                     reduction="none")
+                return (ls * valid).sum() / n_valid
 
-        loss = 0.5 * (masked_ce(logits) + masked_ce(logits.T))
-        hits = (torch.where(clone_col, -1e9, logits).argmax(dim=1) == labels).float()
-        return loss, (hits * valid).sum() / n_valid
+            loss = 0.5 * (masked_ce(logits) + masked_ce(logits.T))
+            hits = (torch.where(clone_col, -1e9, logits).argmax(dim=1) == labels).float()
+            return loss, (hits * valid).sum() / n_valid
 
     def _lr(self, count: int) -> float:
         """optax ``linear_schedule(0, lr, warmup)`` at update ``count``."""
@@ -271,37 +280,43 @@ class ContrastiveTrainer:
 
     @torch.no_grad()
     def _update(self, grads: Dict[str, torch.Tensor]) -> None:
-        sq = {k: torch.sum(g * g) for k, g in grads.items()}
-        if self._tp is None:
-            total = sum(sq.values())
-        else:
-            # split tensors' squares summed across model, replicated once
-            split = sum(v for k, v in sq.items() if param_spec(k) is not None)
-            total = multihost.all_reduce_sum(split.reshape(1), self._tp.group)[0] + sum(
-                v for k, v in sq.items() if param_spec(k) is None)
-        norm = torch.sqrt(total)
-        keep = norm < self.clip_norm
-        count = self.step_count + 1
-        bc1, bc2 = 1.0 - _B1 ** count, 1.0 - _B2 ** count
-        step = -self._lr(self.step_count)
-        for k, p in self.params.items():
-            g = torch.where(keep, grads[k], grads[k] / norm * self.clip_norm)
-            mu = self.mu[k].mul_(_B1).add_((1.0 - _B1) * g)
-            nu = self.nu[k].mul_(_B2).add_((1.0 - _B2) * (g * g))
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + _EPS)
-            p.add_((u + self.weight_decay * p) * step)
+        with TRACER.span("trainer.update"):
+            sq = {k: torch.sum(g * g) for k, g in grads.items()}
+            if self._tp is None:
+                total = sum(sq.values())
+            else:
+                # split tensors' squares summed across model, replicated once
+                split = sum(v for k, v in sq.items() if param_spec(k) is not None)
+                total = multihost.all_reduce_sum(split.reshape(1), self._tp.group)[0] + sum(
+                    v for k, v in sq.items() if param_spec(k) is None)
+            norm = torch.sqrt(total)
+            keep = norm < self.clip_norm
+            count = self.step_count + 1
+            bc1, bc2 = 1.0 - _B1 ** count, 1.0 - _B2 ** count
+            step = -self._lr(self.step_count)
+            for k, p in self.params.items():
+                g = torch.where(keep, grads[k], grads[k] / norm * self.clip_norm)
+                mu = self.mu[k].mul_(_B1).add_((1.0 - _B1) * g)
+                nu = self.nu[k].mul_(_B2).add_((1.0 - _B2) * (g * g))
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + _EPS)
+                p.add_((u + self.weight_decay * p) * step)
 
     def step(self, queries: Sequence[str], positives: Sequence[str]) -> Tuple[float, float]:
         """One optimization step on a batch of (query, positive) pairs;
         returns the batch's (loss, in-batch accuracy) before the update."""
-        loss, acc = self._loss(queries, positives)
-        names = list(self.params)
-        grads = dict(zip(names, torch.autograd.grad(loss, [self.params[k] for k in names])))
-        if self.mesh is not None and self.mesh.data > 1:
-            grads = self._sum_over_data(grads)
-        self._update(grads)
-        self.step_count += 1
-        return float(loss.detach()), float(acc)
+        with TRACER.root("trainer.step"):
+            loss, acc = self._loss(queries, positives)
+            with TRACER.span("trainer.backward"):
+                names = list(self.params)
+                grads = dict(zip(names, torch.autograd.grad(
+                    loss, [self.params[k] for k in names])))
+                if self.mesh is not None and self.mesh.data > 1:
+                    grads = self._sum_over_data(grads)
+            self._update(grads)
+            self.step_count += 1
+            # where the host waits for the device
+            with TRACER.span("trainer.readback"):
+                return float(loss.detach()), float(acc)
 
     @torch.no_grad()
     def evaluate(self, queries: Sequence[str], positives: Sequence[str]

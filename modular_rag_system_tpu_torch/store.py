@@ -33,6 +33,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from modular_rag_system_tpu_torch.types import Document
+from modular_rag_system_tpu_torch.utils.profiling import TRACER
 
 # row ids bound to one SELECT or UPDATE ... IN (...)
 _IN_BATCH = 30_000
@@ -82,74 +83,78 @@ class DocumentStore:
         """
         out: List[Tuple[int, str]] = []
         with self._lock:
-            cur = self._conn.cursor()
-            r = cur.execute("SELECT MAX(row_idx) FROM documents").fetchone()[0]
-            next_row = 0 if r is None else int(r) + 1
-            # one batched lookup + executemany instead of per-doc
-            # SELECT/INSERT round trips (the loop dominated bulk ingest)
-            existing: Dict[str, Tuple[int, int]] = {}
-            ids = [d.id for d in docs]
-            for i in range(0, len(ids), 500):
-                chunk = ids[i : i + 500]
-                qmarks = ",".join("?" * len(chunk))
-                for rid, ridx, deleted in cur.execute(
-                    f"SELECT id, row_idx, deleted FROM documents "
-                    f"WHERE id IN ({qmarks})",
-                    chunk,
-                ).fetchall():
-                    existing[rid] = (int(ridx), int(deleted))
-            updates = []
-            inserts = []
-            seen_new: Dict[str, int] = {}
-            seen_resurrected: set = set()
-            for d in docs:
-                hit = existing.get(d.id)
-                if hit is None and d.id in seen_new:
-                    # duplicate within this batch: first occurrence wins
-                    out.append((seen_new[d.id], "existing"))
-                    continue
-                if hit is not None:
-                    updates.append(
-                        (json.dumps(d.metadata), d.timestamp, d.importance, d.id)
-                    )
-                    # only the FIRST occurrence of a tombstoned id counts
-                    # as resurrected (the caller rewrites that index row
-                    # once); later duplicates are plain updates
-                    if hit[1] and d.id not in seen_resurrected:
-                        seen_resurrected.add(d.id)
-                        out.append((hit[0], "resurrected"))
-                    else:
-                        out.append((hit[0], "existing"))
-                else:
-                    inserts.append(
-                        (
-                            next_row,
-                            d.id,
-                            d.content,
-                            d.content_type,
-                            d.source,
-                            d.timestamp,
-                            d.importance,
-                            json.dumps(d.metadata),
+            with TRACER.span("store.lookup"):
+                cur = self._conn.cursor()
+                r = cur.execute("SELECT MAX(row_idx) FROM documents").fetchone()[0]
+                next_row = 0 if r is None else int(r) + 1
+                # one batched lookup + executemany instead of per-doc
+                # SELECT/INSERT round trips (the loop dominated bulk ingest)
+                existing: Dict[str, Tuple[int, int]] = {}
+                ids = [d.id for d in docs]
+                for i in range(0, len(ids), 500):
+                    chunk = ids[i : i + 500]
+                    qmarks = ",".join("?" * len(chunk))
+                    for rid, ridx, deleted in cur.execute(
+                        f"SELECT id, row_idx, deleted FROM documents "
+                        f"WHERE id IN ({qmarks})",
+                        chunk,
+                    ).fetchall():
+                        existing[rid] = (int(ridx), int(deleted))
+            with TRACER.span("store.rows"):
+                updates = []
+                inserts = []
+                seen_new: Dict[str, int] = {}
+                seen_resurrected: set = set()
+                for d in docs:
+                    hit = existing.get(d.id)
+                    if hit is None and d.id in seen_new:
+                        # duplicate within this batch: first occurrence wins
+                        out.append((seen_new[d.id], "existing"))
+                        continue
+                    if hit is not None:
+                        updates.append(
+                            (json.dumps(d.metadata), d.timestamp, d.importance, d.id)
                         )
+                        # only the FIRST occurrence of a tombstoned id counts
+                        # as resurrected (the caller rewrites that index row
+                        # once); later duplicates are plain updates
+                        if hit[1] and d.id not in seen_resurrected:
+                            seen_resurrected.add(d.id)
+                            out.append((hit[0], "resurrected"))
+                        else:
+                            out.append((hit[0], "existing"))
+                    else:
+                        inserts.append(
+                            (
+                                next_row,
+                                d.id,
+                                d.content,
+                                d.content_type,
+                                d.source,
+                                d.timestamp,
+                                d.importance,
+                                json.dumps(d.metadata),
+                            )
+                        )
+                        seen_new[d.id] = next_row
+                        out.append((next_row, "new"))
+                        next_row += 1
+            with TRACER.span("store.write"):
+                if updates:
+                    cur.executemany(
+                        "UPDATE documents SET metadata = ?, timestamp = ?, "
+                        "importance = ?, deleted = 0 WHERE id = ?",
+                        updates,
                     )
-                    seen_new[d.id] = next_row
-                    out.append((next_row, "new"))
-                    next_row += 1
-            if updates:
-                cur.executemany(
-                    "UPDATE documents SET metadata = ?, timestamp = ?, "
-                    "importance = ?, deleted = 0 WHERE id = ?",
-                    updates,
-                )
-            if inserts:
-                cur.executemany(
-                    "INSERT INTO documents "
-                    "(row_idx, id, content, content_type, source, timestamp, "
-                    "importance, metadata) VALUES (?, ?, ?, ?, ?, ?, ?, ?)",
-                    inserts,
-                )
-            self._conn.commit()
+                if inserts:
+                    cur.executemany(
+                        "INSERT INTO documents "
+                        "(row_idx, id, content, content_type, source, timestamp, "
+                        "importance, metadata) VALUES (?, ?, ?, ?, ?, ?, ?, ?)",
+                        inserts,
+                    )
+            with TRACER.span("store.commit"):
+                self._conn.commit()
         return out
 
     # ------------------------------------------------------------------

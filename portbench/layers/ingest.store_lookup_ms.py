@@ -1,0 +1,14 @@
+"""Host time of the store upsert's lookups (``store.py``
+``DocumentStore.upsert_batch``: the next row and the ``SELECT ... WHERE
+id IN`` chunks), from the program's "store.lookup" spans, per
+``add_documents`` call, in ms."""
+
+from portbench import program_spans
+
+
+def install(run, rec):
+    program_spans.install(run, rec)
+
+
+def read(run, rec, trace):
+    return program_spans.ms_per_unit(run, "store.lookup")
