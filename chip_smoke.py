@@ -74,7 +74,11 @@ Phases (any failure exits non-zero and prints no result line):
    dense half at full width (L = 128, bf16 over f32 masters), batches of
    256 QA pairs: step 0 held against the host CPU's loss of the same
    batch, 30 steps whose loss falls (step time, tokens/s, the bound,
-   peak memory, the device's idle share), a checkpoint round trip; then
+   peak memory, the device's idle share; each step's update launches
+   ``clip_adamw_norm`` and ``clip_adamw_apply`` once, and both, on a
+   real step's gradient at the trainer's size, hold against their plain
+   version clipped and unclipped and repeat bit for bit), a checkpoint
+   round trip; then
    ``EnhancedRAGSystem.fine_tune_from_feedback`` on 64 feedback pairs
    (the serving encoder takes the trainer's weights, every live row is
    re-embedded, the 316 questions run ``fused_topk_int8`` alone with ids
@@ -2363,6 +2367,76 @@ def train_flops(arch: dict, batch: int, seq_len: int) -> int:
     return 6 * dense_weights * 2 * batch * seq_len + 3 * attention
 
 
+def check_clip_adamw(trainer, grad, spec):
+    """clip_adamw at the trainer's flat size and split, on one step's real
+    gradient ``grad`` (flat) and the trainer's masters and moments (as
+    copies): with the clip at twice and at half the gradient's norm, the
+    kernel's norm and p, mu and nu held against the plain version within
+    1e-6 relative (values: of |ref| plus the buffer's largest |ref|, as
+    the card tests hold them), and two kernel runs equal bit for bit;
+    then each entry point timed alone and the pair through the wrapper.
+    Bound: bytes, the norm's read of g (4 B an element) and the apply's
+    read of p, g, mu, nu and write of p, mu, nu (28 B).  Returns the two
+    entries' kernel-report fields."""
+    import torch
+
+    from modular_rag_system_tpu_torch import kernels
+    from modular_rag_system_tpu_torch.ops import clip_adamw as CA
+
+    n, split = trainer.flat_params.numel(), trainer.split_numel
+    state = (trainer.flat_params, trainer.flat_mu, trainer.flat_nu)
+    gnorm = float(torch.linalg.vector_norm(grad))
+    lr, count = trainer._lr(trainer.step_count), trainer.step_count + 1
+    errs = {"clip_adamw_norm": 0.0, "clip_adamw_apply": 0.0}
+    for clipped, clip in ((False, 2.0 * gnorm), (True, 0.5 * gnorm)):
+        h = CA.adamw_scalars(lr, count, trainer.weight_decay, clip)
+        runs = [[t.clone() for t in state] for _ in range(2)]
+        plain = [t.clone() for t in state]
+        nk = [CA.clip_adamw(b[0], grad, b[1], b[2], split, h) for b in runs]
+        nr = CA.clip_adamw_reference(plain[0], grad, plain[1], plain[2], split, h)
+        torch.cuda.synchronize()
+        what = f"clip_adamw ({'clipped' if clipped else 'unclipped'}, n {n:,}, split {split:,})"
+        if (nr.item() >= clip) != clipped:
+            raise AssertionError(f"{what}: norm {nr.item()} against clip {clip}")
+        d = abs(nk[0].item() - nr.item())
+        errs["clip_adamw_norm"] = max(errs["clip_adamw_norm"], d)
+        if d > 1e-6 * nr.item():
+            raise AssertionError(f"{what}: norm {nk[0].item()} against plain {nr.item()}")
+        for name, a, b in zip(("p", "mu", "nu"), runs[0], plain):
+            diff = (a - b).abs()
+            errs["clip_adamw_apply"] = max(errs["clip_adamw_apply"], diff.max().item())
+            if (diff > 1e-6 * (b.abs() + b.abs().max())).any():
+                raise AssertionError(f"{what}: {name} max |d| {diff.max().item():.3e}")
+        if nk[0].item() != nk[1].item() or not all(
+                torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"{what}: two runs on the same inputs differ")
+    p, mu, nu = (t.clone() for t in state)
+    partials = torch.empty(2 * CA.GRID, dtype=torch.float32, device=grad.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    norm_ms = cuda_ms(lambda: kernels.launch("clip_adamw_norm", grad.data_ptr(), n, split,
+                                             CA.GRID, partials.data_ptr(), stream))
+    apply_ms = cuda_ms(lambda: kernels.launch(
+        "clip_adamw_apply", p.data_ptr(), grad.data_ptr(), mu.data_ptr(), nu.data_ptr(), n,
+        partials.data_ptr(), CA.GRID, None, None, *h, stream))
+    pair_ms = cuda_ms(lambda: CA.clip_adamw(p, grad, mu, nu, split, h))
+    pair_queued = queued_ms(lambda: CA.clip_adamw(p, grad, mu, nu, split, h))
+    norm_b, _ = bound(4 * n, 0, 1.0, spec)
+    apply_b, _ = bound(28 * n, 0, 1.0, spec)
+    pair_b, _ = bound(32 * n, 0, 1.0, spec)
+    log(f"clip_adamw at the trainer's {n:,} f32 parameters (split {split:,}), one step's "
+        f"gradient (norm {gnorm:.4f}), clipped and unclipped: max |err| vs plain: norm "
+        f"{errs['clip_adamw_norm']:.2e}, p/mu/nu {errs['clip_adamw_apply']:.2e}; bit-equal "
+        f"on repeat; clip_adamw_norm {norm_ms:.4f} ms (bound {norm_b:.4f}, bytes), "
+        f"clip_adamw_apply {apply_ms:.4f} ms (bound {apply_b:.4f}, bytes); the pair "
+        f"through the wrapper {pair_ms:.4f} ms (queued {pair_queued:.4f}; bound "
+        f"{pair_b:.4f}, {32 * n / 1e6:.0f} MB)")
+    pair = {"pair_ms": pair_ms, "pair_queued_ms": pair_queued, "pair_bound_ms": pair_b}
+    return {"clip_adamw_norm": {"max_abs_err": errs["clip_adamw_norm"], "ms": norm_ms,
+                                "bound_ms": norm_b, "bound_by": "bytes", **pair},
+            "clip_adamw_apply": {"max_abs_err": errs["clip_adamw_apply"], "ms": apply_ms,
+                                 "bound_ms": apply_b, "bound_by": "bytes", **pair}}
+
+
 def train_phase(work, kernels, know, questions, passages, spec, device="cuda"):
     """Phase 6: the contrastive trainer on the card at the bundled
     encoder's full width (4 layers, hidden 384, 12 heads, FFN 1536, vocab
@@ -2416,6 +2490,8 @@ def train_phase(work, kernels, know, questions, passages, spec, device="cuda"):
         f"{time.perf_counter() - t0:.1f} s: loss {ref_loss:.5f}, acc {ref_acc:.4f}")
     trainer = ContrastiveTrainer(enc, learning_rate=TRAIN_LR)
     losses, step_ms = [], []
+    update_kernels = ("clip_adamw_norm", "clip_adamw_apply")
+    before = {k: kernels.launches[k] for k in update_kernels}
     for s in range(TRAIN_STEPS):
         if cuda:
             start = torch.cuda.Event(enable_timing=True)
@@ -2439,6 +2515,18 @@ def train_phase(work, kernels, know, questions, passages, spec, device="cuda"):
         raise AssertionError(f"train: the loss did not fall: {losses[0]} -> mean {last}")
     out = {"losses": (losses[0], last)}
     if cuda:
+        # the update: the flat gradient and clip_adamw's two launches a step
+        out["update_launches"] = {k: kernels.launches[k] - before[k] for k in update_kernels}
+        if any(n != TRAIN_STEPS for n in out["update_launches"].values()):
+            raise AssertionError(f"train: {TRAIN_STEPS} steps launched "
+                                 f"{out['update_launches']}")
+        # the kernel against its plain version on a real step's gradient
+        loss, _ = trainer._loss(*batch(TRAIN_STEPS + 3))
+        grad = trainer._flat_grad(dict(zip(trainer.params, torch.autograd.grad(
+            loss, list(trainer.params.values())))))
+        del loss
+        out["update_kernels"] = check_clip_adamw(trainer, grad, spec)
+        del grad
         tokens = 2 * TRAIN_BATCH * L
         med = statistics.median(step_ms[TRAIN_WARM:])
         flops = train_flops(arch, TRAIN_BATCH, L)
@@ -3589,10 +3677,10 @@ def smoke(work: Path) -> int:
                 "fine_binmax": "modular_rag_system_tpu/ops/ivf2.py:664",
                 "rescan": "modular_rag_system_tpu/ops/binmax_topk.py:275",
                 "mea_attention": "modular_rag_system_tpu/ops/flash_attention.py:53"}
-    for kname, src in kernels.KERNELS.items():
+    for kname, tpu_src in replaces.items():
         entry = {"name": kname, "route": "cuda",
-                 "source": f"modular_rag_system_tpu_torch/kernels/{src}.cu",
-                 "replaces": replaces[kname], "launches": launches[kname],
+                 "source": f"modular_rag_system_tpu_torch/kernels/{kernels.KERNELS[kname]}.cu",
+                 "replaces": tpu_src, "launches": launches[kname],
                  "max_abs_err": errs[kname], **entries[kname]}
         if kname == "fused_topk_int8":  # its launches through the entry points
             entry["entry_points_launches"] = entry_launches
@@ -3608,6 +3696,12 @@ def smoke(work: Path) -> int:
             entry["int4"] = {"launches": launches4[kname], "max_abs_err": errs4[kname],
                              **entries4[kname]}
         out.append(entry)
+    # beyond the TPU kernels: the trainer's update (phase 6's steps, and
+    # the check at the trainer's size)
+    for kname, n in trained["update_launches"].items():
+        out.append({"name": kname, "route": "cuda",
+                    "source": f"modular_rag_system_tpu_torch/kernels/{kernels.KERNELS[kname]}.cu",
+                    "replaces": None, "launches": n, **trained["update_kernels"][kname]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": out}))

@@ -2,20 +2,22 @@
 
 Each ``*.cu`` file here holds a kernel's plain C entry point (``fused_topk.cu``
 holds two: ``fused_topk`` and ``fused_topk_int8``, one kernel template
-over three row types); the ``*.cuh`` headers hold device code that
-several of them share.  At
-first use every source is compiled by its own ``nvcc`` process, all
-started together, for ``sm_90a`` into a shared library under
-``_build/`` (named by the hash of the source and the headers, so an
-edited source or header rebuilds), and loaded with ``ctypes``.  A build or load failure raises:
-there is no fallback to the plain PyTorch versions.
+over three row types; ``clip_adamw.cu`` two, the trainer's update in two
+launches: ``clip_adamw_norm`` and ``clip_adamw_apply``); the ``*.cuh``
+headers hold device code that several of them share.  A kernel's first
+use compiles the one source that holds it (``build_all`` compiles every
+source, one ``nvcc`` process each, all started together) for ``sm_90a``
+into a shared library under ``_build/`` (named by the hash of the source
+and the headers, so an edited source or header rebuilds), and loads it
+with ``ctypes``.  A build or load failure raises: there is no fallback to
+the plain PyTorch versions.
 
 ``launches`` counts kernel launches per kernel name (``KERNELS``, the C
 entry points): each wrapper in ``ops/`` adds one where it launches its
 kernel and nowhere else.  Wrappers run from several threads at once (the
 HTTP server's query batcher), so the counts change under ``_lock``.
 
-Build by hand (what ``build_all`` runs for each source):
+Build by hand (what ``build`` runs for each source):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so <name>.cu
@@ -30,7 +32,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
@@ -39,7 +41,8 @@ BUILD_DIR = KERNEL_DIR / "_build"
 KERNELS = {"binmax_int8": "binmax_int8", "fused_topk_int8": "fused_topk",
            "binmax": "binmax", "fused_topk": "fused_topk", "fine_scores": "fine_scores",
            "fine_topk": "fine_topk", "fine_binmax": "fine_binmax", "rescan": "rescan",
-           "mea_attention": "mea_attention"}
+           "mea_attention": "mea_attention", "clip_adamw_norm": "clip_adamw",
+           "clip_adamw_apply": "clip_adamw"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 
 # dynamic shared memory one CTA may use on Hopper (227 KB); the launch
@@ -82,6 +85,11 @@ _ARGTYPES = {
     "rescan": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P],
     # q, k, v, pad, is_bf16, B, L, H, dh, scale, out, stream
     "mea_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
+    # g, n, split, grid, partials, stream
+    "clip_adamw_norm": [_P, _I, _I, _I, _P, _P],
+    # p, g, mu, nu, n, partials, grid, split_sum, norm_out, 1 / bc1, 1 / bc2,
+    # wd, -lr, clip, stream
+    "clip_adamw_apply": [_P, _P, _P, _P, _I, _P, _I, _P, _P] + [_F] * 5 + [_P],
 }
 
 
@@ -99,12 +107,12 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def build_all() -> Dict[str, Path]:
-    """Compile every kernel source that has no current build, one
+def build(sources: Sequence[str]) -> Dict[str, Path]:
+    """Compile each of ``sources`` that has no current build, one
     ``nvcc`` per source in parallel; raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in SOURCES:
+    for name in sources:
         out = _target(name)
         if out.exists():
             continue
@@ -125,23 +133,28 @@ def build_all() -> Dict[str, Path]:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return {name: _target(name) for name in SOURCES}
+    return {name: _target(name) for name in sources}
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every kernel source that has no current build."""
+    return build(SOURCES)
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library that holds kernel ``name`` (building all at
-    first use)."""
+    """The loaded library that holds kernel ``name`` (building its
+    source at first use)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            paths = build_all()
-            loaded = {src: ctypes.CDLL(str(path)) for src, path in paths.items()}
-            for n, src in KERNELS.items():
-                fn = getattr(loaded[src], n)
-                fn.argtypes = _ARGTYPES[n]
-                fn.restype = ctypes.c_int
-                _libs[n] = loaded[src]
-            lib = _libs[name]
+            src = KERNELS[name]
+            lib = ctypes.CDLL(str(build([src])[src]))
+            for n, s in KERNELS.items():
+                if s == src:
+                    fn = getattr(lib, n)
+                    fn.argtypes = _ARGTYPES[n]
+                    fn.restype = ctypes.c_int
+                    _libs[n] = lib
         return lib
 
 

@@ -45,21 +45,28 @@ calls):
   rank 0), so one restores onto any layout, one device included;
   ``sync_encoder`` publishes full weights to every rank's encoder.
 
+The masters, ``mu`` and ``nu`` each live in one contiguous f32 buffer
+(``flat_params``, ``flat_mu``, ``flat_nu``): the tensors that ``param_spec``
+splits first, the replicated ones after ``split_numel`` elements.  The
+module's parameters and the ``mu``/``nu`` dicts are views of them, and
+the update is one ``ops/clip_adamw.clip_adamw`` call over the buffers and
+the gradient concatenated in the same order: two kernel launches on the
+card.
+
 A ``flash`` encoder is refused, as JAX cannot differentiate its Pallas
 kernel either.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
+from modular_rag_system_tpu_torch.ops.clip_adamw import adamw_scalars, clip_adamw
 from modular_rag_system_tpu_torch.parallel import multihost
 from modular_rag_system_tpu_torch.utils.profiling import TRACER
-
-_B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
 
 def param_spec(name: str) -> Optional[int]:
@@ -197,10 +204,31 @@ class ContrastiveTrainer:
         self.model = encoder.make_module(param_dtype=torch.float32, tp=self._tp)
         self.model.load_state_dict(shard_params(encoder.params, self._n_model, self._m_idx))
         self.model.train()
-        self.params: Dict[str, torch.nn.Parameter] = dict(self.model.named_parameters())
-        self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
-        self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
+        named = dict(self.model.named_parameters())
+        # the flat order: model-split tensors, then the replicated ones
+        order = sorted(named, key=lambda k: param_spec(k) is None)
+        self.params: Dict[str, torch.nn.Parameter] = {k: named[k] for k in order}
+        self.split_numel = sum(named[k].numel() for k in order if param_spec(k) is not None)
+        self.flat_params = torch.cat([p.detach().reshape(-1) for p in self.params.values()])
+        for k, v in self._views(self.flat_params).items():
+            self.params[k].data = v
+        self.flat_mu = torch.zeros_like(self.flat_params)
+        self.flat_nu = torch.zeros_like(self.flat_params)
+        self.mu = self._views(self.flat_mu)
+        self.nu = self._views(self.flat_nu)
         self.step_count = 0
+
+    def _views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Each tensor of ``params`` as a view of a flat buffer."""
+        out, at = {}, 0
+        for k, p in self.params.items():
+            out[k] = flat[at:at + p.numel()].view_as(p)
+            at += p.numel()
+        return out
+
+    def _flat_grad(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The gradients in the flat buffers' order, in one buffer."""
+        return torch.cat([grads[k].reshape(-1) for k in self.params])
 
     # ------------------------------------------------------------------
     def _tokenize(self, texts: Sequence[str]):
@@ -268,38 +296,25 @@ class ContrastiveTrainer:
         frac = 1.0 - min(count, self.warmup_steps) / self.warmup_steps
         return -self.learning_rate * frac + self.learning_rate
 
-    def _sum_over_data(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """The data ranks' gradients summed: one flat all-reduce."""
-        flat = multihost.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads.values()]),
-                                        self.mesh.data_group)
-        out, at = {}, 0
-        for k, g in grads.items():
-            out[k] = flat[at:at + g.numel()].view_as(g)
-            at += g.numel()
-        return out
+    def _sum_over_data(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The data ranks' gradients summed: one all-reduce of the flat
+        gradient, handed to ``_update`` as it is."""
+        return multihost.all_reduce_sum(self._flat_grad(grads), self.mesh.data_group)
+
+    def _reduce_split(self, s: torch.Tensor) -> torch.Tensor:
+        """The split tensors' sum of squares over the model group."""
+        return multihost.all_reduce_sum(s.reshape(1), self._tp.group)[0]
 
     @torch.no_grad()
-    def _update(self, grads: Dict[str, torch.Tensor]) -> None:
+    def _update(self, grads: Union[Dict[str, torch.Tensor], torch.Tensor]) -> None:
+        """Clip + AdamW on the flat buffers; ``grads``: the gradients by
+        name, or already flat in the buffers' order."""
         with TRACER.span("trainer.update"):
-            sq = {k: torch.sum(g * g) for k, g in grads.items()}
-            if self._tp is None:
-                total = sum(sq.values())
-            else:
-                # split tensors' squares summed across model, replicated once
-                split = sum(v for k, v in sq.items() if param_spec(k) is not None)
-                total = multihost.all_reduce_sum(split.reshape(1), self._tp.group)[0] + sum(
-                    v for k, v in sq.items() if param_spec(k) is None)
-            norm = torch.sqrt(total)
-            keep = norm < self.clip_norm
-            count = self.step_count + 1
-            bc1, bc2 = 1.0 - _B1 ** count, 1.0 - _B2 ** count
-            step = -self._lr(self.step_count)
-            for k, p in self.params.items():
-                g = torch.where(keep, grads[k], grads[k] / norm * self.clip_norm)
-                mu = self.mu[k].mul_(_B1).add_((1.0 - _B1) * g)
-                nu = self.nu[k].mul_(_B2).add_((1.0 - _B2) * (g * g))
-                u = (mu / bc1) / (torch.sqrt(nu / bc2) + _EPS)
-                p.add_((u + self.weight_decay * p) * step)
+            flat = grads if isinstance(grads, torch.Tensor) else self._flat_grad(grads)
+            h = adamw_scalars(self._lr(self.step_count), self.step_count + 1,
+                              self.weight_decay, self.clip_norm)
+            clip_adamw(self.flat_params, flat, self.flat_mu, self.flat_nu, self.split_numel,
+                       h, None if self._tp is None else self._reduce_split)
 
     def step(self, queries: Sequence[str], positives: Sequence[str]) -> Tuple[float, float]:
         """One optimization step on a batch of (query, positive) pairs;

@@ -14,7 +14,12 @@ cores), so scores agree within 1e-5 and ids agree except at near-ties
 (checked against an f64 rescore); the -inf pattern is always identical.
 ``mea_attention`` in bf16 rounds its probabilities and its output to
 bf16, so a last-bit difference in f32 can move an output by one bf16
-step: |d| <= 2^-7 |ref| + 1e-5 there, 1e-5 in f32.
+step: |d| <= 2^-7 |ref| + 1e-5 there, 1e-5 in f32.  ``clip_adamw``
+rounds every operation as the plain version does, but sums the squares
+in another order, so the norm agrees within 1e-6 relative, and so does
+every updated value (relative to itself, with 1e-6 of the buffer's
+largest as the floor where a first moment cancels to near 0); two runs
+of the kernel on the same inputs agree bit for bit.
 """
 
 import numpy as np
@@ -22,6 +27,7 @@ import pytest
 import torch
 
 from modular_rag_system_tpu_torch.ops import binmax_topk as pb
+from modular_rag_system_tpu_torch.ops import clip_adamw as pca
 from modular_rag_system_tpu_torch.ops import flash_attention as pfa
 from modular_rag_system_tpu_torch.ops import fused_topk as pf
 from modular_rag_system_tpu_torch.ops import ivf2 as pivf
@@ -427,3 +433,103 @@ def test_exact_topk_peak_memory(cuda_device):
     # scratch: about 12 times the scores), the running lists, slack
     assert block_bytes <= 16 * Q * 65536 * 4 + 4 * Q * k * 8 + (64 << 20)
     assert 2 * block_bytes <= whole_bytes
+
+
+# ---------------------------------------------------------------------------
+# clip_adamw: the trainer's update over flat f32 buffers
+
+# the shipped encoder's 13,439,232 parameters, and odd tails
+ADAMW_SIZES = [13_439_232, 1, 3, 1_000_003]
+# a warm-up step at lr 0, then three chained steps
+ADAMW_STEPS = [(1, 0.0), (2, 1e-3), (3, 2e-3), (4, 3e-3)]
+
+
+def _adamw_grad(gen, n, norm, dev):
+    """A gradient of magnitudes spread over orders, scaled to ``norm``."""
+    g = torch.randn(n, generator=gen, device=dev) * torch.exp(
+        2.0 * torch.randn(n, generator=gen, device=dev))
+    return g * (norm / g.norm())
+
+
+def _assert_adamw_close(got, ref, what):
+    tol = 1e-6 * (ref.abs() + ref.abs().max())
+    d = (got - ref).abs()
+    assert (d <= tol).all(), f"{what}: max |d| {d.max().item():.3e}"
+
+
+def _double(s):
+    # a model group of two ranks holding the same split segment
+    return s * 2.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduce_split", [None, _double], ids=["one_rank", "model_group"])
+@pytest.mark.parametrize("split_at", ["start", "mid", "end"])
+@pytest.mark.parametrize("clipped", [False, True])
+@pytest.mark.parametrize("n", ADAMW_SIZES)
+def test_clip_adamw_kernel_matches_plain(cuda_device, n, clipped, split_at, reduce_split):
+    split = {"start": 0, "mid": 7 * n // 13, "end": n}[split_at]
+    gen = torch.Generator(device=cuda_device).manual_seed(n % 1000 + 2 * clipped)
+    p = torch.randn(n, generator=gen, device=cuda_device) * 0.05
+    kern = [p, torch.zeros_like(p), torch.zeros_like(p)]
+    plain = [p.clone(), torch.zeros_like(p), torch.zeros_like(p)]
+    for count, lr in ADAMW_STEPS:
+        g = _adamw_grad(gen, n, 3.0 if clipped else 0.3, cuda_device)
+        h = pca.adamw_scalars(lr, count, 0.01, 1.0)
+        nk = pca.clip_adamw(kern[0], g, kern[1], kern[2], split, h, reduce_split)
+        nr = pca.clip_adamw_reference(plain[0], g, plain[1], plain[2], split, h, reduce_split)
+        torch.cuda.synchronize()
+        assert (nr.item() >= 1.0) == clipped
+        assert abs(nk.item() - nr.item()) <= 1e-6 * nr.item(), (nk.item(), nr.item())
+        for name, a, b in zip(("p", "mu", "nu"), kern, plain):
+            _assert_adamw_close(a, b, f"step {count} {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clipped", [False, True])
+def test_clip_adamw_kernel_repeats_bit_for_bit(cuda_device, clipped):
+    n = ADAMW_SIZES[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    p = torch.randn(n, generator=gen, device=cuda_device) * 0.05
+    runs = [[p.clone(), torch.zeros_like(p), torch.zeros_like(p)] for _ in range(2)]
+    for count, lr in ADAMW_STEPS:
+        g = _adamw_grad(gen, n, 3.0 if clipped else 0.3, cuda_device)
+        h = pca.adamw_scalars(lr, count, 0.01, 1.0)
+        norms = [pca.clip_adamw(b[0], g, b[1], b[2], 7 * n // 13, h).item() for b in runs]
+        assert norms[0] == norms[1]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_trainer_update_launches_two_kernels(cuda_device):
+    # the shipped encoder's architecture (68 tensors): the update is the
+    # gradient's concatenation and the two clip_adamw launches
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from modular_rag_system_tpu_torch import kernels
+    from modular_rag_system_tpu_torch.models.encoder import MiniLMEncoder
+    from modular_rag_system_tpu_torch.models.train import ContrastiveTrainer
+
+    enc = MiniLMEncoder(dim=384, max_seq_len=128, batch_size=16, num_layers=4, num_heads=12,
+                        mlp_dim=1536, vocab_size=16384, device=cuda_device)
+    trainer = ContrastiveTrainer(enc, learning_rate=1e-3)
+    assert trainer.flat_params.numel() == ADAMW_SIZES[0] and len(trainer.params) == 68
+    qs = [f"question number {i} about topic {i % 5}" for i in range(16)]
+    ps = [f"passage {i} answering the question on topic {i % 5}" for i in range(16)]
+    trainer.step(qs, ps)
+    before = dict(kernels.launches)
+    trainer.step(qs, ps)
+    for name in ("clip_adamw_norm", "clip_adamw_apply"):
+        assert kernels.launches[name] - before[name] == 1, name
+    loss, _ = trainer._loss(qs, ps)
+    grads = dict(zip(trainer.params, torch.autograd.grad(loss, list(trainer.params.values()))))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer._update(grads)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) <= 3, names
+    assert sum("clip_adamw_norm_kernel" in x for x in names) == 1, names
+    assert sum("clip_adamw_apply_kernel" in x for x in names) == 1, names

@@ -80,3 +80,31 @@ def test_kernel_argtypes_match_c_entry_points():
         params = [re.sub(r"\bconst\b|\s+", "", p).rsplit("*", 1)[0] + "*"
                   if "*" in p else p.split()[-2] for p in m.group(1).split(",")]
         assert [ctype[p] for p in params] == kernels._ARGTYPES[name], name
+
+
+def test_kernel_library_builds_only_its_source(monkeypatch):
+    # a kernel's first use compiles and loads the one source that holds
+    # it, and registers that source's every entry point
+    import ctypes
+    import types
+
+    from modular_rag_system_tpu_torch import kernels
+
+    built, loaded = [], []
+
+    def fake_build(sources):
+        built.append(list(sources))
+        return {s: kernels.BUILD_DIR / f"{s}.so" for s in sources}
+
+    def fake_cdll(path):
+        loaded.append(path)
+        return types.SimpleNamespace(**{n: types.SimpleNamespace() for n in kernels.KERNELS})
+
+    monkeypatch.setattr(kernels, "build", fake_build)
+    monkeypatch.setattr(ctypes, "CDLL", fake_cdll)
+    monkeypatch.setattr(kernels, "_libs", {})
+    lib = kernels.library("clip_adamw_apply")
+    assert built == [["clip_adamw"]] and len(loaded) == 1
+    assert set(kernels._libs) == {"clip_adamw_norm", "clip_adamw_apply"}
+    assert kernels.library("clip_adamw_norm") is lib and len(built) == 1
+    assert lib.clip_adamw_norm.argtypes == kernels._ARGTYPES["clip_adamw_norm"]

@@ -21,7 +21,12 @@ Tolerances:
 
 Step 0 runs at learning rate 0 under the warm-up: it leaves every
 parameter where it was, in both packages.  The other tests are the
-port's counterparts of ``tests/test_train.py``.
+port's counterparts of ``tests/test_train.py``, and the flat update
+(``ops/clip_adamw.py``) against the per-tensor loop it replaced: the two
+sum the squares in another order and the loop divides by the bias
+corrections where the flat update multiplies by their f32 reciprocals,
+so each value within 1e-5 of the loop's relative to itself plus 1e-6
+of the buffer's largest (a first moment can cancel to near 0).
 """
 
 import jax
@@ -35,7 +40,8 @@ from modular_rag_system_tpu.models.train import ContrastiveTrainer as JaxTrainer
 from modular_rag_system_tpu.parallel.mesh import make_train_mesh
 from modular_rag_system_tpu_torch.models.default_ckpt import params_from_flax, params_to_flax
 from modular_rag_system_tpu_torch.models.encoder import MiniLMEncoder
-from modular_rag_system_tpu_torch.models.train import ContrastiveTrainer
+from modular_rag_system_tpu_torch.models.train import ContrastiveTrainer, param_spec
+from modular_rag_system_tpu_torch.ops.clip_adamw import adamw_scalars, clip_adamw
 
 PAIRS = [
     ("what is jax", "jax is a numerical computing library"),
@@ -203,3 +209,130 @@ def test_flash_encoder_refused():
     enc = tiny_encoder(attention_impl="flash")
     with pytest.raises(ValueError, match="dense"):
         ContrastiveTrainer(enc)
+
+
+# ---------------------------------------------------------------------------
+# The flat clip + AdamW update against the per-tensor loop it replaced
+
+
+def loop_update(params, grads, mu, nu, count, lr, wd, clip):
+    """The trainer's update before the flat buffers, one tensor at a time
+    (optax's clip_by_global_norm, then adamw), in place."""
+    sq = {k: torch.sum(g * g) for k, g in grads.items()}
+    norm = torch.sqrt(sum(sq.values()))
+    keep = norm < clip
+    bc1, bc2 = 1.0 - 0.9 ** count, 1.0 - 0.999 ** count
+    for k, p in params.items():
+        g = torch.where(keep, grads[k], grads[k] / norm * clip)
+        m = mu[k].mul_(0.9).add_((1.0 - 0.9) * g)
+        v = nu[k].mul_(0.999).add_((1.0 - 0.999) * (g * g))
+        u = (m / bc1) / (torch.sqrt(v / bc2) + 1e-8)
+        p.add_((u + wd * p) * -lr)
+    return norm
+
+
+def assert_flat_close(got, ref, what):
+    tol = 1e-5 * ref.abs() + 1e-6 * ref.abs().max()
+    bad = (got - ref).abs() > tol
+    assert not bad.any(), f"{what}: {int(bad.sum())} values off, max |d| " \
+        f"{float((got - ref).abs().max()):.3e}"
+
+
+SHAPES = [(48, 16), (16,), (33, 7), (3,), (128,), (5, 5, 4), (1,)]
+
+
+@pytest.mark.parametrize("split_at", ["start", "mid", "end"])
+@pytest.mark.parametrize("clipped", [False, True])
+def test_flat_update_matches_per_tensor_loop(clipped, split_at):
+    rng = np.random.default_rng(3)
+    names = [f"t{i}" for i in range(len(SHAPES))]
+    params = {k: torch.from_numpy(rng.normal(0, 0.05, s).astype(np.float32))
+              for k, s in zip(names, SHAPES)}
+    mu = {k: torch.zeros_like(p) for k, p in params.items()}
+    nu = {k: torch.zeros_like(p) for k, p in params.items()}
+    flat = {"p": torch.cat([p.reshape(-1) for p in params.values()])}
+    flat["mu"], flat["nu"] = torch.zeros_like(flat["p"]), torch.zeros_like(flat["p"])
+    n = flat["p"].numel()
+    split = {"start": 0, "mid": 7 * n // 13, "end": n}[split_at]
+    clip, wd = 1.0, 0.01
+    for count, lr in ((1, 0.0), (2, 1e-3), (3, 2e-3)):  # a warm-up step at lr 0, then two
+        scale = (3.0 if clipped else 0.3) * clip / np.sqrt(n)
+        grads = {k: torch.from_numpy(rng.normal(0, scale, s).astype(np.float32))
+                 for k, s in zip(names, SHAPES)}
+        want = loop_update(params, grads, mu, nu, count, lr, wd, clip)
+        p0 = flat["p"].clone()
+        got = clip_adamw(flat["p"], torch.cat([g.reshape(-1) for g in grads.values()]),
+                         flat["mu"], flat["nu"], split, adamw_scalars(lr, count, wd, clip))
+        assert (float(want) >= clip) == clipped
+        assert abs(float(got) - float(want)) <= 1e-6 * float(want)
+        for name, d in (("p", params), ("mu", mu), ("nu", nu)):
+            assert_flat_close(flat[name], torch.cat([t.reshape(-1) for t in d.values()]),
+                              f"step {count} {name}")
+        if lr == 0.0:
+            assert torch.equal(flat["p"], p0)  # the warm-up moves the moments only
+
+
+@pytest.mark.parametrize("clip", [0.05, 1e6])
+def test_trainer_update_matches_per_tensor_loop(clip):
+    trainer = ContrastiveTrainer(tiny_encoder(), learning_rate=LR, clip_norm=clip,
+                                 warmup_steps=WARMUP)
+    params = {k: p.detach().clone() for k, p in trainer.params.items()}
+    mu = {k: torch.zeros_like(p) for k, p in params.items()}
+    nu = {k: torch.zeros_like(p) for k, p in params.items()}
+    for _ in range(3):
+        loss, _ = trainer._loss(QS, PS)
+        grads = dict(zip(trainer.params, torch.autograd.grad(
+            loss, list(trainer.params.values()))))
+        count, lr = trainer.step_count + 1, trainer._lr(trainer.step_count)
+        norm = loop_update(params, grads, mu, nu, count, lr, trainer.weight_decay, clip)
+        assert (float(norm) >= clip) == (clip < 1.0)
+        trainer._update(grads)
+        trainer.step_count += 1
+        for name, mine, ref in (("p", trainer.params, params), ("mu", trainer.mu, mu),
+                                ("nu", trainer.nu, nu)):
+            for k in ref:
+                assert_flat_close(mine[k].detach(), ref[k], f"{name} {k}")
+
+
+def _assert_views(trainer):
+    """``params``, ``mu`` and ``nu`` are views of the flat buffers, in the
+    flat order, and the module trains the same parameters."""
+    module = dict(trainer.model.named_parameters())
+    at = 0
+    for k, p in trainer.params.items():
+        assert module[k] is p
+        for flat, t in ((trainer.flat_params, p), (trainer.flat_mu, trainer.mu[k]),
+                        (trainer.flat_nu, trainer.nu[k])):
+            assert t.untyped_storage().data_ptr() == flat.untyped_storage().data_ptr(), k
+            assert t.data_ptr() == flat.data_ptr() + 4 * at, k
+        assert (at < trainer.split_numel) == (param_spec(k) is not None), k
+        at += p.numel()
+    assert at == trainer.flat_params.numel()
+
+
+def test_params_and_moments_stay_views_of_the_flat_buffers(tmp_path):
+    trainer = ContrastiveTrainer(tiny_encoder(), learning_rate=1e-3)
+    _assert_views(trainer)
+    assert 0 < trainer.split_numel < trainer.flat_params.numel()
+    for _ in range(2):
+        trainer.step(QS, PS)
+    _assert_views(trainer)
+    ckpt = str(tmp_path / "ckpt.pt")
+    trainer.save_checkpoint(ckpt)
+    trainer2 = ContrastiveTrainer(tiny_encoder(seed=1), learning_rate=1e-3)
+    trainer2.restore_checkpoint(ckpt)
+    trainer2.sync_encoder()
+    _assert_views(trainer2)
+    for name in ("flat_params", "flat_mu", "flat_nu"):
+        assert torch.equal(getattr(trainer2, name), getattr(trainer, name)), name
+    trainer2.step(QS, PS)
+    _assert_views(trainer2)
+
+
+@pytest.mark.parametrize("bad", ["length", "dtype", "shape", "split"])
+def test_clip_adamw_refuses_mismatched_buffers(bad):
+    p, mu, nu = torch.zeros(10), torch.zeros(10), torch.zeros(10)
+    g = {"length": torch.zeros(9), "dtype": torch.zeros(10, dtype=torch.float64),
+         "shape": torch.zeros(2, 5)}.get(bad, torch.zeros(10))
+    with pytest.raises(ValueError):
+        clip_adamw(p, g, mu, nu, 11 if bad == "split" else 4, adamw_scalars(1e-3, 1, 0.0, 1.0))
