@@ -99,7 +99,16 @@ Phases (any failure exits non-zero and prints no result line):
    = 256); the native tokenizer's ids against the Python path's under
    the bundled and the checkpoint's vocab, both timed; the external
    eval's recall@10 of the shipped hybrid on the card and on the host
-   CPU, equal within one pair of 304.
+   CPU, equal within one pair of 304; then 7b, ModernBERT at
+   ModernBERT-base's published widths and depth (22 layers: 8 global, 14
+   with |i - j| <= 64; seeded weights, the bundled vocab padded to 50,368
+   ids) served through ``embedding.hf_checkpoint`` at 8,192 positions
+   with ``attention_impl="flash"``: ``add_documents`` of 8 long documents
+   launches ``mea_attention`` once a global and ``mea_attention_window``
+   once a local layer and forward, and no other kernel; both modes held
+   against their plain version at the first global and the first local
+   layer's inputs of that batch (8 x 8,192, 12 heads of 64, bf16, ragged
+   padding) and timed there.
 8. multihost: two processes on the card, one gloo group of 2
    (``parallel/multihost.py``): ``mh_check`` with CUDA tensors (its four
    markers in both ranks), then two ranks of this script
@@ -128,7 +137,8 @@ bound.  Kernel launch counts are set to 0 just before each route is
 driven and read just after (``fused_topk_int8``'s entry also gives its
 launches in phase 5's HTTP and lifecycle runs and phase 6's queries
 after the fine-tune, and it and ``mea_attention``'s those of phase 7's
-HF engines; it and ``binmax_int8``'s each phase-8 rank's).  The last three lines are
+HF engines, both modes of ``mea_attention`` phase 7b's ingest; it and
+``binmax_int8``'s each phase-8 rank's).  The last three lines are
 the ``nvidia-smi`` line, the kernels JSON line and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1302,35 +1312,45 @@ def time_rescan(eng, q, spec, kernels):
     return res[10], launched, worst
 
 
-def time_mea(q, k, v, pad, spec, what):
-    """mea_attention at the given inputs: held against its plain version,
-    then timed beside it and one ``scaled_dot_product_attention`` call
-    with the key-padding mask.  Bound: q, k, v and the output once each
-    against the kernel's 6 B H L^2 dh operations (two sweeps over k: the
-    TPU kernel's rounding needs the row's final maximum before p v); the
-    one-sweep count, 4 B H L^2 dh, is reported beside it."""
+def time_mea(q, k, v, pad, spec, what, window=None):
+    """mea_attention at the given inputs (``window``: its window mode, keys
+    with |i - j| <= window): held against its plain version, then timed
+    beside it and one ``scaled_dot_product_attention`` call with the key
+    mask (and the band).  Bound: q, k, v and the output once each against
+    the kernel's 6 dh operations a scored pair (two sweeps over k: the TPU
+    kernel's rounding needs the row's final maximum before p v), B H L^2
+    pairs or B H times the band's; the one-sweep count, 4 dh a pair, is
+    reported beside it."""
     import torch
     import torch.nn.functional as F
 
+    from modular_rag_system_tpu_torch.models.modernbert import band_pairs
     from modular_rag_system_tpu_torch.ops import flash_attention as FA
 
     B_, L, H, dh = q.shape
-    err = _check_mea(FA.mea_attention(q, k, v, pad), FA.mea_attention_reference(q, k, v, pad),
-                     f"mea_attention {what}")
-    ms = cuda_ms(lambda: FA.mea_attention(q, k, v, pad), reps=10)
-    queued = queued_ms(lambda: FA.mea_attention(q, k, v, pad), reps=10)
-    plain = cuda_ms(lambda: FA.mea_attention_reference(q, k, v, pad), reps=3)
+    err = _check_mea(FA.mea_attention(q, k, v, pad, window),
+                     FA.mea_attention_reference(q, k, v, pad, window), f"mea_attention {what}")
+    ms = cuda_ms(lambda: FA.mea_attention(q, k, v, pad, window), reps=10)
+    queued = queued_ms(lambda: FA.mea_attention(q, k, v, pad, window), reps=10)
+    plain = cuda_ms(lambda: FA.mea_attention_reference(q, k, v, pad, window), reps=3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, L, dh) views
     mask = (pad > 0)[:, None, None, :]
+    if window is not None:
+        pos = torch.arange(L, device=q.device)
+        mask = mask & ((pos[:, None] - pos[None, :]).abs() <= window)
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=10)
+    del mask
     peak = spec[2] if q.dtype == torch.bfloat16 else 67e12
+    pairs = B_ * H * (L * L if window is None else band_pairs(L, window))
     nbytes = 4 * q.numel() * q.element_size() + pad.numel() * 4
-    b_ms, b_by = bound(nbytes, 6 * B_ * H * L * L * dh, peak, spec)
-    b4_ms, b4_by = bound(nbytes, 4 * B_ * H * L * L * dh, peak, spec)
-    log(f"time mea_attention {what} B={B_} L={L} H={H} dh={dh} {q.dtype}: {ms:.4f} ms "
+    b_ms, b_by = bound(nbytes, 6 * pairs * dh, peak, spec)
+    b4_ms, b4_by = bound(nbytes, 4 * pairs * dh, peak, spec)
+    mode = "" if window is None else f" window={window}"
+    log(f"time mea_attention{mode} {what} B={B_} L={L} H={H} dh={dh} {q.dtype}: {ms:.4f} ms "
         f"(queued {queued:.4f} ms; plain {plain:.4f} ms, library {lib:.4f} ms "
-        f"(scaled_dot_product_attention with the key mask), bound {b_ms:.4f} ms by {b_by} "
-        f"(two sweeps; one sweep {b4_ms:.4f} ms by {b4_by})); max |err| vs plain {err:.2e}")
+        f"(scaled_dot_product_attention with the key mask{' and the band' if mode else ''}), "
+        f"bound {b_ms:.4f} ms by {b_by} (two sweeps; one sweep {b4_ms:.4f} ms by {b4_by})); "
+        f"max |err| vs plain {err:.2e}")
     return ({"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
              "bound_by": b_by, "bound_ms_one_sweep": b4_ms}, err)
 
@@ -2720,14 +2740,16 @@ CPU_REF_PASSAGES = 64  # the longest passages, through the f32 CPU forward
 HF_LONG_DOCS = 4  # documents long enough for the 256-token bucket
 
 
-def minilm_vocab():
-    """The bundled vocab's pieces padded with ``[unusedN]`` to 30,522 ids."""
+def minilm_vocab(size=None):
+    """The bundled vocab's pieces padded with ``[unusedN]`` to ``size`` ids
+    (all-MiniLM-L6-v2's 30,522 unless given)."""
     from modular_rag_system_tpu_torch.models.default_ckpt import ASSET_DIR
     from modular_rag_system_tpu_torch.models.tokenizer import load_vocab
 
     vocab = load_vocab(str(ASSET_DIR / "vocab.txt"))
     n = len(vocab)
-    vocab.update({f"[unused{i}]": n + i for i in range(MINILM_CONFIG["vocab_size"] - n)})
+    size = size or MINILM_CONFIG["vocab_size"]
+    vocab.update({f"[unused{i}]": n + i for i in range(size - n)})
     return vocab
 
 
@@ -2960,6 +2982,137 @@ def hf_phase(work, kernels, know, questions, passages, spec, step_ms=None, devic
             "reported, not claimed")
     out["external"] = external_eval_phase(device)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: ModernBERT on long documents (the window mode of mea_attention)
+MODERNBERT_CONFIG = {"architectures": ["ModernBertModel"], "model_type": "modernbert",
+                     "vocab_size": 50368, "hidden_size": 768, "num_hidden_layers": 22,
+                     "num_attention_heads": 12, "intermediate_size": 1152,
+                     "max_position_embeddings": 8192, "global_attn_every_n_layers": 3,
+                     "local_attention": 128, "global_rope_theta": 160000.0,
+                     "local_rope_theta": 10000.0, "norm_eps": 1e-5, "norm_bias": False,
+                     "attention_bias": False, "mlp_bias": False, "hidden_activation": "gelu"}
+# pieces joined into each of the batch's documents: ~340 to past 8,192
+# tokens, the spread of the benchmark's long-document cell
+LONGDOC_PIECES = (30, 100, 170, 240, 310, 380, 450, 520)
+
+
+def modernbert_checkpoint(out_dir, config, seed=0):
+    """A ModernBERT checkpoint for ``config``: the benchmark's seeded
+    weights (``portbench/reference/modernbert.random_weights``: matrices
+    normal with std 0.02 truncated at +-2 std, norms 1) and the bundled
+    vocab padded to the config's ids."""
+    from modular_rag_system_tpu_torch.models import hf_loader as H
+    from portbench.reference.modernbert import random_weights
+
+    return H.save_hf_checkpoint(out_dir, random_weights(config, seed, "cpu"), config,
+                                minilm_vocab(config["vocab_size"]))
+
+
+def longdoc_phase(work, kernels, know, passages, spec, device="cuda",
+                  config=MODERNBERT_CONFIG, pieces=LONGDOC_PIECES):
+    """Phase 7b: ``create_engine`` over a ModernBERT checkpoint at
+    ModernBERT-base's published widths and depth (22 layers: 8 global, 14
+    with |i - j| <= 64; seeded weights, written by this script) served at
+    8,192 positions with ``attention_impl="flash"``, as the benchmark's
+    ``modernbert-ingest-8k`` cell runs it: ``add_documents`` of 8 long
+    documents (the longest cut at 8,192) launches ``mea_attention`` once a
+    global layer and ``mea_attention_window`` once a local layer and
+    forward, and nothing else; each mode is held against its plain
+    version at the first global and the first local layer's own inputs of
+    that batch (B 8, L 8,192, H 12, dh 64, bf16, ragged padding) and timed
+    there.  Returns {entry: (timing, max |error|, launches)}."""
+    import numpy as np
+    import torch
+
+    from modular_rag_system_tpu_torch import RAGConfig, create_engine
+    from modular_rag_system_tpu_torch.models import modernbert as MB
+    from modular_rag_system_tpu_torch.types import Document
+
+    cuda = device != "cpu"
+    L = config["max_position_embeddings"]
+    window = config["local_attention"] // 2
+    t0 = time.perf_counter()
+    ckpt = modernbert_checkpoint(work / "modernbert", config)
+    eng = create_engine(RAGConfig.load(overrides={
+        "embedding.hf_checkpoint": str(ckpt), "embedding.dim": config["hidden_size"],
+        "embedding.lexical_dim": 0, "embedding.max_seq_len": L,
+        "embedding.attention_impl": "flash", "embedding.dtype": "bfloat16",
+        "index.tier": "auto", "store.storage_path": str(work / "modernbert_store")}),
+        device=device)
+    enc = getattr(eng.encoder, "dense", eng.encoder)
+    blocks = enc.module.blocks
+    n_global = sum(b.is_global for b in blocks)
+    n_local = len(blocks) - n_global
+    log(f"longdoc engine: {type(enc.module).__name__}, {len(blocks)} layers ({n_global} "
+        f"global, {n_local} with window {window}), max_seq_len {enc.max_seq_len}, built with "
+        f"its checkpoint in {time.perf_counter() - t0:.1f} s")
+    if not (isinstance(enc.module, MB.ModernBertModule) and enc.max_seq_len == L
+            and {b.attn.window for b in blocks if not b.is_global} == {window}):
+        raise AssertionError("the longdoc engine is not the checkpoint's ModernBERT encoder")
+    pool = list(passages) + list(know)
+    r = np.random.default_rng(7)
+    docs = ["\n\n".join(pool[i] for i in r.choice(len(pool), c, replace=False)) for c in pieces]
+    ids, mask = enc._crop_seq(*enc.tokenizer.encode_batch(docs))
+    lengths = mask.sum(1).tolist()
+    if ids.shape[1] != L or min(lengths) == L:
+        raise AssertionError(f"the documents reach {ids.shape[1]} positions, lengths {lengths}")
+
+    forwards = [0]
+    forward_tokens = enc.forward_tokens
+
+    def counted(ids, mask):
+        forwards[0] += 1
+        return forward_tokens(ids, mask)
+
+    enc.forward_tokens = counted
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng.add_documents([Document(content=t, source="long") for t in docs])
+    if cuda:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    enc.forward_tokens = forward_tokens
+    log(f"longdoc engine ingest: {len(docs)} documents of {lengths} tokens in {dt:.2f} s "
+        f"(first call), {forwards[0]} forwards; launches {counts}")
+    want = {"mea_attention": n_global * forwards[0], "mea_attention_window": n_local * forwards[0]}
+    if not forwards[0] or {k: n for k, n in counts.items() if n} != want:
+        raise AssertionError(f"longdoc ingest launched {counts}, expected {want}")
+    hit = eng.query(docs[3], max_results=1, similarity_threshold=0.0).documents
+    if eng.index.count != len(docs) or not hit or hit[0].content != docs[3]:
+        raise AssertionError("a long document is not its own nearest row")
+
+    # both modes at the first global and the first local layer's inputs
+    captured = {}
+    mea = MB.mea_attention
+
+    def capture(q, k, v, pad, w=None):
+        captured.setdefault(w, (q.clone(), k.clone(), v.clone(), pad.clone()))
+        return mea(q, k, v, pad, w)
+
+    MB.mea_attention = capture
+    try:
+        enc.encode_device(docs)
+    finally:
+        MB.mea_attention = mea
+    out = {}
+    for name, w in (("mea_attention", None), ("mea_attention_window", window)):
+        q, k, v, pad = captured[w]
+        layer = "global" if w is None else "local"
+        if cuda:
+            out[name] = (*time_mea(q, k, v, pad, spec, f"at ModernBERT's first {layer} "
+                                   f"layer (the long-document batch)", w), want[name])
+        else:  # the CPU runs the plain version itself
+            out[name] = ({}, 0.0, want[name])
+    eng.shutdown()
+    del eng, enc, captured, q, k, v, pad
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
 
 
 # ---------------------------------------------------------------------------
@@ -3659,6 +3812,11 @@ def smoke(work: Path) -> int:
     errs["mea_attention"] = max(errs["mea_attention"], hf["mea_L256_err"])
     tp = phase("7 (HF encoder, native tokenizer, external eval)", tp)
 
+    # ---- phase 7b: ModernBERT on long documents, both modes of mea_attention
+    longdoc = longdoc_phase(work, kernels, know, passages, spec)
+    errs["mea_attention"] = max(errs["mea_attention"], longdoc["mea_attention"][1])
+    tp = phase("7b (ModernBERT, long documents)", tp)
+
     # ---- phase 8: two processes on the card, one gloo group
     gc.collect()
     torch.cuda.empty_cache()
@@ -3690,14 +3848,22 @@ def smoke(work: Path) -> int:
             entry["multihost_launches"] = mh_launches[kname]
         if kname in ("fused_topk_int8", "mea_attention"):  # the HF engines (phase 7)
             entry["hf_launches"] = hf[kname]
-        if kname == "mea_attention":  # alone at the HF checkpoint's L = 256 bucket
-            entry["L256"] = hf["mea_L256"]
+        if kname == "mea_attention":  # alone at the HF checkpoint's L = 256 bucket,
+            entry["L256"] = hf["mea_L256"]  # and in ModernBERT's global layers (7b)
+            entry["longdoc"] = {"launches": longdoc[kname][2], "max_abs_err": longdoc[kname][1],
+                                **longdoc[kname][0]}
         if kname in entries4:  # the same source's int4 mode, on the int4 route
             entry["int4"] = {"launches": launches4[kname], "max_abs_err": errs4[kname],
                              **entries4[kname]}
         out.append(entry)
-    # beyond the TPU kernels: the trainer's update (phase 6's steps, and
+    # beyond the TPU kernels: the window mode of mea_attention (phase 7b's
+    # ModernBERT local layers), the trainer's update (phase 6's steps, and
     # the check at the trainer's size)
+    timing, err, n = longdoc["mea_attention_window"]
+    out.append({"name": "mea_attention_window", "route": "cuda",
+                "source": f"modular_rag_system_tpu_torch/kernels/"
+                          f"{kernels.KERNELS['mea_attention_window']}.cu",
+                "replaces": None, "launches": n, "max_abs_err": err, **timing})
     for kname, n in trained["update_launches"].items():
         out.append({"name": kname, "route": "cuda",
                     "source": f"modular_rag_system_tpu_torch/kernels/{kernels.KERNELS[kname]}.cu",

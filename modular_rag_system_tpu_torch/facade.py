@@ -285,7 +285,7 @@ class EnhancedRAGSystem:
         whole corpus so stored vectors stay in the new embedding space.
         A capability with no reference analog: its embedders were frozen.
         Returns training metrics, or None when too few pairs exist or the
-        encoder isn't trainable (fake/ollama backends)."""
+        encoder isn't trainable (fake/ollama backends, ModernBERT)."""
         from modular_rag_system_tpu_torch.models.encoder import MiniLMEncoder
         from modular_rag_system_tpu_torch.models.lexical import HybridEncoder
 
@@ -297,7 +297,8 @@ class EnhancedRAGSystem:
         enc = self.engine.encoder
         if isinstance(enc, HybridEncoder):
             enc = enc.dense
-        if len(pairs) < min_pairs or not isinstance(enc, MiniLMEncoder):
+        if (len(pairs) < min_pairs or not isinstance(enc, MiniLMEncoder)
+                or enc.model_type != "bert"):
             return None
         from modular_rag_system_tpu_torch.models.train import ContrastiveTrainer
         from modular_rag_system_tpu_torch.parallel import multihost

@@ -65,6 +65,18 @@
 // register tile of scores per thread), exact in f32 with no TF32; one CTA
 // per (batch row x head, 64 query rows), k and v through shared memory in
 // 64-key tiles, sweep 1 keeping a running maximum and sum.
+//
+// Window mode (entry mea_attention_window, the sliding-window layers of
+// ModernBERT; no TPU kernel computes it): query i sees only the keys j
+// with |i - j| <= w.  A key outside the band is no key of the row: it adds
+// nothing to the row's maximum or sum.  A padded key inside the band
+// scores -1e9 as in the full mode.  A row whose band holds no live key
+// (its maximum is -1e9) is written as zeros, and the TPU padding rule
+// does not apply.  Each CTA loads and scores only the key tiles that meet
+// the band of its query rows, [q_lo - w, q_hi + w], in both sweeps.  The
+// mode is the kernels' WIN template flag, so the profiler's kernel names
+// tell the two modes apart; with WIN false every band test folds away and
+// the full mode is compiled as before.
 
 #include <cuda_bf16.h>
 
@@ -197,11 +209,11 @@ struct Tiles {
     static constexpr int SMEM = 2 * SLOT + NW * WARP;
 };
 
-template <int DHP, int BKV, int WPP>
+template <int DHP, int BKV, int WPP, bool WIN>
 __global__ void __launch_bounds__(NTB)
 mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                 const uint16_t* __restrict__ v, const float* __restrict__ pad,
-                uint16_t* __restrict__ out, int BH, int L, int H, int dh, float scale) {
+                uint16_t* __restrict__ out, int BH, int L, int H, int dh, float scale, int w) {
     using T = Tiles<DHP, BKV, WPP>;
     constexpr int NI = BKV / 8;   // score n-tiles (8 keys each)
     constexpr int KD = DHP / 16;  // k-steps of q k^T
@@ -231,14 +243,22 @@ mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         return ((size_t)(pr / H) * L * H + pr % H) * dh;
     };
 
-    const int nt = (L + BKV - 1) / BKV;
+    // the key tiles kt0 .. kt0 + nt - 1 this CTA sweeps: all of them, or
+    // those that meet the band of its query rows
+    int kt0 = 0, nt = (L + BKV - 1) / BKV;
+    if (WIN) {
+        const int qlo = blockIdx.x * WPP * 16;
+        const int qhi = min(qlo + WPP * 16, L) - 1;
+        kt0 = max(qlo - w, 0) / BKV;
+        nt = min(qhi + w, L - 1) / BKV - kt0 + 1;
+    }
     // one key tile: the scores stay in registers between the sweeps
     const int first2 = nt == 1 ? 0 : nt;
     const int steps = first2 + nt;
 
     auto load_step = [&](int s) {
         const int slot = s & 1;
-        const int k0 = (s % nt) * BKV;
+        const int k0 = (kt0 + s % nt) * BKV;
         const bool with_v = s >= first2;
         for (int i = tid; i < T::PPC * BKV * CPR; i += NTB) {
             const int p = i / (BKV * CPR), r = (i / CPR) % BKV, c = i % CPR;
@@ -359,7 +379,7 @@ mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
             // for a live key, -1 for a padded one, -2 past L (two threads a
             // key, each half of its values)
             const int slot = s & 1;
-            const int k0 = (s % nt) * BKV;
+            const int k0 = (kt0 + s % nt) * BKV;
             for (int i = tid; i < T::PPC * BKV * 2; i += NTB) {
                 const int p = i / (2 * BKV), r = (i / 2) % BKV, h = i & 1;
                 const uint16_t* kr = kt_ptr(slot, p) + r * T::LDK;
@@ -378,10 +398,15 @@ mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         __syncthreads();
         if (active) {
             const int slot = s & 1;
-            const int k0 = (s % nt) * BKV;
+            const int k0 = (kt0 + s % nt) * BKV;
             const uint16_t* Ks = kt_ptr(slot, pp);
             const float* kb = live_ptr(slot, pp);
             const int mat = lane >> 3, r8 = lane & 7;
+            // key col's bound factor for row g + 8 r: -2 (no key of the
+            // row) outside the band
+            auto kcode = [&](int r, int col) {
+                return WIN && abs(q0 + g + 8 * r - k0 - col) > w ? -2.0f : kb[col];
+            };
             // raw scores q k^T over DHP, k fragments by ldmatrix (key rows)
 #pragma unroll
             for (int n = 0; n < NI; ++n)
@@ -411,7 +436,7 @@ mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 #pragma unroll
                     for (int e = 0; e < 4; ++e) {
                         const int col = n * 8 + 2 * t + (e & 1), r = e >> 1;
-                        const float kbv = kb[col];
+                        const float kbv = kcode(r, col);
                         if (kbv >= 0.0f) {
                             ta[r] = fmaxf(ta[r], sacc[n][e] * scale);
                             te[r] = fmaxf(te[r], kbv * qn[r]);
@@ -435,7 +460,7 @@ mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 #pragma unroll
                     for (int e = 0; e < 4; ++e) {
                         const int col = n * 8 + 2 * t + (e & 1), r = e >> 1;
-                        const float kbv = kb[col];
+                        const float kbv = kcode(r, col);
                         if (kbv >= 0.0f && rowok[r] &&
                             fmaf(kbv, qn[r], sacc[n][e] * scale) >= ma[r] - er[r])
                             flag |= 1u << (n * 4 + e);
@@ -464,7 +489,7 @@ mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 #pragma unroll
                     for (int e = 0; e < 4; ++e) {
                         const int col = n * 8 + 2 * t + (e & 1), r = e >> 1;
-                        const float kbv = kb[col];
+                        const float kbv = kcode(r, col);
                         float pv = 0.0f;
                         if (kbv >= 0.0f) {
                             const float x = sacc[n][e] * scale - m[r];
@@ -521,11 +546,13 @@ mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     if (!active) return;
     const float extra = (float)(padded_length(L) - L);
     float denom[2];
+    bool dead[2];  // window mode: no live key in the row's band
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
         lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
-        if (m[r] == MASKED) lsum[r] += extra;  // all keys padding
+        dead[r] = WIN && m[r] == MASKED;
+        if (!WIN && m[r] == MASKED) lsum[r] += extra;  // all keys padding
         denom[r] = fmaxf(lsum[r], 1e-30f);
     }
     const size_t base = base_of(pair);
@@ -539,16 +566,17 @@ mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
             const int c = n * 8 + 2 * t;
             if (c < dh)
                 *reinterpret_cast<uint32_t*>(o + c) =
-                    pack_bf16(oacc[n][2 * r] / denom[r], oacc[n][2 * r + 1] / denom[r]);
+                    dead[r] ? 0u
+                            : pack_bf16(oacc[n][2 * r] / denom[r], oacc[n][2 * r + 1] / denom[r]);
         }
     }
 }
 
-template <int DHP, int BKV, int WPP>
+template <int DHP, int BKV, int WPP, bool WIN>
 int launch_bf16(const void* q, const void* k, const void* v, const void* pad, void* out, int B,
-                int L, int H, int dh, float scale, cudaStream_t stream) {
+                int L, int H, int dh, float scale, int w, cudaStream_t stream) {
     using T = Tiles<DHP, BKV, WPP>;
-    auto kern = mea_bf16_kernel<DHP, BKV, WPP>;
+    auto kern = mea_bf16_kernel<DHP, BKV, WPP, WIN>;
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (err != cudaSuccess) return (int)err;
@@ -557,19 +585,21 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* pad, vo
     const dim3 grid((nqb + WPP - 1) / WPP, (BH + T::PPC - 1) / T::PPC);
     kern<<<grid, NTB, T::SMEM, stream>>>((const uint16_t*)q, (const uint16_t*)k,
                                          (const uint16_t*)v, (const float*)pad, (uint16_t*)out,
-                                         BH, L, H, dh, scale);
+                                         BH, L, H, dh, scale, w);
     return (int)cudaGetLastError();
 }
 
-template <int DHP>
+template <int DHP, bool WIN>
 int dispatch_bf16(const void* q, const void* k, const void* v, const void* pad, void* out,
-                  int B, int L, int H, int dh, float scale, cudaStream_t s) {
+                  int B, int L, int H, int dh, float scale, int w, cudaStream_t s) {
     // L <= 32: one 32-key tile, and a CTA's four warps over four or two
     // pairs (one or two 16-row query blocks each); else 64-key tiles and
     // four query blocks of one pair
-    if (L <= 16) return launch_bf16<DHP, 32, 1>(q, k, v, pad, out, B, L, H, dh, scale, s);
-    if (L <= 32) return launch_bf16<DHP, 32, 2>(q, k, v, pad, out, B, L, H, dh, scale, s);
-    return launch_bf16<DHP, 64, 4>(q, k, v, pad, out, B, L, H, dh, scale, s);
+    if (L <= 16)
+        return launch_bf16<DHP, 32, 1, WIN>(q, k, v, pad, out, B, L, H, dh, scale, w, s);
+    if (L <= 32)
+        return launch_bf16<DHP, 32, 2, WIN>(q, k, v, pad, out, B, L, H, dh, scale, w, s);
+    return launch_bf16<DHP, 64, 4, WIN>(q, k, v, pad, out, B, L, H, dh, scale, w, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -599,9 +629,12 @@ __device__ __forceinline__ void load_tile(const float* k, const float* v, const 
 }
 
 // Ss[r][c] = scale * q_r . k_c for the 64 x 64 tile, masked keys at -1e9,
-// keys past L at -inf; each thread a 4 x 4 register tile
+// keys past L (and, WIN, keys outside the band of query row q0 + r, key
+// k0 + c) at -inf; each thread a 4 x 4 register tile
+template <bool WIN>
 __device__ __forceinline__ void score_tile(const float* Qs, const float* Ks, const float* live,
-                                           int dh, int ldq, float scale, float* Ss) {
+                                           int dh, int ldq, float scale, float* Ss, int q0,
+                                           int k0, int w) {
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
     float acc[4][4];
 #pragma unroll
@@ -626,17 +659,20 @@ __device__ __forceinline__ void score_tile(const float* Qs, const float* Ks, con
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
             const float s = acc[i][j] * scale;
-            Ss[(ty + 16 * i) * LDS + c] = lv > 0.5f ? s : (lv < -0.5f ? -INFINITY : MASKED);
+            const bool out_of_band = WIN && abs(q0 + ty + 16 * i - k0 - c) > w;
+            Ss[(ty + 16 * i) * LDS + c] =
+                lv > 0.5f && !out_of_band ? s
+                                          : (lv < -0.5f || out_of_band ? -INFINITY : MASKED);
         }
     }
 }
 
 // DHP: dh rounded up to 32, 64 or 128 (the output accumulators per thread)
-template <int DHP>
+template <int DHP, bool WIN>
 __global__ void __launch_bounds__(NT)
 mea_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ pad,
-               float* __restrict__ out, int L, int H, int dh, float scale) {
+               float* __restrict__ out, int L, int H, int dh, float scale, int w) {
     extern __shared__ float smf[];
     const int ldq = dh + 1;
     float* Qs = smf;              // BQ x ldq
@@ -659,27 +695,32 @@ mea_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // four threads own one query row: its statistics and its output
     const int srow = threadIdx.x / 4, spart = threadIdx.x % 4;
     float m_run = -INFINITY, l_run = 0.0f;
+    // the key tiles swept: all, or those that meet the band of the rows
+    const int kbeg = WIN ? max(q0 - w, 0) / BK * BK : 0;
+    const int kend = WIN ? min(q0 + BQ + w, L) : L;
 
     // sweep 1: the row maxima and the sums of exp(s - m)
-    for (int k0 = 0; k0 < L; k0 += BK) {
+    for (int k0 = kbeg; k0 < kend; k0 += BK) {
         __syncthreads();  // the previous tile is done with
         load_tile(k, v, pad_row, base, rstride, k0, L, dh, ldq, Ks, Vs, live, false);
         __syncthreads();
-        score_tile(Qs, Ks, live, dh, ldq, scale, Ss);
+        score_tile<WIN>(Qs, Ks, live, dh, ldq, scale, Ss, q0, k0, w);
         __syncthreads();
         float tmax = -INFINITY;
 #pragma unroll
         for (int cc = 0; cc < BK / 4; ++cc) tmax = fmaxf(tmax, Ss[srow * LDS + spart + 4 * cc]);
         tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
         tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-        // a tile holds a key below L, so the new maximum is finite
+        // a tile holds a key below L, so the new maximum is finite; in
+        // window mode a row may have no key in this tile nor before it
         const float m_new = fmaxf(m_run, tmax);
+        const float m_ref = WIN && m_new == -INFINITY ? 0.0f : m_new;
         float sum = 0.0f;
 #pragma unroll
-        for (int cc = 0; cc < BK / 4; ++cc) sum += expf(Ss[srow * LDS + spart + 4 * cc] - m_new);
+        for (int cc = 0; cc < BK / 4; ++cc) sum += expf(Ss[srow * LDS + spart + 4 * cc] - m_ref);
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        l_run = l_run * expf(m_run - m_new) + sum;
+        l_run = l_run * expf(m_run - m_ref) + sum;
         m_run = m_new;
     }
 
@@ -687,11 +728,11 @@ mea_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float o[DHP / 4];
 #pragma unroll
     for (int jj = 0; jj < DHP / 4; ++jj) o[jj] = 0.0f;
-    for (int k0 = 0; k0 < L; k0 += BK) {
+    for (int k0 = kbeg; k0 < kend; k0 += BK) {
         __syncthreads();
         load_tile(k, v, pad_row, base, rstride, k0, L, dh, ldq, Ks, Vs, live, true);
         __syncthreads();
-        score_tile(Qs, Ks, live, dh, ldq, scale, Ss);
+        score_tile<WIN>(Qs, Ks, live, dh, ldq, scale, Ss, q0, k0, w);
         __syncthreads();
 #pragma unroll
         for (int cc = 0; cc < BK / 4; ++cc) {
@@ -711,30 +752,49 @@ mea_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     const int l = q0 + srow;
     if (l < L) {
-        if (m_run == MASKED) l_run += (float)(padded_length(L) - L);  // all keys padding
+        // all keys padding: the TPU padding rule, or (window) zeros
+        const bool dead = WIN && m_run == MASKED;
+        if (!WIN && m_run == MASKED) l_run += (float)(padded_length(L) - L);
         const float denom = fmaxf(l_run, 1e-30f);
         const size_t g = base + (size_t)l * rstride;
 #pragma unroll
         for (int jj = 0; jj < DHP / 4; ++jj) {
             const int c = spart + 4 * jj;
-            if (c < dh) out[g + c] = o[jj] / denom;
+            if (c < dh) out[g + c] = dead ? 0.0f : o[jj] / denom;
         }
     }
 }
 
-template <int DHP>
+template <int DHP, bool WIN>
 int launch_f32(const void* q, const void* k, const void* v, const void* pad, void* out, int B,
-               int L, int H, int dh, float scale, cudaStream_t stream) {
+               int L, int H, int dh, float scale, int w, cudaStream_t stream) {
     const size_t smem =
         ((size_t)(BQ + BK) * (dh + 1) + (size_t)BK * dh + (size_t)BQ * LDS + BK) * sizeof(float);
-    auto kern = mea_f32_kernel<DHP>;
+    auto kern = mea_f32_kernel<DHP, WIN>;
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((L + BQ - 1) / BQ, B * H);
     kern<<<grid, NT, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
-                                     (const float*)pad, (float*)out, L, H, dh, scale);
+                                     (const float*)pad, (float*)out, L, H, dh, scale, w);
     return (int)cudaGetLastError();
+}
+
+template <bool WIN>
+int attend(const void* q, const void* k, const void* v, const void* pad, int is_bf16, int B, int L,
+        int H, int dh, float scale, int w, void* out, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (is_bf16) {
+        if (dh <= 16) return dispatch_bf16<16, WIN>(q, k, v, pad, out, B, L, H, dh, scale, w, s);
+        if (dh <= 32) return dispatch_bf16<32, WIN>(q, k, v, pad, out, B, L, H, dh, scale, w, s);
+        if (dh <= 48) return dispatch_bf16<48, WIN>(q, k, v, pad, out, B, L, H, dh, scale, w, s);
+        if (dh <= 64) return dispatch_bf16<64, WIN>(q, k, v, pad, out, B, L, H, dh, scale, w, s);
+        if (dh <= 96) return dispatch_bf16<96, WIN>(q, k, v, pad, out, B, L, H, dh, scale, w, s);
+        return dispatch_bf16<128, WIN>(q, k, v, pad, out, B, L, H, dh, scale, w, s);
+    }
+    if (dh <= 32) return launch_f32<32, WIN>(q, k, v, pad, out, B, L, H, dh, scale, w, s);
+    if (dh <= 64) return launch_f32<64, WIN>(q, k, v, pad, out, B, L, H, dh, scale, w, s);
+    return launch_f32<128, WIN>(q, k, v, pad, out, B, L, H, dh, scale, w, s);
 }
 
 }  // namespace
@@ -746,16 +806,12 @@ int launch_f32(const void* q, const void* k, const void* v, const void* pad, voi
 extern "C" int mea_attention(const void* q, const void* k, const void* v, const void* pad,
                              int is_bf16, int B, int L, int H, int dh, float scale, void* out,
                              void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (is_bf16) {
-        if (dh <= 16) return dispatch_bf16<16>(q, k, v, pad, out, B, L, H, dh, scale, s);
-        if (dh <= 32) return dispatch_bf16<32>(q, k, v, pad, out, B, L, H, dh, scale, s);
-        if (dh <= 48) return dispatch_bf16<48>(q, k, v, pad, out, B, L, H, dh, scale, s);
-        if (dh <= 64) return dispatch_bf16<64>(q, k, v, pad, out, B, L, H, dh, scale, s);
-        if (dh <= 96) return dispatch_bf16<96>(q, k, v, pad, out, B, L, H, dh, scale, s);
-        return dispatch_bf16<128>(q, k, v, pad, out, B, L, H, dh, scale, s);
-    }
-    if (dh <= 32) return launch_f32<32>(q, k, v, pad, out, B, L, H, dh, scale, s);
-    if (dh <= 64) return launch_f32<64>(q, k, v, pad, out, B, L, H, dh, scale, s);
-    return launch_f32<128>(q, k, v, pad, out, B, L, H, dh, scale, s);
+    return attend<false>(q, k, v, pad, is_bf16, B, L, H, dh, scale, 0, out, stream);
+}
+
+// The same with the band |i - j| <= window (window >= 0): the window mode.
+extern "C" int mea_attention_window(const void* q, const void* k, const void* v,
+                                    const void* pad, int is_bf16, int B, int L, int H, int dh,
+                                    float scale, int window, void* out, void* stream) {
+    return attend<true>(q, k, v, pad, is_bf16, B, L, H, dh, scale, window, out, stream);
 }

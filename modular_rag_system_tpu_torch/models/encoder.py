@@ -36,6 +36,9 @@ is added after that sum.
 sequence bucket (min 32), pad the batch to a power of two, forward.  It
 keeps the f32 weights as ``params``; without a state dict it draws them
 with ``random_params`` (flax's default initialisers in distribution).
+Its ``model_type`` names the module it serves: ``"bert"`` this file's
+``SentenceEncoderModule``, ``"modernbert"`` ``models/modernbert.py``'s
+``ModernBertModule`` (``layout`` holds that module's further keys).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from modular_rag_system_tpu_torch.models.modernbert import ModernBertModule
 from modular_rag_system_tpu_torch.models.tokenizer import HashingTokenizer
 from modular_rag_system_tpu_torch.ops.flash_attention import mea_attention
 from modular_rag_system_tpu_torch.utils.device import resolve_device
@@ -187,6 +191,10 @@ class SentenceEncoderModule(nn.Module):
         return pooled / torch.clamp(norm, min=1e-12)
 
 
+# the module each ``model_type`` serves
+_MODULES = {"bert": SentenceEncoderModule, "modernbert": ModernBertModule}
+
+
 def _next_pow2(n: int) -> int:
     p = 1
     while p < n:
@@ -215,7 +223,8 @@ def random_params(module: SentenceEncoderModule, seed: int = 0
     out: Dict[str, torch.Tensor] = {}
     for name, p in module.state_dict().items():
         t = torch.empty(p.shape, dtype=torch.float32)
-        if "ln" in name.split(".")[-2]:
+        owner = name.split(".")[-2]
+        if "ln" in owner or owner.endswith("norm"):
             t.fill_(1.0 if name.endswith("weight") else 0.0)
         elif name.endswith("embed.weight"):
             t.normal_(0.0, math.sqrt(1.0 / p.shape[1]), generator=g)
@@ -249,10 +258,15 @@ class MiniLMEncoder:
         attention_impl: str = "dense",
         device="cuda",
         seed: int = 0,
+        model_type: str = "bert",
+        layout: Optional[Dict] = None,
     ) -> None:
         if attention_impl not in ("dense", "flash"):
             raise ValueError(
                 f"attention_impl must be 'dense' or 'flash', got {attention_impl!r}")
+        if model_type not in _MODULES:
+            raise ValueError(f"model_type must be one of {sorted(_MODULES)}, got {model_type!r}")
+        self.model_type = model_type
         self.device = resolve_device(device)
         self.dim = dim
         self.max_seq_len = max_seq_len
@@ -260,19 +274,19 @@ class MiniLMEncoder:
         self.tokenizer = tokenizer or HashingTokenizer(vocab_size, max_seq_len)
         self._arch = dict(vocab_size=vocab_size, hidden=dim, layers=num_layers,
                          heads=num_heads, mlp_dim=mlp_dim, max_len=max_seq_len,
-                         dtype=_DTYPES[dtype], attention_impl=attention_impl)
+                         dtype=_DTYPES[dtype], attention_impl=attention_impl, **(layout or {}))
         if state_dict is None:
             state_dict = random_params(self.make_module(), seed)
         self.publish(state_dict)
-        self.name = f"minilm-l{num_layers}-h{dim}"
+        family = "minilm" if model_type == "bert" else model_type
+        self.name = f"{family}-l{num_layers}-h{dim}"
 
-    def make_module(self, param_dtype: Optional[torch.dtype] = None, tp=None
-                    ) -> SentenceEncoderModule:
+    def make_module(self, param_dtype: Optional[torch.dtype] = None, tp=None) -> nn.Module:
         """An uninitialised module of this encoder's architecture on its
         device, weights in ``param_dtype`` (default: the compute dtype);
         with ``tp``, one model rank's part of it."""
         with torch.device("meta"):
-            module = SentenceEncoderModule(**self._arch, param_dtype=param_dtype, tp=tp)
+            module = _MODULES[self.model_type](**self._arch, param_dtype=param_dtype, tp=tp)
         return module.to_empty(device=self.device)
 
     def publish(self, params: Dict[str, torch.Tensor]) -> None:

@@ -1,5 +1,6 @@
 """Load a local HuggingFace BERT checkpoint (the ``all-MiniLM-L6-v2`` family)
-into the port's encoder, without ``transformers``.
+or ModernBERT checkpoint (``modernbert-embed-base``) into the port's
+encoder, without ``transformers``.
 
 Nothing is downloaded: a checkpoint is read from a local directory
 (``embedding.hf_checkpoint``) or from an offline hub cache that already
@@ -37,6 +38,24 @@ The encoder always runs with segment id 0, so folding
 ``token_type_embeddings[0]`` into the word embeddings is exact.  The
 weights equal the JAX package's ``load_minilm_params`` mapped through
 ``default_ckpt.params_from_flax``, bit for bit.
+
+A ``config.json`` with ``model_type: "modernbert"`` loads into
+``models/modernbert.py``'s ``ModernBertModule`` instead (names with or
+without the ``model.`` prefix of ``ModernBertForMaskedLM``; its ``head.``
+and ``decoder.`` tensors are not read)::
+
+  embeddings.tok_embeddings   -> tok_embed
+  embeddings.norm             -> embed_norm
+  layers.N.attn_norm          -> blocks.N.attn_norm (none in layer 0)
+  layers.N.attn.{Wqkv,Wo}     -> blocks.N.attn.{wqkv,wo}
+  layers.N.mlp_norm           -> blocks.N.mlp_norm
+  layers.N.mlp.{Wi,Wo}        -> blocks.N.mlp.{wi,wo}
+  final_norm                  -> final_norm
+
+It needs a ``vocab.txt`` beside it: the port has no BPE tokenizer, so the
+published ``tokenizer.json`` cannot serve it.  There is no position table
+to cut; the encoder serves up to ``min(embedding.max_seq_len,
+max_position_embeddings)`` positions.
 """
 
 from __future__ import annotations
@@ -263,6 +282,66 @@ def load_minilm_params(model_name: str = DEFAULT_MODEL, local_dir: Optional[str]
     return {k: v.contiguous() for k, v in sd.items()}, vocab, arch
 
 
+def _modernbert_layout(cfg: dict, src: Path) -> dict:
+    """``ModernBertModule``'s keys beyond the BERT ones, from a ModernBERT
+    ``config.json``; raises on what the module does not compute."""
+    for key in ("norm_bias", "attention_bias", "mlp_bias"):
+        if cfg.get(key, False):
+            raise ValueError(f"{src}: {key} true: the port's ModernBERT layers are bias-free")
+    if cfg.get("hidden_activation", "gelu") != "gelu":
+        raise ValueError(f"{src}: hidden_activation {cfg['hidden_activation']!r}: the port "
+                         "computes the erf GELU")
+    return {"global_every": int(cfg.get("global_attn_every_n_layers", 3)),
+            "window": int(cfg.get("local_attention", 128)) // 2,
+            "global_theta": float(cfg.get("global_rope_theta", 160000.0)),
+            "local_theta": float(cfg.get("local_rope_theta") or cfg.get("global_rope_theta",
+                                                                          160000.0)),
+            "eps": float(cfg.get("norm_eps", 1e-5))}
+
+
+def load_modernbert_params(src: Path, cfg: dict
+                           ) -> Tuple[Dict[str, torch.Tensor], Dict[str, int], dict]:
+    """(f32 state dict of ``ModernBertModule``, vocab, arch) of the
+    ModernBERT checkpoint in ``src`` whose ``config.json`` is ``cfg``;
+    ``arch["layout"]`` holds the module's further keys.  Raises when the
+    checkpoint cannot be read, has no ``vocab.txt``, or lacks a weight."""
+    arch = {"num_layers": cfg["num_hidden_layers"], "hidden": cfg["hidden_size"],
+            "heads": cfg["num_attention_heads"], "mlp_dim": cfg["intermediate_size"],
+            "vocab_size": cfg["vocab_size"], "max_len": cfg["max_position_embeddings"],
+            "model_type": "modernbert", "layout": _modernbert_layout(cfg, src)}
+    if not (src / "vocab.txt").is_file():
+        raise FileNotFoundError(f"{src} has no vocab.txt: the port serves ModernBERT with a "
+                                "WordPiece vocab only (it has no BPE tokenizer)")
+    vocab = load_vocab(str(src / "vocab.txt"))
+    if max(vocab.values()) >= arch["vocab_size"]:
+        raise ValueError(f"{src}: vocab.txt has {max(vocab.values()) + 1} pieces, the "
+                         f"embedding table {arch['vocab_size']} rows")
+    w = {k.removeprefix("model."): v for k, v in _read_weights(src).items()}
+    sd = {"tok_embed.weight": w["embeddings.tok_embeddings.weight"],
+          "embed_norm.weight": w["embeddings.norm.weight"],
+          "final_norm.weight": w["final_norm.weight"]}
+    names = {"attn_norm": "attn_norm", "attn.wqkv": "attn.Wqkv", "attn.wo": "attn.Wo",
+             "mlp_norm": "mlp_norm", "mlp.wi": "mlp.Wi", "mlp.wo": "mlp.Wo"}
+    for n in range(arch["num_layers"]):
+        for ours, theirs in names.items():
+            if n or ours != "attn_norm":
+                sd[f"blocks.{n}.{ours}.weight"] = w[f"layers.{n}.{theirs}.weight"]
+    return {k: v.contiguous() for k, v in sd.items()}, vocab, arch
+
+
+def load_checkpoint(model_name: str = DEFAULT_MODEL, local_dir: Optional[str] = None
+                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, int], dict]:
+    """(state dict, vocab, arch) of a BERT or ModernBERT checkpoint, as its
+    ``config.json``'s ``model_type`` names it; ``arch["model_type"]`` is
+    ``"bert"`` or ``"modernbert"``."""
+    src = resolve_checkpoint(local_dir or model_name)
+    cfg = json.loads((src / "config.json").read_text())
+    if cfg.get("model_type") == "modernbert":
+        return load_modernbert_params(src, cfg)
+    sd, vocab, arch = load_minilm_params(local_dir=str(src))
+    return sd, vocab, dict(arch, model_type="bert")
+
+
 def try_build_pretrained_encoder(config, device="cuda"):
     """``MiniLMEncoder`` with HF weights on ``device``, or None.
 
@@ -271,19 +350,20 @@ def try_build_pretrained_encoder(config, device="cuda"):
     ``all-MiniLM-L6-v2`` is tried, and a cache that cannot be read is
     logged and skipped (None).  A checkpoint whose hidden size is not
     ``embedding.dim`` (the index dim) cannot serve the engine: None.  The
-    position table is cut to ``min(embedding.max_seq_len,
-    max_position_embeddings)`` rows, the longest sequence served."""
+    longest sequence served is ``min(embedding.max_seq_len,
+    max_position_embeddings)``; a BERT position table is cut to it.  The
+    encoder serves the module the checkpoint's ``model_type`` names."""
     from modular_rag_system_tpu_torch.models.encoder import MiniLMEncoder
     from modular_rag_system_tpu_torch.models.tokenizer import WordPieceTokenizer
 
     emb = config.embedding
     if emb.hf_checkpoint:
-        sd, vocab, arch = load_minilm_params(local_dir=emb.hf_checkpoint)
+        sd, vocab, arch = load_checkpoint(local_dir=emb.hf_checkpoint)
     else:
         if not _hf_cache_present(DEFAULT_MODEL):
             return None
         try:
-            sd, vocab, arch = load_minilm_params(DEFAULT_MODEL)
+            sd, vocab, arch = load_checkpoint(DEFAULT_MODEL)
         except (OSError, ValueError, KeyError) as exc:
             logger.warning("hub cache of %s not usable, not loaded: %r", DEFAULT_MODEL, exc)
             return None
@@ -292,7 +372,8 @@ def try_build_pretrained_encoder(config, device="cuda"):
                        arch["hidden"], emb.dim)
         return None
     max_len = min(emb.max_seq_len, arch["max_len"])
-    sd["pos_embed.weight"] = sd["pos_embed.weight"][:max_len]
+    if arch["model_type"] == "bert":
+        sd["pos_embed.weight"] = sd["pos_embed.weight"][:max_len]
     return MiniLMEncoder(
         state_dict=sd,
         dim=arch["hidden"],
@@ -306,4 +387,6 @@ def try_build_pretrained_encoder(config, device="cuda"):
         tokenizer=WordPieceTokenizer(vocab, max_len=max_len),
         attention_impl=emb.attention_impl,
         device=device,
+        model_type=arch["model_type"],
+        layout=arch.get("layout"),
     )

@@ -184,6 +184,9 @@ class ContrastiveTrainer:
         InfoNCE scales logits by 1/temp = 20x, and unclipped early steps
         can collapse the encoder to uniform embeddings); ``warmup_steps``
         linear LR warmup from 0."""
+        if encoder.model_type != "bert":
+            raise ValueError(f"ContrastiveTrainer trains BERT-class encoders only, not "
+                             f"{encoder.model_type!r}")
         if encoder.module.attention_impl != "dense":
             raise ValueError(
                 "ContrastiveTrainer trains only attention_impl='dense' encoders: "

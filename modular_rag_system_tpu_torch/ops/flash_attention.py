@@ -21,11 +21,22 @@ versions here add Lp - L to the row sum of such a row (its maximum is
 the masked -1e9), which gives the same value; the pooling mask drops
 such rows either way.
 
+``window=w`` is the sliding-window mode (ModernBERT's local layers): query
+i sees only the keys j with |i - j| <= w.  A key outside the band is no
+key of the row (it adds nothing to its maximum or its sum), a padded key
+inside it scores -1e9 as above, and a row whose band holds no live key
+(its maximum is -1e9) is all zeros: the TPU padding rule is a rule of the
+full mode only.  The kernel's window mode is its own entry point,
+``mea_attention_window``, and loads only the key tiles that meet a query
+tile's band.
+
 On a CUDA device the wrapper launches ``kernels/mea_attention.cu``; on
 the CPU it runs the plain version.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -35,6 +46,8 @@ _NEG = -1e9  # the finite masked score (not -inf: see the module docstring)
 # f32 bytes of one chunk of the plain version's (c, H, L, L) scores
 _REF_CHUNK_BYTES = 1 << 30
 _MAX_DH = 128
+# query rows a block of the window mode's plain version
+_WINDOW_QB = 256
 
 
 def _round_up(x: int, m: int) -> int:
@@ -48,9 +61,37 @@ def padded_length(L: int) -> int:
     return _round_up(lp, min(512, lp))
 
 
-def mea_attention_reference(q, k, v, pad_mask):
+def _window_reference(q, k, v, pad_mask, window: int):
+    """The window mode's plain version, _WINDOW_QB query rows at a time
+    against the keys of their band."""
+    B, L, H, dh = q.shape
+    scale = 1.0 / (dh ** 0.5)
+    out = torch.empty_like(q)
+    live = pad_mask.to(torch.float32) > 0.5
+    pos = torch.arange(L, device=q.device)
+    qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))  # (B, H, L, dh)
+    for q0 in range(0, L, _WINDOW_QB):
+        q1 = min(q0 + _WINDOW_QB, L)
+        k0, k1 = max(q0 - window, 0), min(q1 + window, L)
+        s = (qf[:, :, q0:q1] @ kf[:, :, k0:k1].transpose(2, 3)) * scale
+        s = torch.where(live[:, None, None, k0:k1], s, _NEG)
+        band = (pos[q0:q1, None] - pos[None, k0:k1]).abs() <= window
+        s = torch.where(band, s, float("-inf"))
+        m = s.amax(dim=3, keepdim=True)
+        e = torch.exp(s - m)
+        o = e.to(v.dtype).float() @ vf[:, :, k0:k1]
+        o = o / torch.clamp(e.sum(dim=3, keepdim=True), min=1e-30)
+        o = torch.where(m == _NEG, 0.0, o)  # no live key in the band
+        out[:, q0:q1] = o.permute(0, 2, 1, 3).to(q.dtype)
+    return out
+
+
+def mea_attention_reference(q, k, v, pad_mask, window: Optional[int] = None):
     """Plain PyTorch version of ``mea_attention``, a few batch rows at a
-    time so the (c, H, L, L) f32 scores stay bounded."""
+    time so the (c, H, L, L) f32 scores stay bounded (the window mode: a
+    block of query rows at a time)."""
+    if window is not None:
+        return _window_reference(q, k, v, pad_mask, window)
     B, L, H, dh = q.shape
     scale = 1.0 / (dh ** 0.5)
     extra = float(padded_length(L) - L)
@@ -71,15 +112,19 @@ def mea_attention_reference(q, k, v, pad_mask):
     return out
 
 
-def mea_attention(q, k, v, pad_mask):
+def mea_attention(q, k, v, pad_mask, window: Optional[int] = None):
     """softmax(q k^T / sqrt(dh)) v with key padding, no (L, L) tensor in
     device memory.  ``q``/``k``/``v``: (B, L, H, dh) bf16 or f32;
-    ``pad_mask``: (B, L), 1 = live.  Returns (B, L, H, dh) in q's dtype.
+    ``pad_mask``: (B, L), 1 = live; ``window``: None (every key) or the
+    band's half width w >= 0 (keys with |i - j| <= w).  Returns (B, L, H,
+    dh) in q's dtype.
 
     On a CUDA device this launches the hand-written kernel; on the CPU
     it runs the plain version."""
+    if window is not None and (int(window) != window or window < 0):
+        raise ValueError(f"mea_attention: window must be a whole number >= 0, got {window!r}")
     if q.device.type == "cpu":
-        return mea_attention_reference(q, k, v, pad_mask)
+        return mea_attention_reference(q, k, v, pad_mask, window)
     B, L, H, dh = q.shape
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"mea_attention takes bf16 or f32 tensors, got {q.dtype}")
@@ -94,8 +139,12 @@ def mea_attention(q, k, v, pad_mask):
     out = torch.empty_like(q)
     if B == 0 or L == 0:
         return out
-    kernels.launch(
-        "mea_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, L, H, dh, 1.0 / (dh ** 0.5), out.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, L, H, dh, 1.0 / (dh ** 0.5))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if window is None:
+        kernels.launch("mea_attention", *args, out.data_ptr(), stream)
+    else:
+        kernels.launch("mea_attention_window", *args, min(int(window), L), out.data_ptr(),
+                       stream)
     return out

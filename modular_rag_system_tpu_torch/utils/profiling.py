@@ -7,8 +7,9 @@ metrics (cache-hit ratio 0.75 / 0.85 — ``embedding_pipeline.py:695-698``,
 * ``TimingRegistry`` — cheap named timers with rolling windows (count,
   mean, p50, p99); the tracer keeps its per-name windows in one,
 * ``TRACER`` — the process's one ``Tracer``: spans and counters at the
-  layer boundaries of the write path (``RAGEngine.add_documents``) and
-  the trainer step (``ContrastiveTrainer.step``).  Off by default
+  layer boundaries of the write path (``RAGEngine.add_documents``), the
+  trainer step (``ContrastiveTrainer.step``) and ModernBERT's two kinds
+  of attention layer (``models/modernbert.py``).  Off by default
   (``TRACER.enable()`` / ``TRACER.disable()``); ``TRACER.stats()``
   summarises what it recorded,
 * ``device_trace`` — a context manager around ``torch.profiler`` that
@@ -68,7 +69,7 @@ class TimingRegistry:
 TIMELINE_SPANS = frozenset({
     "trainer.tokenize", "trainer.forward", "trainer.backward", "trainer.update",
     "trainer.readback",
-    "encoder.tokenize", "encoder.forward",
+    "encoder.tokenize", "encoder.forward", "encoder.attn_global", "encoder.attn_local",
     "store.lookup", "store.rows", "store.write", "store.commit",
     "index.add",
 })

@@ -14,12 +14,14 @@ cores), so scores agree within 1e-5 and ids agree except at near-ties
 (checked against an f64 rescore); the -inf pattern is always identical.
 ``mea_attention`` in bf16 rounds its probabilities and its output to
 bf16, so a last-bit difference in f32 can move an output by one bf16
-step: |d| <= 2^-7 |ref| + 1e-5 there, 1e-5 in f32.  ``clip_adamw``
-rounds every operation as the plain version does, but sums the squares
-in another order, so the norm agrees within 1e-6 relative, and so does
-every updated value (relative to itself, with 1e-6 of the buffer's
-largest as the floor where a first moment cancels to near 0); two runs
-of the kernel on the same inputs agree bit for bit.
+step: |d| <= 2^-7 |ref| + 1e-5 there, 1e-5 in f32; its window mode
+holds the same bounds, and a row with no live key in its band is zeros
+in both versions.  ``clip_adamw`` rounds every operation as the plain
+version does, but sums the squares in another order, so the norm agrees
+within 1e-6 relative, and so does every updated value (relative to
+itself, with 1e-6 of the buffer's largest as the floor where a first
+moment cancels to near 0); two runs of the kernel on the same inputs
+agree bit for bit.
 """
 
 import numpy as np
@@ -368,6 +370,34 @@ def test_mea_attention_kernel_matches_plain(cuda_device, dtype, B, L, H, dh):
     d = (out.float() - ref.float()).abs()
     tol = 1e-5 if dtype == torch.float32 else 2.0**-7 * ref.float().abs() + 1e-5
     assert (d <= tol).all(), d.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("w", [4, 64])
+# one 32-key tile; 64-key tiles, the band inside one and across several;
+# ModernBERT's 8,192 positions
+@pytest.mark.parametrize("L", [20, 64, 200, 2048, 8192])
+def test_mea_attention_window_matches_plain(cuda_device, dtype, L, w, dh):
+    B, H = 3, 2
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    q, k, v = (torch.randn((B, L, H, dh), generator=g, device=cuda_device).to(dtype)
+               for _ in range(3))
+    pad = torch.ones((B, L), dtype=torch.int32, device=cuda_device)
+    pad[0, L * 5 // 8:] = 0  # a padded tail: its far rows have no live key in their band
+    pad[-1] = 0  # an all-padding batch row
+    out = pfa.mea_attention(q, k, v, pad, window=w)
+    ref = pfa.mea_attention_reference(q, k, v, pad, window=w)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    d = (out.float() - ref.float()).abs()
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7 * ref.float().abs() + 1e-5
+    assert (d <= tol).all(), d.max().item()
+    # the rows with no live key in their band are zeros in both
+    dead = torch.zeros((B, L), dtype=torch.bool, device=cuda_device)
+    dead[0, L * 5 // 8 + w:] = True
+    dead[-1] = True
+    assert (out[dead] == 0).all() and (ref[dead] == 0).all()
 
 
 @pytest.mark.cuda
