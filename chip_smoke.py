@@ -108,7 +108,9 @@ Phases (any failure exits non-zero and prints no result line):
    once a local layer and forward, and no other kernel; both modes held
    against their plain version at the first global and the first local
    layer's inputs of that batch (8 x 8,192, 12 heads of 64, bf16, ragged
-   padding) and timed there.
+   padding) and timed there, the full mode in both its designs (the
+   Hopper design the wrapper picks at that L, and the tile template),
+   and both designs at L = 256 to 2,048 (B x H = 96): the crossover.
 8. multihost: two processes on the card, one gloo group of 2
    (``parallel/multihost.py``): ``mh_check`` with CUDA tensors (its four
    markers in both ranks), then two ranks of this script
@@ -3010,6 +3012,44 @@ def modernbert_checkpoint(out_dir, config, seed=0):
                                 minilm_vocab(config["vocab_size"]))
 
 
+def time_mea_template(q, k, v, pad):
+    """The full mode's tile template (design 0) at inputs where the
+    wrapper picks the Hopper design: held against the plain version and
+    timed, beside the design the wrapper picked."""
+    from modular_rag_system_tpu_torch.ops import flash_attention as FA
+
+    B_, L, H, dh = q.shape
+    design = FA.full_design(L, dh, q.dtype)
+    err = _check_mea(FA._launch(q, k, v, pad, 0), FA.mea_attention_reference(q, k, v, pad),
+                     "mea_attention's tile template")
+    ms = cuda_ms(lambda: FA._launch(q, k, v, pad, 0), reps=5)
+    log(f"time mea_attention's tile template (design 0) B={B_} L={L} H={H} dh={dh}: {ms:.4f} ms "
+        f"(the wrapper picks design {design}); max |err| vs plain {err:.2e}")
+    return {"design": design, "template_ms": ms, "template_max_abs_err": err}
+
+
+def mea_crossover(dev, lengths=(256, 512, 1024, 2048)):
+    """Both full-mode designs at B = 8, H = 12, dh 64 (B x H = 96, every key
+    live), bf16: where the Hopper design overtakes the tile template (the
+    wrapper's LONG_FROM).  {L: {"template_ms", "hopper_ms"}}."""
+    import torch
+
+    from modular_rag_system_tpu_torch.ops import flash_attention as FA
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    res = {}
+    for L in lengths:
+        q, k, v = (torch.randn((8, L, 12, 64), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        pad = torch.ones((8, L), device=dev)
+        res[L] = {f"{name}_ms": cuda_ms(lambda: FA._launch(q, k, v, pad, d), reps=20)
+                  for name, d in (("template", 0), ("hopper", 1))}
+    log("mea_attention's full mode, B=8 H=12 dh=64 bf16, template / Hopper design ms: " +
+        ", ".join(f"L={L} {t['template_ms']:.4f} / {t['hopper_ms']:.4f}" for L, t in res.items()) +
+        f"; the wrapper takes the Hopper design from L={FA.LONG_FROM} on")
+    return res
+
+
 def longdoc_phase(work, kernels, know, passages, spec, device="cuda",
                   config=MODERNBERT_CONFIG, pieces=LONGDOC_PIECES):
     """Phase 7b: ``create_engine`` over a ModernBERT checkpoint at
@@ -3104,8 +3144,12 @@ def longdoc_phase(work, kernels, know, passages, spec, device="cuda",
         if cuda:
             out[name] = (*time_mea(q, k, v, pad, spec, f"at ModernBERT's first {layer} "
                                    f"layer (the long-document batch)", w), want[name])
+            if w is None:
+                out[name][0].update(time_mea_template(q, k, v, pad))
         else:  # the CPU runs the plain version itself
             out[name] = ({}, 0.0, want[name])
+    if cuda:
+        out["mea_attention"][0]["crossover"] = mea_crossover(q.device)
     eng.shutdown()
     del eng, enc, captured, q, k, v, pad
     gc.collect()

@@ -86,8 +86,8 @@ _ARGTYPES = {
     # E, is_bf16, q_bf16, keys, kbytes, perm, window, Q, d, count, kb,
     # bin_width, k, ws, stages, warp_sel, vals, ids, stream
     "rescan": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P],
-    # q, k, v, pad, is_bf16, B, L, H, dh, scale, out, stream
-    "mea_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
+    # q, k, v, pad, is_bf16, B, L, H, dh, scale, design, work, out, stream
+    "mea_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P],
     # q, k, v, pad, is_bf16, B, L, H, dh, scale, window, out, stream
     "mea_attention_window": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P],
     # g, n, split, grid, partials, stream

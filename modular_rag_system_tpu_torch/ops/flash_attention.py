@@ -31,7 +31,10 @@ full mode only.  The kernel's window mode is its own entry point,
 tile's band.
 
 On a CUDA device the wrapper launches ``kernels/mea_attention.cu``; on
-the CPU it runs the plain version.
+the CPU it runs the plain version.  The full mode has two designs on the
+card, with the same arithmetic: a tile template for every shape, and a
+Hopper design (wgmma tiles, a TMA ring, the key bounds once a launch)
+for bf16 at dh 64 from ``LONG_FROM`` keys on; ``full_design`` picks it.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from typing import Optional
 import torch
 
 from modular_rag_system_tpu_torch import kernels
+from modular_rag_system_tpu_torch.utils.profiling import TRACER
 
 _NEG = -1e9  # the finite masked score (not -inf: see the module docstring)
 # f32 bytes of one chunk of the plain version's (c, H, L, L) scores
@@ -48,6 +52,14 @@ _REF_CHUNK_BYTES = 1 << 30
 _MAX_DH = 128
 # query rows a block of the window mode's plain version
 _WINDOW_QB = 256
+# the full mode's Hopper design from this L on (bf16, dh 64): where it
+# overtakes the tile template on an H100 (PERF.md, kernel table row 7)
+LONG_FROM = 512
+_LONG_DH = 64
+# its key tile, and the floats of its per-(batch row x head, key tile)
+# record of key bounds: a code a key and four of the tile's
+_LONG_KEYS = 128
+_LONG_RECORD = _LONG_KEYS + 4
 
 
 def _round_up(x: int, m: int) -> int:
@@ -112,6 +124,13 @@ def mea_attention_reference(q, k, v, pad_mask, window: Optional[int] = None):
     return out
 
 
+def full_design(L: int, dh: int, dtype: torch.dtype) -> int:
+    """The full mode's kernel design for a launch: 1 (the Hopper design)
+    for bf16 at dh 64 from ``LONG_FROM`` keys on, else 0 (the tile
+    template)."""
+    return int(dtype == torch.bfloat16 and dh == _LONG_DH and L >= LONG_FROM)
+
+
 def mea_attention(q, k, v, pad_mask, window: Optional[int] = None):
     """softmax(q k^T / sqrt(dh)) v with key padding, no (L, L) tensor in
     device memory.  ``q``/``k``/``v``: (B, L, H, dh) bf16 or f32;
@@ -134,6 +153,15 @@ def mea_attention(q, k, v, pad_mask, window: Optional[int] = None):
         raise ValueError(f"mea_attention needs dh % 8 == 0, dh <= {_MAX_DH}, B * H <= "
                          f"65535 and a (B, L) mask; got q {tuple(q.shape)}, mask "
                          f"{tuple(pad_mask.shape)}")
+    if window is None:
+        return _launch(q, k, v, pad_mask, full_design(L, dh, q.dtype))
+    return _launch(q, k, v, pad_mask, None, min(int(window), L))
+
+
+def _launch(q, k, v, pad_mask, design: Optional[int], window: int = 0):
+    """One launch of the full mode's ``design`` (None: the window mode's
+    entry with ``window``) on checked CUDA tensors."""
+    B, L, H, dh = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     pad = pad_mask.to(torch.float32).contiguous()
     out = torch.empty_like(q)
@@ -142,9 +170,14 @@ def mea_attention(q, k, v, pad_mask, window: Optional[int] = None):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
             int(q.dtype == torch.bfloat16), B, L, H, dh, 1.0 / (dh ** 0.5))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if window is None:
-        kernels.launch("mea_attention", *args, out.data_ptr(), stream)
-    else:
-        kernels.launch("mea_attention_window", *args, min(int(window), L), out.data_ptr(),
-                       stream)
+    if design is None:
+        kernels.launch("mea_attention_window", *args, window, out.data_ptr(), stream)
+        return out
+    work = None
+    if design:
+        work = torch.empty(B * H * -(-L // _LONG_KEYS) * _LONG_RECORD, dtype=torch.float32,
+                           device=q.device)
+        TRACER.count("attn.full_long_launches")
+    kernels.launch("mea_attention", *args, design, 0 if work is None else work.data_ptr(),
+                   out.data_ptr(), stream)
     return out

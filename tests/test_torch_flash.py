@@ -209,3 +209,37 @@ def test_attention_impl_validated():
         MiniLMEncoder(state_dict={}, **kw, attention_impl="Flash")
     with pytest.raises(ValueError, match="attention_impl"):
         SentenceEncoderModule(attention_impl="sparse")
+
+
+# the full mode's two designs on the card: the choice and the kernels' names
+def test_full_design_from_the_threshold_on():
+    from modular_rag_system_tpu_torch.ops.flash_attention import LONG_FROM, full_design
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert full_design(LONG_FROM, 64, bf16) == 1 and full_design(8192, 64, bf16) == 1
+    assert full_design(LONG_FROM - 1, 64, bf16) == 0 and full_design(32, 64, bf16) == 0
+    # only bf16, only dh 64
+    for dh in (8, 32, 48, 128):
+        assert full_design(8192, dh, bf16) == 0
+    for dtype in (f32, torch.float16):
+        assert full_design(8192, 64, dtype) == 0
+
+
+@pytest.mark.parametrize("name,mode", [
+    # the names torch.profiler printed for the Hopper design's two kernels on
+    # an H100, and for the tile template's full and window modes
+    ("void (anonymous namespace)::hopper::mea_bf16_kernel<64, 128, false>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float const*, unsigned short*, int, int, float)", "full"),
+    ("void (anonymous namespace)::hopper::key_bounds::mea_bf16_kernel<64, 128, false>("
+     "unsigned short const*, float const*, float*, int, int, float)", "full"),
+    ("void (anonymous namespace)::mea_bf16_kernel<64, 64, 4, false>(unsigned short const*, "
+     "unsigned short const*, unsigned short const*, float const*, unsigned short*, int, int, "
+     "int, int, float, int)", "full"),
+    ("void (anonymous namespace)::mea_bf16_kernel<64, 64, 4, true>(unsigned short const*, "
+     "unsigned short const*, unsigned short const*, float const*, unsigned short*, int, int, "
+     "int, int, float, int)", "window"),
+    ("void at::native::elementwise_kernel<128, 4>(int, float)", None)])
+def test_roofline_reader_reads_the_full_mode_kernels(name, mode):
+    from portbench.kernel_share import mea_mode
+
+    assert mea_mode(name) == mode

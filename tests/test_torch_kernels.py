@@ -373,6 +373,50 @@ def test_mea_attention_kernel_matches_plain(cuda_device, dtype, B, L, H, dh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,scatter", [
+    # at the Hopper design's threshold and one below it (the tile template)
+    (2, pfa.LONG_FROM - 1, 3, False), (2, pfa.LONG_FROM, 3, False),
+    # a key tile and one: L no multiple of the design's 128-key tile
+    (3, 4097, 2, False),
+    # ModernBERT's 8,192 positions: a ragged tail and an all-padding row
+    (2, 8192, 2, False),
+    # padded keys scattered through every key tile; ragged lengths
+    (2, 2048, 2, True), (5, 3000, 2, False)])
+def test_mea_attention_long_design_matches_plain(cuda_device, B, L, H, scatter):
+    from modular_rag_system_tpu_torch import kernels
+    from modular_rag_system_tpu_torch.utils.profiling import TRACER
+
+    dh = 64  # the one head width the Hopper design takes
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    q, k, v = (torch.randn((B, L, H, dh), generator=g, device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    pad = torch.ones((B, L), dtype=torch.int32, device=cuda_device)
+    if B > 3:
+        lengths = torch.randint(1, L + 1, (B, 1), generator=g, device=cuda_device)
+        pad = (torch.arange(L, device=cuda_device) < lengths).to(torch.int32)
+    pad[0, L * 5 // 8:] = 0
+    pad[-1] = 0
+    if scatter:
+        pad[0] = (torch.rand(L, generator=g, device=cuda_device) > 0.3).to(torch.int32)
+    before = dict(kernels.launches)
+    TRACER.reset()
+    TRACER.enable()
+    try:
+        out = pfa.mea_attention(q, k, v, pad)
+        torch.cuda.synchronize()
+        counted = TRACER.counters().get("attn.full_long_launches", 0)
+    finally:
+        TRACER.disable()
+        TRACER.reset()
+    assert kernels.launches["mea_attention"] == before["mea_attention"] + 1
+    assert counted == pfa.full_design(L, dh, torch.bfloat16) == int(L >= pfa.LONG_FROM)
+    ref = pfa.mea_attention_reference(q, k, v, pad)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    d = (out.float() - ref.float()).abs()
+    assert (d <= 2.0**-7 * ref.float().abs() + 1e-5).all(), d.max().item()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("w", [4, 64])
