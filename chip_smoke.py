@@ -244,16 +244,22 @@ def queued_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def wall_ms(fn, reps: int = 10) -> float:
+def wall_ms(fn, reps: int = 10, cuda: bool = True) -> float:
+    """Median wall ms of ``fn`` (after a warm-up call), synchronized on
+    the card when ``cuda``."""
     import torch
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
 
     fn()
     times = []
     for _ in range(reps):
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
@@ -372,7 +378,7 @@ def time_binmax(eng, q, spec):
 
     from modular_rag_system_tpu_torch.ops import binmax_topk as B
 
-    E_q, sc, _ = eng.index.search_ops()
+    E_q, sc, _ = eng.index._operands("int8")
     sc = sc.reshape(-1)
     cap, bw = E_q.shape[0], B.auto_bin_width(E_q.shape[0])
     nb = cap // bw
@@ -484,7 +490,7 @@ def time_fused(eng, q, spec):
     from modular_rag_system_tpu_torch.ops import fused_topk as F
     from modular_rag_system_tpu_torch.ops.binmax_topk import int8_refine_kf
 
-    E_q, sc, _ = eng.index.search_ops()
+    E_q, sc, _ = eng.index._operands("int8")
     sc = sc.reshape(-1)
     count, cap = eng.index.count, E_q.shape[0]
     kf = int8_refine_kf(10, cap)
@@ -1232,7 +1238,7 @@ def time_rescan(eng, q, spec, kernels):
 
     from modular_rag_system_tpu_torch.ops import binmax_topk as B
 
-    E_q, sc, E = eng.index.search_ops()
+    E_q, sc, E = eng.index._operands("int8")
     count, cap = eng.index.count, E.shape[0]
     bw, nb, Q = B.auto_bin_width(cap), cap // B.auto_bin_width(cap), q.shape[0]
     rescore = float_rescorer(E, q)
@@ -1419,14 +1425,13 @@ def query_breakdown(eng, questions, route):
     for Q in (1, 256):
         texts = questions[:Q]
         stages = {
-            "tokenize": lambda: dense._crop_seq(*dense.tokenizer.encode_batch(texts)),
+            "tokenize": lambda: dense.tokenizer.encode_batch(texts),
             "lexical": lambda: lex.encode(texts),
-            "embed (tokenize+lexical+forward)": lambda: eng.embed_queries(texts),
+            "embed (tokenize+lexical+forward)": lambda: eng.encoder.encode_device(texts),
         }
-        q = eng.embed_queries(texts)
+        q = eng.encoder.encode_device(texts)
         k = eng._initial_k(eng.config.retrieval.max_results, False)
-        stages["search"] = lambda: eng.index.search_core(k)(
-            eng.index.search_ops(), eng.index.count, q)
+        stages["search"] = lambda: eng.index.search_device(q, k)
         stages["whole query_batch"] = lambda: eng.query_batch(texts, similarity_threshold=0.0)
         times[Q] = {name: wall_ms(fn, reps=5) for name, fn in stages.items()}
         parts = ", ".join(f"{name} {ms:.2f} ms" for name, ms in times[Q].items())
@@ -1490,7 +1495,7 @@ def check_against_exact(eng, q, k, tol, what):
 
     idx = eng.index
     with idx._lock:
-        vals, rows = idx.search_core(k)(idx.search_ops(), idx.count, q)
+        vals, rows = idx.search_device(q, k)
         _, er = exact_topk_chunked(idx, q, k)
         got = torch.bmm(idx.E[rows.long()].float(), q.unsqueeze(2)).squeeze(2)
     recall = sum(len(set(a) & set(b)) for a, b in
@@ -1679,7 +1684,7 @@ def flash_engine(work, kernels, dense_eng, know, questions, passages, r_int8, sp
 
     encoder_module.mea_attention = capture
     try:
-        eng.embed_queries(questions[:256])
+        eng.encoder.encode_device(questions[:256])
     finally:
         encoder_module.mea_attention = mea
     entry, err = time_mea(*captured[0], spec, "at the engine's first layer, Q=256")
@@ -1729,7 +1734,7 @@ def int4_route(storage, kernels, V, questions, passages, spec, rec_int8, r_full,
         raise AssertionError(f"int4 fine copy is {ratio} of the int8 copy")
 
     batch = questions[:128]
-    q128 = eng.embed_queries(batch)
+    q128 = eng.encoder.encode_device(batch)
 
     def route():
         eng.query_batch(batch, similarity_threshold=0.0)
@@ -1832,15 +1837,15 @@ def sharded_rows(idx, gids):
 
 
 def check_sharded(eng, q, k, tol, what, equal=False):
-    """The sharded route's top-k (through the index's own protocol, as the
-    engine calls it) against ``sharded_exact``: recall@k, and the returned
+    """The sharded route's top-k (through the index's ``search_device``, as
+    the engine calls it) against ``sharded_exact``: recall@k, and the returned
     scores against the exact f32 scores of the returned rows; with
     ``equal`` the ids and scores must equal the reference's."""
     import torch
 
     idx = eng.index
     with idx._lock:
-        vals, gids = idx.search_core(k)(idx.search_ops(k), idx.count, q)
+        vals, gids = idx.search_device(q, k)
         ev, eg = sharded_exact(idx, q, k)
         got = torch.bmm(sharded_rows(idx, gids), q.unsqueeze(2)).squeeze(2)
     recall = sum(len(set(a) & set(b)) for a, b in
@@ -1943,7 +1948,7 @@ def sharded_phase(work, storage, kernels, know, questions, passages, r_ivf, refi
         kernels, "sharded single-pass (4 shards)", "fused_topk_int8",
         lambda: (eng.query_batch(questions[:256], similarity_threshold=0.0),
                  eng.query(questions[0], similarity_threshold=0.0)), 2)
-    rec = check_sharded(eng, eng.embed_queries(questions[:256]), 10, 1e-5,
+    rec = check_sharded(eng, eng.encoder.encode_device(questions[:256]), 10, 1e-5,
                         f"sharded single-pass route ({idx.count} rows, 4 shards)")
     if rec != 1.0:
         raise AssertionError(f"sharded single-pass recall@10 {rec} != 1.0")
@@ -1964,7 +1969,7 @@ def sharded_phase(work, storage, kernels, know, questions, passages, r_ivf, refi
     if (idx.count != REBUILD_ROWS or iv is None or not iv.warm_started
             or iv.fine_dtype != "int8" or iv.built != REBUILD_ROWS):
         raise AssertionError("the sharded restore did not warm-start an int8 ivf build")
-    q256 = eng.embed_queries(questions[:256])
+    q256 = eng.encoder.encode_device(questions[:256])
     shard_launches["fine_scores"] = drive_shards(
         kernels, "sharded ivf (int8, 4 shards)", "fine_scores",
         lambda: (eng.query_batch(questions[:256], similarity_threshold=0.0),
@@ -2034,7 +2039,7 @@ def sharded_phase(work, storage, kernels, know, questions, passages, r_ivf, refi
         kernels, "sharded two-pass (2 x 2)", "binmax_int8",
         lambda: (eng.query_batch(questions[:256], similarity_threshold=0.0),
                  eng.query(questions[0], similarity_threshold=0.0)), 2)
-    rec = check_sharded(eng, eng.embed_queries(questions[:256]), 10, 1e-5,
+    rec = check_sharded(eng, eng.encoder.encode_device(questions[:256]), 10, 1e-5,
                         "sharded two-pass route (2 x 2)")
     if rec != 1.0:
         raise AssertionError(f"sharded two-pass recall@10 {rec} != 1.0")
@@ -2700,10 +2705,12 @@ def fine_tune_entry(work, kernels, know, questions, passages, order, device, out
         moved = float(abs(e_after - e_before).max())
         ref_module = dense.make_module()
         ref_module.load_state_dict(system._trainer.params)
-        ids, mask = dense._crop_seq(*dense.tokenizer.encode_batch(probe))
-        with torch.inference_mode():
-            ref = ref_module(torch.from_numpy(ids).to(dense.device, torch.long),
-                             torch.from_numpy(mask).to(dense.device)).cpu().numpy()
+        serving = dense.module
+        dense.module = ref_module  # the same batches, through the masters' cast
+        try:
+            ref = dense.encode(probe)
+        finally:
+            dense.module = serving
         gap = float(abs(e_after - ref).max())
         log(f"train: serving embeddings moved by up to {moved:.3e}; against a module cast "
             f"from the trainer's masters within {gap:.1e}")
@@ -2712,7 +2719,7 @@ def fine_tune_entry(work, kernels, know, questions, passages, order, device, out
         n = route_only(kernels, f"train: query_batch x{len(questions)} after the re-embedding",
                        "fused_topk_int8", lambda: eng.query_batch(
                            questions, max_results=10, similarity_threshold=0.0))
-        q = eng.embed_queries(questions)
+        q = eng.encoder.encode_device(questions)
         for lo in range(0, len(questions), 256):
             rec = check_against_exact(eng, q[lo:lo + 256], 10, 1e-5,
                                       "train: the re-embedded index")
@@ -2896,7 +2903,7 @@ def hf_phase(work, kernels, know, questions, passages, spec, step_ms=None, devic
                       lambda: eng.query_batch(questions[:256], similarity_threshold=0.0)),
         "Q1": drive(kernels, "hf engine Q=1 (int8 single-pass)", "fused_topk_int8",
                     lambda: eng.query(questions[0], similarity_threshold=0.0))}
-    q = eng.embed_queries(questions)
+    q = eng.encoder.encode_device(questions)
     for lo, hi in ((0, 256), (256, len(questions)), (0, 1)):
         rec = check_against_exact(eng, q[lo:hi], 10, 1e-5,
                                   f"hf engine, questions {lo}..{hi - 1}")
@@ -2910,10 +2917,20 @@ def hf_phase(work, kernels, know, questions, passages, spec, step_ms=None, devic
     ref = H.try_build_pretrained_encoder(config("unused", **{"embedding.dtype": "float32"}),
                                          "cpu").encode(texts)
     t_ref = time.perf_counter() - t0
-    got = dense.encode(texts)
+    widths = set()
+    forward_tokens = dense.forward_tokens
+
+    def recorded(ids, mask):
+        widths.add(ids.shape[1])
+        return forward_tokens(ids, mask)
+
+    dense.forward_tokens = recorded
+    try:
+        got = dense.encode(texts)
+    finally:
+        dense.forward_tokens = forward_tokens
     cos = (got * ref).sum(1)
-    buckets = sorted({dense._crop_seq(*dense.tokenizer.encode_batch([t]))[0].shape[1]
-                      for t in texts})
+    buckets = sorted(widths)
     log(f"hf encoder on {device} (bf16) vs the f32 CPU forward ({t_ref:.1f} s) over "
         f"{len(questions)} questions, the {len(longest)} longest passages and "
         f"{len(long_docs)} long documents (sequence buckets {buckets}): min cosine {cos.min():.6f}, mean {cos.mean():.6f} (floor "
@@ -3094,10 +3111,11 @@ def longdoc_phase(work, kernels, know, passages, spec, device="cuda",
     pool = list(passages) + list(know)
     r = np.random.default_rng(7)
     docs = ["\n\n".join(pool[i] for i in r.choice(len(pool), c, replace=False)) for c in pieces]
-    ids, mask = enc._crop_seq(*enc.tokenizer.encode_batch(docs))
-    lengths = mask.sum(1).tolist()
-    if ids.shape[1] != L or min(lengths) == L:
-        raise AssertionError(f"the documents reach {ids.shape[1]} positions, lengths {lengths}")
+    lengths = enc.tokenizer.encode_batch(docs)[1].sum(1).tolist()
+    # the batch's sequence bucket is L (its longest past L / 2), and not
+    # every document is cut at L
+    if max(lengths) <= L // 2 or min(lengths) == L:
+        raise AssertionError(f"the documents reach {max(lengths)} positions, lengths {lengths}")
 
     forwards = [0]
     forward_tokens = enc.forward_tokens
@@ -3184,25 +3202,6 @@ def mh_answers(eng, questions):
     return {"q256": _lists(q256), "q1": _lists(q1)}
 
 
-def _wall(fn, cuda, reps=10):
-    """Median wall ms of ``fn`` (after a warm-up call), synchronized."""
-    import torch
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize()
-
-    fn()
-    times = []
-    for _ in range(reps):
-        sync()
-        t0 = time.perf_counter()
-        fn()
-        sync()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
 def mh_exact(idx, q, k):
     """The exact top-k across the ranks without the package's merge or
     collectives: each local shard's ``exact_topk_raw``, gathered with
@@ -3231,11 +3230,10 @@ def mh_exact(idx, q, k):
 
 
 def mh_check_exact(idx, q, k, what):
-    """The route's top-k (the index's own protocol, collectives included)
-    against ``mh_exact``: recall@k, and the scores, both lists sorted,
+    """The route's top-k (the index's ``search_device``, collectives
+    included) against ``mh_exact``: recall@k, and the scores, both lists sorted,
     within 1e-5.  Returns the recall."""
-    with idx._lock:
-        vals, gids = idx.search_core(k)(idx.search_ops(k), idx.count, q)
+    vals, gids = idx.search_device(q, k)
     ev, eg = mh_exact(idx, q, k)
     recall = sum(len(set(a) & set(b)) for a, b in
                  zip(gids.tolist(), eg.tolist())) / eg.numel()
@@ -3258,15 +3256,15 @@ def mh_search_stages(eng, questions, cuda):
     k = eng._initial_k(eng.config.retrieval.max_results, False)
     for Q in (1, 256):
         texts = questions[:Q]
-        q = eng.embed_queries(texts)
+        q = eng.encoder.encode_device(texts)
 
         def search():
-            return idx.search_core(k)(idx.search_ops(k), idx.count, q)
+            return idx.search_device(q, k)
 
         v, g = search()
-        out[Q] = {"embed": _wall(lambda: eng.embed_queries(texts), cuda),
-                  "search": _wall(search, cuda),
-                  "gather": _wall(lambda: all_gather_candidates(v, g), cuda),
+        out[Q] = {"embed": wall_ms(lambda: eng.encoder.encode_device(texts), cuda=cuda),
+                  "search": wall_ms(search, cuda=cuda),
+                  "gather": wall_ms(lambda: all_gather_candidates(v, g), cuda=cuda),
                   "gather_bytes": v.numel() * 8}
     return out
 
@@ -3321,7 +3319,7 @@ def mh_engine(work, kernels, know, questions, passages, ref, device, rank, out):
     if n != MH_SHARDS * 2:
         raise AssertionError(f"{n} binmax_int8 launches, expected {MH_SHARDS} x 2")
     out["launches"]["two_pass"] = n
-    rec = mh_check_exact(idx, eng.embed_queries(questions[:256]), 10,
+    rec = mh_check_exact(idx, eng.encoder.encode_device(questions[:256]), 10,
                          f"multihost two-pass route ({idx.count} rows)")
     if rec != 1.0:
         raise AssertionError(f"multihost two-pass recall@10 {rec} != 1.0")
@@ -3388,8 +3386,8 @@ def mh_train(work, questions, passages, ref, device, rank, out):
             if abs(l_mesh - l_one) > STEP0_LOSS_TOL or not math.isfinite(loss):
                 raise AssertionError(f"train {name}: the clone-row batch {l_mesh} {l_one}")
             flat = torch.cat([p.detach().reshape(-1) for p in trainer.params.values()])
-            res["allreduce_ms"] = _wall(lambda: multihost.all_reduce_sum(flat, mesh.data_group),
-                                        cuda, reps=5)
+            res["allreduce_ms"] = wall_ms(
+                lambda: multihost.all_reduce_sum(flat, mesh.data_group), reps=5, cuda=cuda)
             res["allreduce_mb"] = flat.numel() * 4 / 1e6
             log(f"train {name}: gradient all-reduce ({res['allreduce_mb']:.1f} MB of f32 over "
                 f"the data group, staged through the host) {res['allreduce_ms']:.2f} ms")
@@ -3447,7 +3445,7 @@ def mh_fine_tune(work, kernels, know, questions, passages, device, rank, out):
         got = {}
         n = route_only(kernels, f"query_batch x{len(questions)} after the fine-tune",
                        "fused_topk_int8", lambda: got.update(mh_answers(eng, questions)))
-        q = eng.embed_queries(questions)
+        q = eng.encoder.encode_device(questions)
         for lo in range(0, len(questions), 256):
             rec = check_against_exact(eng, q[lo:lo + 256], 10, 1e-5,
                                       "the re-embedded index")
@@ -3642,7 +3640,7 @@ def smoke(work: Path) -> int:
     launches["fused_topk_int8"] = run_route(eng, kernels, questions, "single-pass",
                                             "fused_topk_int8")
     text_ref = mh_answers(eng, questions)  # phase 8's ranks answer the same
-    entries["fused_topk_int8"], err = time_fused(eng, eng.embed_queries(questions[:256]), spec)
+    entries["fused_topk_int8"], err = time_fused(eng, eng.encoder.encode_device(questions[:256]), spec)
     errs["fused_topk_int8"] = max(errs["fused_topk_int8"], err)
     r_small = gold_recall(eng, questions, passages)
     lat1, qps = query_timings(eng, questions)
@@ -3657,11 +3655,11 @@ def smoke(work: Path) -> int:
     if eng.index.capacity != FULL_ROWS:
         raise AssertionError(f"capacity {eng.index.capacity} != {FULL_ROWS}")
     launches["binmax_int8"] = run_route(eng, kernels, questions, "two-pass", "binmax_int8")
-    entries["binmax_int8"], err = time_binmax(eng, eng.embed_queries(questions[:256]), spec)
+    entries["binmax_int8"], err = time_binmax(eng, eng.encoder.encode_device(questions[:256]), spec)
     errs["binmax_int8"] = max(errs["binmax_int8"], err)
-    check_against_exact(eng, eng.embed_queries(questions[:256]), 10, 1e-5, "two-pass route")
+    check_against_exact(eng, eng.encoder.encode_device(questions[:256]), 10, 1e-5, "two-pass route")
     entries["rescan"], launches["rescan"], err = time_rescan(
-        eng, eng.embed_queries(questions[:256]), spec, kernels)
+        eng, eng.encoder.encode_device(questions[:256]), spec, kernels)
     errs["rescan"] = max(errs["rescan"], err)
     r_full = gold_recall(eng, questions, passages)
     lat1, qps = query_timings(eng, questions)
@@ -3696,7 +3694,7 @@ def smoke(work: Path) -> int:
     launches["fused_topk"] = run_route(small, kernels, questions, "ivf (unbuilt, fused)",
                                        "fused_topk")
     entries["fused_topk"], err = time_fused_float(small.index,
-                                                  small.embed_queries(questions[:256]), spec)
+                                                  small.encoder.encode_device(questions[:256]), spec)
     errs["fused_topk"] = max(errs["fused_topk"], err)
     r_ivf_small = gold_recall(small, questions, passages)
     log(f"unbuilt ivf route at {small.index.count} rows: gold recall@10 {r_ivf_small:.4f} "
@@ -3721,7 +3719,7 @@ def smoke(work: Path) -> int:
         raise AssertionError(f"expected the auto promotion at {idx._AUTO_IVF_ROWS} rows "
                              f"with a bf16 fine copy; got {eng2.get_system_stats()}")
     log(f"ivf stats: {eng2.get_system_stats()['index']['ivf']}")
-    q256 = eng2.embed_queries(questions[:256])
+    q256 = eng2.encoder.encode_device(questions[:256])
     launches["fine_scores"] = run_route(eng2, kernels, questions, "ivf (bf16, exact tail)",
                                         "fine_scores")
     rec = check_against_exact(eng2, q256, 10, 1e-5, "ivf route (bf16 fine copy)")
@@ -3768,7 +3766,7 @@ def smoke(work: Path) -> int:
         raise AssertionError(f"expected the int8 rebuild at {REBUILD_ROWS} rows; got "
                              f"{eng2.get_system_stats()['index']['ivf']}")
     log(f"ivf stats: {eng2.get_system_stats()['index']['ivf']}")
-    q256 = eng2.embed_queries(questions[:256])
+    q256 = eng2.encoder.encode_device(questions[:256])
     run_route(eng2, kernels, questions, "ivf (int8)", "fine_scores")
     rec = check_against_exact(eng2, q256, 10, 1e-5, "ivf route (int8 fine copy)")
     if rec < 0.9:

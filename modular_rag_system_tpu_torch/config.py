@@ -3,9 +3,11 @@
 One typed config tree with layered overlay semantics: dataclass
 defaults -> optional JSON file -> explicit overrides (e.g. CLI flags).
 Field names and defaults match ``modular_rag_system_tpu.config``, so one
-config file drives either package.  Knobs of what the port does not
-serve yet (sharding, multihost) are kept so such a config loads; the
-engine raises ``NotImplementedError`` when asked to use them.
+config file drives either package.  ``mesh`` lays the index out: shards
+over several devices (``index_shards``, ``dcn_slices``) and, with
+``multihost``, across the processes of a ``torch.distributed`` gloo
+group, configured through its fields or the ``RAG_*`` or torchrun
+variables (``parallel/multihost.py``).
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """RAGEngine — the core retrieval engine on a PyTorch device.
 
 Ingest: chunk -> encode on the device (the bulk path keeps embeddings on
-the device) -> document store upsert + index append.  Query: tokenize
-on the host, then the dense forward, the hybrid concat and the index
-search run on the device in one function (``_device_query``), and the
-document store resolves the rows.  Behaviour follows the JAX package's
+the device) -> document store upsert + index append.  Query: the
+encoder's ``encode_device`` embeds the batch on the device, the index's
+``search_device`` searches it there, and the document store resolves
+the rows.  Behaviour follows the JAX package's
 ``RAGEngine``: recent-context deque, rolling retrieval-time stats,
 overfetch-and-refill under filters, positional restore with tombstones,
 the enhanced-context builder and the lifecycle methods (retention
@@ -29,7 +29,6 @@ Lock order: ``_write_lock``, then the index's locks.
 
 from __future__ import annotations
 
-import math
 import re
 import threading
 import time
@@ -42,11 +41,12 @@ import torch
 
 from modular_rag_system_tpu_torch.chunker import TextChunker
 from modular_rag_system_tpu_torch.config import RAGConfig
-from modular_rag_system_tpu_torch.index import DeviceIndex, snapshot_embeddings
+from modular_rag_system_tpu_torch.index import (
+    DeviceIndex,
+    _index_tier_kwargs,
+    snapshot_embeddings,
+)
 from modular_rag_system_tpu_torch.models import build_encoder
-from modular_rag_system_tpu_torch.models.encoder import MiniLMEncoder
-from modular_rag_system_tpu_torch.models.lexical import HybridEncoder
-from modular_rag_system_tpu_torch.ops import exact as exact_ops
 from modular_rag_system_tpu_torch.parallel.mesh import (
     make_hierarchical_index_mesh,
     make_index_mesh,
@@ -57,20 +57,6 @@ from modular_rag_system_tpu_torch.types import Document, Query, RetrievalResult,
 from modular_rag_system_tpu_torch.utils.device import resolve_device
 from modular_rag_system_tpu_torch.utils.profiling import TRACER
 from modular_rag_system_tpu_torch.utils.resilience import retry_transient
-
-# every index knob the engine passes through (attribute names match the
-# IndexConfig fields 1:1, as in the JAX package)
-_INDEX_TIER_KEYS = (
-    "tier", "block_rows", "fused_bin_width", "store_dtype",
-    "ivf_clusters", "ivf_nprobe", "ivf_iters", "ivf_fine_dtype",
-    "ivf_tail_frac", "ivf_rebuild_min", "ivf_refine_extra", "ivf_balance",
-)
-
-
-def _index_tier_kwargs(src) -> Dict[str, Any]:
-    """Constructor kwargs of the index, from a config or an index."""
-    return {key: getattr(src, key) for key in _INDEX_TIER_KEYS}
-
 
 _STOPWORDS = frozenset(
     """a an and are as at be by for from has he in is it its of on that the to was
@@ -326,47 +312,6 @@ class RAGEngine:
             {"query": query_text, "timestamp": time.time(), "n_results": len(result.documents)})
         return result
 
-    def embed_queries(self, texts: List[str]) -> Optional[torch.Tensor]:
-        """Query embeddings (Q, dim) f32 on the device: host tokenize, the
-        dense forward on a pow-2 padded batch, then the hybrid concat with
-        the host lexical half.  None when the encoder has no device
-        forward (the fake encoder)."""
-        hybrid = isinstance(self.encoder, HybridEncoder)
-        dense = self.encoder.dense if hybrid else self.encoder
-        if not isinstance(dense, MiniLMEncoder):
-            return None
-        ids, mask = dense.tokenizer.encode_batch(texts)
-        ids, mask = dense._crop_seq(ids, mask)
-        Q = len(texts)
-        Qp = 1
-        while Qp < Q:
-            Qp <<= 1
-        if Qp != Q:
-            ids = np.pad(ids, ((0, Qp - Q), (0, 0)))
-            mask = np.pad(mask, ((0, Qp - Q), (0, 0)))
-        q = dense.forward_tokens(ids, mask)[:Q]  # unit rows
-        if not hybrid:
-            return q
-        lex = torch.from_numpy(self.encoder.lexical.encode(texts)).to(q.device)
-        wd = math.sqrt(1.0 - self.encoder.weight)
-        wl = math.sqrt(self.encoder.weight)
-        return torch.cat([wd * q, wl * lex], dim=1)
-
-    def _device_query(self, index, texts: List[str], k: int):
-        """Encode and search ``index`` on the device -> (scores, rows)
-        numpy (Q, k), or None when the encoder has no device forward."""
-        q = self.embed_queries(texts)
-        if q is None:
-            return None
-        with index._lock:
-            if isinstance(index, ShardedIndex):
-                # past cap_s the deep route serves k; only S * cap_s bounds it
-                k = min(k, index.capacity)
-                vals, rows = index.search_core(k)(index.search_ops(k), index.count, q)
-            else:
-                vals, rows = index.search_core(k)(index.search_ops(), index.count, q)
-        return vals.cpu().numpy(), rows.cpu().numpy()
-
     # kernel-path refills stop at _REFILL_KERNEL_MAX; one final deep pass
     # runs through the exact path (any k) up to _REFILL_EXACT_MAX
     _REFILL_KERNEL_MAX = 1024
@@ -382,22 +327,16 @@ class RAGEngine:
     def _search_batch(self, index, texts: List[str], k: int):
         """(scores (Q,k), rows (Q,k), q_emb (Q,d) or None) from ``index``."""
         if k > self._REFILL_KERNEL_MAX:
-            # deep filtered refill: exact path, any k (on a sharded index,
-            # exact per shard and the merge)
+            # deep filtered refill: exact path, any k
             q_emb = np.asarray(self.encoder.encode_queries(texts))
-            if isinstance(index, ShardedIndex):
-                scores, rows = index.search_deep(q_emb, min(k, index.count))
-                return scores, rows, q_emb
-            with index._lock:
-                scores, rows = exact_ops.exact_topk_raw(
-                    index.E, index.count,
-                    torch.as_tensor(q_emb, device=index.device),
-                    min(k, index.count))
-            return scores.cpu().numpy(), rows.cpu().numpy(), q_emb
-        fused = retry_transient(lambda: self._device_query(index, texts, k),
-                                what="device query")
-        if fused is not None:
-            scores, rows = fused
+            scores, rows = index.search_deep(q_emb, k)
+            return scores, rows, q_emb
+        if hasattr(self.encoder, "encode_device"):
+            def device_query():
+                vals, rows = index.search_device(self.encoder.encode_device(texts), k)
+                return vals.cpu().numpy(), rows.cpu().numpy()
+
+            scores, rows = retry_transient(device_query, what="device query")
             return scores, rows, None
         q_emb = np.asarray(self.encoder.encode_queries(texts))
         scores, rows = index.search(q_emb, k)
@@ -588,14 +527,6 @@ class RAGEngine:
         with self._write_lock:
             return self._compact_locked()
 
-    def _rebuilt_index(self, capacity: int):
-        """A fresh index of the current one's kind, devices and knobs."""
-        kw = dict(dim=self.index.dim, capacity=max(capacity, 4096), device=self.device,
-                  **_index_tier_kwargs(self.index))
-        if isinstance(self.index, ShardedIndex):
-            return ShardedIndex(mesh=self.index.mesh, group=self.index.group, **kw)
-        return DeviceIndex(**kw)
-
     def _compact_locked(self) -> int:
         before = self.index.count
         # snapshot live embeddings in OLD row order
@@ -605,7 +536,7 @@ class RAGEngine:
         self._swap_gen += 1  # odd: store rows and index rows may disagree
         try:
             live_old = self.store.compact()
-            index = self._rebuilt_index(len(live_old))
+            index = self.index.empty_like(len(live_old))
             if len(live_old):
                 index.add(emb[np.asarray(live_old, dtype=np.int64)])
             self.index = index
@@ -635,7 +566,7 @@ class RAGEngine:
             live_mat = self._encode(texts)
             mat = np.zeros((n_total, self.index.dim), np.float32)
             mat[np.asarray(rows, dtype=np.int64)] = live_mat
-            index = self._rebuilt_index(n_total)
+            index = self.index.empty_like(n_total)
             index.add(mat)
             if tombstones:
                 index.delete_rows(np.asarray(tombstones, dtype=np.int64))
@@ -657,29 +588,11 @@ class RAGEngine:
                 "dim": index.dim,
                 "memory_bytes": index.memory_bytes(),
                 "device": str(self.device),
-                "ivf": self._ivf_stats(index),
+                "ivf": index.ivf_stats(),
             },
             "encoder": getattr(self.encoder, "name", "unknown"),
             "recent_context_size": len(self.recent_context),
         }
-
-    @staticmethod
-    def _ivf_stats(index) -> Optional[Dict[str, Any]]:
-        """The ivf structure's state (None before a build): clustered vs
-        exact-tail rows, drift since the build, rebuilds, fine-copy bytes."""
-        with index._lock:
-            iv = index._ivf2
-            if iv is None:
-                return None
-            return {
-                "fine_dtype": iv.fine_dtype,
-                "clusters": iv.n_clusters,
-                "built": iv.built,
-                "tail_rows": max(index.count - iv.built, 0),
-                "stale_rows": iv.stale_rows,
-                "rebuilds": index.ivf_rebuilds,
-                "fine_bytes": iv.fine_bytes(),
-            }
 
     def export_data(self, path: str) -> str:
         return self.store.export_gzip_json(path)

@@ -13,13 +13,18 @@ kernels, scores rescored on the master); "ivf" (``ops/ivf2.py``: the
 clustered fine stage plus an exact tail, rebuilt from the write path;
 before its first build, and at k > 64, it serves the fused route) and
 "auto" (int8 below 4,194,304 rows, ivf at and above).
+
+Both index kinds (this one and ``parallel/sharded.py``'s) serve one
+interface (``_SearchFront``): ``search_device`` on device tensors,
+``search`` and ``search_deep`` on numpy, ``ivf_stats`` and
+``empty_like``; each chooses its own route under its own lock.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +49,7 @@ from modular_rag_system_tpu_torch.utils.device import resolve_device
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _TIERS = ("exact", "fused", "bf16", "int8", "ivf", "auto")
 # the ivf tier's fine stage serves k up to this; deeper k (filtered
-# refills) takes the fused route
+# refills) takes the fused route (a sharded index: exact per shard)
 _IVF_MAX_K = 64
 # rows per host -> device copy of an append
 _ADD_CHUNK_ROWS = 1 << 20
@@ -66,7 +71,95 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-class DeviceIndex:
+# every index knob (attribute names match the IndexConfig fields 1:1, as
+# in the JAX package)
+_INDEX_TIER_KEYS = (
+    "tier", "block_rows", "fused_bin_width", "store_dtype",
+    "ivf_clusters", "ivf_nprobe", "ivf_iters", "ivf_fine_dtype",
+    "ivf_tail_frac", "ivf_rebuild_min", "ivf_refine_extra", "ivf_balance",
+)
+
+
+def _index_tier_kwargs(src) -> Dict[str, Any]:
+    """Constructor kwargs of an index's knobs, from a config or an index."""
+    return {key: getattr(src, key) for key in _INDEX_TIER_KEYS}
+
+
+def _no_rows(q: torch.Tensor):
+    """(Q, 0) results on q's device."""
+    return (torch.empty((q.shape[0], 0), dtype=torch.float32, device=q.device),
+            torch.empty((q.shape[0], 0), dtype=torch.int32, device=q.device))
+
+
+def _pad_absent(vals: torch.Tensor, rows: torch.Tensor, k: int):
+    """(Q, k') results padded to k columns of absent rows (-inf, -1)."""
+    pad = k - vals.shape[1]
+    if pad <= 0:
+        return vals, rows
+    return (torch.nn.functional.pad(vals, (0, pad), value=float("-inf")),
+            torch.nn.functional.pad(rows, (0, pad), value=-1))
+
+
+class _SearchFront:
+    """The search interface of both index kinds (``DeviceIndex`` and
+    ``parallel/sharded.py``'s ``ShardedIndex``), over their own
+    ``_search_device(q, k, deep)``, which takes the index's lock and
+    chooses the route.  Each returns (Q, k) results, -inf and -1 where
+    fewer than k rows exist: ties go to the smallest row id, and rows at
+    or past ``count`` never score."""
+
+    def search_device(self, q: torch.Tensor, k: int):
+        """Top-k of (Q, d) f32 queries on the index's device -> (vals f32,
+        rows) device tensors, through the tier's route (``auto`` resolved
+        on ``count``; the ivf tier before its first build and at k > 64
+        serves its fallback)."""
+        return self._search_device(q, k, deep=False)
+
+    def search(self, q: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``search_device`` for numpy queries -> numpy (scores, rows)."""
+        return self._on_host(q, k, deep=False)
+
+    def search_deep(self, q: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The exact top-k over the master in true f32, at any k up to
+        ``count`` (the engine's deep filtered refill); numpy in and out."""
+        return self._on_host(q, k, deep=True)
+
+    def _on_host(self, q, k: int, deep: bool):
+        qt = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
+        vals, rows = self._search_device(qt, k, deep)
+        return vals.cpu().numpy(), rows.cpu().numpy()
+
+    def ivf_stats(self) -> Optional[Dict[str, Any]]:
+        """The ivf structure's state (None before a build): clustered vs
+        exact-tail rows, drift since the build, rebuilds, fine-copy bytes."""
+        with self._lock:
+            iv = self._ivf2
+            if iv is None:
+                return None
+            return {
+                "fine_dtype": iv.fine_dtype,
+                "clusters": iv.n_clusters,
+                "built": iv.built,
+                "tail_rows": max(self.count - iv.built, 0),
+                "stale_rows": iv.stale_rows,
+                "rebuilds": self.ivf_rebuilds,
+                "fine_bytes": iv.fine_bytes(),
+            }
+
+    def _maybe_build_ivf2(self) -> None:
+        """Write-path rebuild trigger: (re)cluster when the exact tail +
+        stale rows reach max(ivf_rebuild_min, ivf_tail_frac * count).
+        Queries never rebuild."""
+        if self.effective_tier() != "ivf" or self.count == 0:
+            return
+        built = self._ivf2.built if self._ivf2 else 0
+        stale = self._ivf2.stale_rows if self._ivf2 else 0
+        pending = self.count - built + stale
+        if pending >= max(self.ivf_rebuild_min, int(self.ivf_tail_frac * self.count)):
+            self.build_ann()
+
+
+class DeviceIndex(_SearchFront):
     """Single-device index on ``device`` (default "cuda")."""
 
     # tier="auto" serves int8 below this many rows and ivf at or above it;
@@ -225,10 +318,7 @@ class DeviceIndex:
             self._maybe_build_ivf2()
 
     # ------------------------------------------------------------------
-    # search protocol (shared by search() and the engine's query path):
-    #   search_ops()    tier operand tensors (hold _lock),
-    #   search_core(k)  fn(ops, count, q) -> (vals, rows),
-    #   search_token()  what identifies the function search_core returns
+    # search (search_device, search, search_deep: _SearchFront)
     def effective_tier(self) -> str:
         """``tier="auto"``: int8 below ``_AUTO_IVF_ROWS``, ivf at or above
         (a property of ``count``; the write path builds the structure)."""
@@ -236,61 +326,33 @@ class DeviceIndex:
             return self.tier
         return "ivf" if self.count >= self._AUTO_IVF_ROWS else "int8"
 
-    def search_ops(self) -> Tuple:
+    def _effective_tier(self, k: int) -> str:
+        """The route that serves k: before its first build, and at
+        deep-refill k, the ivf tier serves the fused route."""
         tier = self.effective_tier()
+        if tier == "ivf" and (self._ivf2 is None or k > _IVF_MAX_K):
+            return "fused"
+        return tier
+
+    def _operands(self, tier: str) -> Tuple:
+        """(rows, scales, master) of a streaming tier (hold _lock): the
+        int8 copy with its scales and the master for the rescore, the
+        bf16 copy, or the master; a derived copy is built at first use."""
         if tier == "int8":
             if self._E_q is None:
                 self._E_q, self._scales = quantize_rows(self.E)
-            # the master rides along for the rescore
-            return (self._E_q, self._scales, self.E)
+            return self._E_q, self._scales, self.E
         if tier == "bf16" and self.store_dtype != "bfloat16":
             if self._E_bf16 is None:
                 self._E_bf16 = self.E.to(torch.bfloat16)
-            return (self._E_bf16,)
-        if tier == "ivf" and self._ivf2 is not None:
-            iv = self._ivf2
-            return (self.E, iv.E_c3, iv.scales3, iv.perm, iv.centroids,
-                    iv.blk_start, iv.nblk, iv.counts, iv.built)
-        return (self.E,)
+            return self._E_bf16, None, None
+        return self.E, None, None
 
     def _ivf_tail_max(self) -> int:
         tail = self.count - self._ivf2.built
         return 0 if tail <= 0 else min(max(8192, _next_pow2(tail)), self.capacity)
 
-    def search_token(self) -> Tuple:
-        t = (self.effective_tier(), self.capacity, self.fused_bin_width,
-             self.store_dtype, self.block_rows)
-        if self.effective_tier() == "ivf" and self._ivf2 is not None:
-            iv = self._ivf2
-            t += ("ivf2", iv.version, iv.fine_dtype, self._ivf_tail_max(),
-                  self.ivf_nprobe, self.ivf_refine_extra, self.ivf_balance)
-        return t
-
-    def search_core(self, k: int):
-        tier = self.effective_tier()
-        if tier == "ivf" and (self._ivf2 is None or k > _IVF_MAX_K):
-            # before the first build, and at deep-refill k, the ivf tier
-            # serves the exact stream of the fused route
-            tier = "fused"
-        if tier == "exact":
-            def core(ops, count, q):
-                return exact_ops.exact_topk_raw(ops[0], count, q, k)
-
-            return core
-        block_rows, bin_width = self.block_rows, self.fused_bin_width
-        if tier in ("fused", "bf16"):
-            def core(ops, count, q):
-                return stream_search_core(ops[0], None, None, count, q, k, bin_width,
-                                          block_rows)
-
-            return core
-        if tier == "int8":
-            def core(ops, count, q):
-                E_q, scales, E_master = ops
-                return stream_search_core(E_q, scales, E_master, count, q, k, bin_width,
-                                          block_rows)
-
-            return core
+    def _ivf_search(self, q: torch.Tensor, k: int):
         from modular_rag_system_tpu_torch.ops import ivf2 as ivf2_ops
 
         iv = self._ivf2
@@ -300,51 +362,34 @@ class DeviceIndex:
         # sets the dump decision and the positional tie order
         U = ivf2_ops.auto_u(L)
         L = ((L + U - 1) // U) * U
-        tail_max = self._ivf_tail_max()
-        refine_extra = self.ivf_refine_extra
+        return ivf2_ops.ivf2_search_core(
+            self.E, iv.E_c3, iv.scales3, iv.perm, iv.centroids, iv.blk_start, iv.nblk,
+            iv.counts, iv.built, self.count, q, k=k, nprobe=nprobe, L=L,
+            tail_max=self._ivf_tail_max(), refine_extra=self.ivf_refine_extra)
 
-        def core(ops, count, q):
-            E, E_c3, sc3, perm, cents, bs, nb, cn, built = ops
-            return ivf2_ops.ivf2_search_core(
-                E, E_c3, sc3, perm, cents, bs, nb, cn, built, count, q, k=k,
-                nprobe=nprobe, L=L, tail_max=tail_max, refine_extra=refine_extra)
-
-        return core
-
-    # ------------------------------------------------------------------
-    def search(self, q: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Top-k rows for (Q, d) queries. Returns (scores, rows) as numpy."""
-        Q = q.shape[0]
-        if self.count == 0:
-            return (np.full((Q, k), -np.inf, dtype=np.float32),
-                    np.full((Q, k), -1, dtype=np.int32))
-        k_eff = min(k, self.count)
-        qt = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
+    def _search_device(self, q: torch.Tensor, k: int, deep: bool):
         with self._lock:
-            scores, rows = self.search_core(k_eff)(self.search_ops(), self.count, qt)
-        scores = scores.cpu().numpy()
-        rows = rows.cpu().numpy()
-        if k_eff < k:  # pad to requested k
-            scores = np.concatenate(
-                [scores, np.full((Q, k - k_eff), -np.inf, np.float32)], axis=1)
-            rows = np.concatenate(
-                [rows, np.full((Q, k - k_eff), -1, np.int32)], axis=1)
-        return scores, rows
+            k_eff = min(k, self.count)
+            tier = "exact" if deep else self._effective_tier(k_eff)
+            if k_eff == 0:
+                vals, rows = _no_rows(q)
+            elif tier == "exact":
+                vals, rows = exact_ops.exact_topk_raw(self.E, self.count, q, k_eff)
+            elif tier == "ivf":
+                vals, rows = self._ivf_search(q, k_eff)
+            else:
+                vals, rows = stream_search_core(*self._operands(tier), self.count, q, k_eff,
+                                                self.fused_bin_width, self.block_rows)
+        return _pad_absent(vals, rows, k)
+
+    def empty_like(self, capacity: int) -> "DeviceIndex":
+        """A fresh, empty index of this one's device and knobs, with room
+        for ``capacity`` rows (at least 4096)."""
+        return DeviceIndex(dim=self.dim, capacity=max(capacity, 4096), device=self.device,
+                           **_index_tier_kwargs(self))
 
     # ------------------------------------------------------------------
     # ivf tier: clustered fine stage + exact tail, rebuilt on writes
-    def _maybe_build_ivf2(self) -> None:
-        """Write-path rebuild trigger: (re)cluster when the exact tail +
-        stale rows reach max(ivf_rebuild_min, ivf_tail_frac * count).
-        Queries never rebuild."""
-        if self.effective_tier() != "ivf" or self.count == 0:
-            return
-        built = self._ivf2.built if self._ivf2 else 0
-        stale = self._ivf2.stale_rows if self._ivf2 else 0
-        pending = self.count - built + stale
-        if pending >= max(self.ivf_rebuild_min, int(self.ivf_tail_frac * self.count)):
-            self.build_ann()
-
     def build_ann(self) -> None:
         """(Re)build the clustered structure over the current corpus.
 

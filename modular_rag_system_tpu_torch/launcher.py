@@ -43,8 +43,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="index shards, one card each (cuda:0 .. cuda:N-1); "
                         "with --device cpu, N shards on the CPU")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host index layout (not ported yet: the "
-                        "engine raises NotImplementedError)")
+                   help="multi-host index layout: join a gloo process group "
+                        "(RAG_COORDINATOR / RAG_NUM_PROCESSES / RAG_PROCESS_ID, "
+                        "else torchrun's variables); each process holds its "
+                        "slice of the index's shards")
     p.add_argument("--device", default="cuda",
                    help="torch device of the engine (default cuda; cpu on "
                         "request, never as a fallback)")

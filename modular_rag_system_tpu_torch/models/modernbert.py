@@ -37,9 +37,13 @@ Numerics, with ``dtype`` the compute dtype (bf16 on the card):
   kernel's arithmetic (f32 scores and softmax, probabilities rounded to
   the compute dtype before they multiply v, f32 sums);
 * ``attention_impl="dense"``: the same arithmetic in eager tensor ops
-  with an (L, L) band and key mask, for short inputs and the CPU; a
-  query row with no live key in its band is zeros, as in the window
-  mode (the pooling drops such rows either way).
+  (``mea_attention_reference``, the kernel's plain version), for short
+  inputs and the CPU.  It follows the kernel's own rule for a query row
+  with no live key: in the window mode (local layers) such a row is
+  zeros; in the full mode (global layers) only an all-padding batch row
+  has none, and it follows the TPU kernel's rule, the mean of v over
+  ``padded_length(L)`` keys.  The pooling and ``encode_device``'s
+  ``[:n]`` drop such rows either way.
 
 Each layer's attention is a tracer span, ``encoder.attn_global`` or
 ``encoder.attn_local``, and counts the query-key pairs it scores at the
@@ -56,7 +60,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from modular_rag_system_tpu_torch.ops.flash_attention import mea_attention
+from modular_rag_system_tpu_torch.ops.flash_attention import (
+    mea_attention,
+    mea_attention_reference,
+)
 from modular_rag_system_tpu_torch.utils.profiling import TRACER
 
 
@@ -84,24 +91,6 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tens
     x1, x2 = xf.chunk(2, dim=-1)
     shape = (1, cos.shape[0]) + (1,) * (x.dim() - 3) + (cos.shape[1],)
     return (xf * cos.view(shape) + torch.cat((-x2, x1), dim=-1) * sin.view(shape)).to(x.dtype)
-
-
-def dense_attention(q, k, v, pad: torch.Tensor, window: Optional[int]) -> torch.Tensor:
-    """``mea_attention``'s arithmetic in eager ops over (B, H, L, L) f32
-    scores: keys outside the band (or padded) are no keys of a row, and
-    a row left with none is zeros."""
-    B, L, H, dh = q.shape
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / dh ** 0.5)
-    keep = pad[:, None, None, :]
-    if window is not None:
-        pos = torch.arange(L, device=q.device)
-        keep = keep & ((pos[:, None] - pos[None, :]).abs() <= window)
-    s = s.masked_fill(~keep, float("-inf"))
-    # a row with no key: every score -inf, so every exp below is 0
-    m = s.amax(dim=-1, keepdim=True).clamp(min=torch.finfo(torch.float32).min)
-    e = torch.exp(s - m)
-    o = torch.einsum("bhqk,bkhd->bqhd", e.to(v.dtype).float(), v.float())
-    return (o / e.sum(-1).clamp(min=1e-30).transpose(1, 2)[..., None]).to(q.dtype)
 
 
 class BiasFreeLayerNorm(nn.Module):
@@ -143,7 +132,7 @@ class Attention(nn.Module):
             if self.attention_impl == "flash":
                 a = mea_attention(q, k, v, pad, self.window)
             else:
-                a = dense_attention(q, k, v, pad, self.window)
+                a = mea_attention_reference(q, k, v, pad, self.window)
         return F.linear(a.reshape(B, L, H * dh), self.wo.weight.to(h.dtype))
 
 

@@ -49,10 +49,16 @@ import numpy as np
 import torch
 
 from modular_rag_system_tpu_torch.index import (
+    _ADD_CHUNK_ROWS,
+    _IVF_MAX_K,
     _TIERS,
     _TORCH_DTYPES,
     DeviceIndex,
+    _index_tier_kwargs,
     _next_pow2,
+    _no_rows,
+    _pad_absent,
+    _SearchFront,
     snapshot_embeddings,
     stream_search_core,
 )
@@ -67,10 +73,6 @@ logger = logging.getLogger(__name__)
 
 _BIG_I32 = 2**31 - 1
 _NEG_INF = float("-inf")
-# the ivf tier's fine stage serves k up to this; deeper k is exact per shard
-_IVF_MAX_K = 64
-# rows per host -> device copy of an append
-_ADD_CHUNK_ROWS = 1 << 20
 
 
 def _count_s(count: int, s: int, S: int) -> int:
@@ -101,8 +103,8 @@ def _merge(vals, gids, k: int, device):
     return _select_topk(cv, cg, k)
 
 
-class ShardedIndex:
-    """``DeviceIndex``'s tiers and protocol over S shards.
+class ShardedIndex(_SearchFront):
+    """``DeviceIndex``'s tiers and search interface over S shards.
 
     ``mesh`` is a flat list of the shards' devices, or (slices, chips)
     nested lists for the two-level merge (``parallel/mesh.py``); None
@@ -309,11 +311,7 @@ class ShardedIndex:
             self._maybe_build_ivf2()
 
     # ------------------------------------------------------------------
-    # search protocol (DeviceIndex's, with k: the tier depends on it)
-    #   search_ops(k)   per-shard operand tuples (hold _lock); each
-    #                   starts with the shard's master,
-    #   search_core(k)  fn(ops, count, q) -> (vals, gids) on q's device,
-    #   search_token(k) what identifies the function search_core returns
+    # search (search_device, search, search_deep: _SearchFront)
     def effective_tier(self) -> str:
         """``tier="auto"``: int8 below ``DeviceIndex._AUTO_IVF_ROWS`` global
         rows, ivf at or above."""
@@ -322,9 +320,10 @@ class ShardedIndex:
         return "ivf" if self.count >= DeviceIndex._AUTO_IVF_ROWS else "int8"
 
     def _effective_tier(self, k: int) -> str:
-        """``deep`` past cap_s (no per-shard selection can return more
-        than cap_s candidates); the ivf tier before its first build or at
-        k > 64 serves the exact top-k per shard."""
+        """The route that serves k: ``deep`` past cap_s (no per-shard
+        selection can return more than cap_s candidates); the ivf tier
+        before its first build or at k > 64 serves the exact top-k per
+        shard."""
         if k > self.cap_s:
             return "deep"
         tier = self.effective_tier()
@@ -332,52 +331,35 @@ class ShardedIndex:
             return "exact"
         return tier
 
-    def _refresh_quant(self) -> None:
-        if self._E_q is None:
-            q = [quantize_rows(E_s) for E_s in self.E]
-            self._E_q = [x for x, _ in q]
-            self._scales = [sc for _, sc in q]
-
-    def search_ops(self, k: int = 1) -> Tuple:
-        tier = self._effective_tier(k)
+    def _operands(self, tier: str) -> List[Tuple]:
+        """Per local shard, (rows, scales, master) of a streaming tier
+        (hold _lock), as ``DeviceIndex._operands``."""
         if tier == "int8":
-            self._refresh_quant()
-            return tuple(zip(self.E, self._E_q, self._scales))
+            if self._E_q is None:
+                q = [quantize_rows(E_s) for E_s in self.E]
+                self._E_q = [x for x, _ in q]
+                self._scales = [sc for _, sc in q]
+            return list(zip(self._E_q, self._scales, self.E))
         if tier == "bf16" and self.store_dtype != "bfloat16":
             if self._E_bf16 is None:
                 self._E_bf16 = [E_s.to(torch.bfloat16) for E_s in self.E]
-            return tuple(zip(self.E, self._E_bf16))
-        if tier == "ivf":
-            return tuple((E_s, iv.E_c3, iv.scales3, iv.perm, iv.centroids, iv.blk_start,
-                          iv.nblk, iv.counts) for E_s, iv in zip(self.E, self._ivf2.shards))
-        return tuple((E_s,) for E_s in self.E)
+            return [(E_s, None, None) for E_s in self._E_bf16]
+        return [(E_s, None, None) for E_s in self.E]
 
     def _ivf_tail_s(self) -> int:
         tail = self.count - self._ivf2.built
         return 0 if tail <= 0 else min(
             max(8192, _next_pow2((tail + self.S - 1) // self.S)), self.cap_s)
 
-    def search_token(self, k: int = 1) -> Tuple:
-        tier = self._effective_tier(k)
-        t = (tier, self.cap_s, self.fused_bin_width, self.store_dtype, self.block_rows)
-        if tier == "ivf":
-            iv = self._ivf2
-            t += ("ivf2", iv.version, iv.fine_dtype, self._ivf_tail_s(), self.ivf_nprobe,
-                  self.ivf_refine_extra, self.ivf_balance)
-        return t
-
-    def _shard_core(self, tier: str, k: int):
-        """fn(s, ops_s, count_s, q_s) -> global shard s's (vals, local rows)."""
+    def _shard_search(self, tier: str, k: int):
+        """fn(c, n, q) -> local shard c's (vals, local rows) over its n
+        live rows (hold _lock)."""
         if tier in ("exact", "deep"):
-            return lambda s, ops, n, q: exact_ops.exact_topk_raw(ops[0], n, q, k)
-        bin_width = self.fused_bin_width
-        block_rows = min(self.block_rows, self.cap_s)
-        if tier in ("fused", "bf16"):
-            return lambda s, ops, n, q: stream_search_core(
-                ops[-1], None, None, n, q, k, bin_width, block_rows)
-        if tier == "int8":
-            return lambda s, ops, n, q: stream_search_core(
-                ops[1], ops[2], ops[0], n, q, k, bin_width, block_rows)
+            return lambda c, n, q: exact_ops.exact_topk_raw(self.E[c], n, q, k)
+        if tier != "ivf":
+            ops = self._operands(tier)
+            bin_width, block_rows = self.fused_bin_width, min(self.block_rows, self.cap_s)
+            return lambda c, n, q: stream_search_core(*ops[c], n, q, k, bin_width, block_rows)
         from modular_rag_system_tpu_torch.ops import ivf2 as ivf2_ops
 
         iv = self._ivf2
@@ -388,105 +370,60 @@ class ShardedIndex:
         U = ivf2_ops.auto_u(L)
         L = ((L + U - 1) // U) * U
         tail_s = self._ivf_tail_s()
-        refine_extra = self.ivf_refine_extra
-        built, S = iv.built, self.S
 
-        def core(s, ops, n, q):
-            E, E_c3, sc3, perm, cents, bs, nb, cn = ops
+        def search(c, n, q):
+            p = iv.shards[c]
             return ivf2_ops.ivf2_search_core(
-                E, E_c3, sc3, perm, cents, bs, nb, cn, _count_s(built, s, S), n, q, k=k,
-                nprobe=nprobe, L=L, tail_max=tail_s, refine_extra=refine_extra)
+                self.E[c], p.E_c3, p.scales3, p.perm, p.centroids, p.blk_start, p.nblk,
+                p.counts, _count_s(iv.built, self._s0 + c, self.S), n, q, k=k,
+                nprobe=nprobe, L=L, tail_max=tail_s, refine_extra=self.ivf_refine_extra)
 
-        return core
+        return search
 
-    def search_core(self, k: int, tier: Optional[str] = None):
-        """fn(ops, count, q) -> (vals (Q, k) f32, gids (Q, k) int32, -1
-        where -inf) on q's device: each shard's top-k, then the merge.
-        ``tier="deep"`` forces the deep route (any k up to S * cap_s)."""
-        tier = tier or self._effective_tier(k)
-        k_eff = min(k, self.S * self.cap_s) if tier == "deep" else k
-        k_s = min(k_eff, self.cap_s)
-        shard = self._shard_core(tier, k_s)
-        S, devices, mesh, hier = self.S, self.devices, self.mesh, self.hierarchical
-        s0, group = self._s0, self.group
-
-        def core(ops, count, q):
-            vals, gids = [], []
-            for c, dev in enumerate(devices):
-                s = s0 + c
+    def _search_device(self, q: torch.Tensor, k: int, deep: bool):
+        """Each shard's top-k, then the merge: within this rank's slice
+        (or each slice of a hierarchical layout) first, then across."""
+        with self._lock:
+            k_eff = min(k, self.count)
+            if k_eff == 0:
+                return _pad_absent(*_no_rows(q), k)
+            tier = "deep" if deep else self._effective_tier(k_eff)
+            k_s = min(k_eff, self.cap_s)
+            shard = self._shard_search(tier, k_s)
+            S, vals, gids = self.S, [], []
+            for c, dev in enumerate(self.devices):
+                s = self._s0 + c
                 with _on(dev):
-                    v, loc = shard(s, ops[c], _count_s(count, s, S), q.to(dev))
+                    v, loc = shard(c, _count_s(self.count, s, S), q.to(dev))
                 gids.append(torch.where(torch.isfinite(v) & (loc >= 0), loc * S + s,
                                         _BIG_I32).to(torch.int32))
                 vals.append(torch.where(gids[-1] < _BIG_I32, v, _NEG_INF))
-            if group is not None:
+            if self.group is not None:
                 # within this rank's slice, then k candidates a rank
                 # across the ranks, merged in rank order on every rank
-                v, g = _merge(vals, gids, min(k_eff, len(devices) * k_s), q.device)
-                part = all_gather_candidates(v, g, group)
+                v, g = _merge(vals, gids, min(k_eff, len(self.devices) * k_s), q.device)
+                part = all_gather_candidates(v, g, self.group)
                 v, g = _merge([p[0] for p in part], [p[1] for p in part], k_eff, q.device)
-            elif hier:
+            elif self.hierarchical:
                 # within each slice first (on the slice's first device),
                 # then k candidates per slice across slices
-                n = len(mesh[0])
+                n = len(self.mesh[0])
                 part = [_merge(vals[i * n:(i + 1) * n], gids[i * n:(i + 1) * n],
-                               min(k_eff, n * k_s), m[0]) for i, m in enumerate(mesh)]
+                               min(k_eff, n * k_s), m[0]) for i, m in enumerate(self.mesh)]
                 v, g = _merge([p[0] for p in part], [p[1] for p in part], k_eff, q.device)
             else:
                 v, g = _merge(vals, gids, k_eff, q.device)
-            g = torch.where(torch.isfinite(v), g, -1)
-            if k_eff < k:  # even S * cap_s rows cannot fill k: absent rows
-                v = torch.nn.functional.pad(v, (0, k - k_eff), value=_NEG_INF)
-                g = torch.nn.functional.pad(g, (0, k - k_eff), value=-1)
-            return v, g
+        return _pad_absent(v, torch.where(torch.isfinite(v), g, -1), k)
 
-        return core
-
-    # ------------------------------------------------------------------
-    def _search(self, q: np.ndarray, k: int, deep: bool):
-        Q = q.shape[0]
-        if self.count == 0:
-            return (np.full((Q, k), -np.inf, dtype=np.float32),
-                    np.full((Q, k), -1, dtype=np.int32))
-        # k past cap_s is served by the deep route (global k up to
-        # S * cap_s), not clamped to cap_s
-        k_eff = min(k, self.count, self.S * self.cap_s)
-        qt = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
-        with self._lock:
-            if deep:
-                fn = self.search_core(k_eff, tier="deep")
-                vals, gids = fn(tuple((E_s,) for E_s in self.E), self.count, qt)
-            else:
-                vals, gids = self.search_core(k_eff)(self.search_ops(k_eff), self.count, qt)
-        vals, gids = vals.cpu().numpy(), gids.cpu().numpy()
-        if k_eff < k:
-            vals = np.concatenate([vals, np.full((Q, k - k_eff), -np.inf, np.float32)], axis=1)
-            gids = np.concatenate([gids, np.full((Q, k - k_eff), -1, np.int32)], axis=1)
-        return vals, gids
-
-    def search(self, q: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Top-k rows for (Q, d) queries. Returns (scores, rows) as numpy,
-        -1 where fewer rows exist."""
-        return self._search(q, k, deep=False)
-
-    def search_deep(self, q: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Exact top-k with no cap_s clamp (k up to S * cap_s): the
-        engine's deep filtered refill."""
-        return self._search(q, k, deep=True)
+    def empty_like(self, capacity: int) -> "ShardedIndex":
+        """A fresh, empty index of this one's layout, group, lead device
+        and knobs, with room for ``capacity`` rows (at least 4096)."""
+        return ShardedIndex(dim=self.dim, mesh=self.mesh, capacity=max(capacity, 4096),
+                            device=self.device, group=self.group,
+                            **_index_tier_kwargs(self))
 
     # ------------------------------------------------------------------
     # ivf tier: global k-means, per-shard cluster-contiguous slabs
-    def _maybe_build_ivf2(self) -> None:
-        """Write-path rebuild trigger (as DeviceIndex's).  Queries never
-        rebuild."""
-        if self.effective_tier() != "ivf" or self.count == 0:
-            return
-        built = self._ivf2.built if self._ivf2 else 0
-        stale = self._ivf2.stale_rows if self._ivf2 else 0
-        pending = self.count - built + stale
-        if pending >= max(self.ivf_rebuild_min, int(self.ivf_tail_frac * self.count)):
-            self.build_ann()
-
     def build_ann(self) -> None:
         """(Re)build the sharded cluster-contiguous structure.  The
         k-means is global (``kmeans_fit_sharded``); each shard lays its own

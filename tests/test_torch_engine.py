@@ -359,14 +359,32 @@ def test_auto_tier_at_ivf_scale_builds_int4(monkeypatch):
     assert idx.search(E[:3], 1)[1][:, 0].tolist() == [0, 1, 2]
 
 
-def test_auto_tier_at_ivf_scale_serves_ivf():
-    # at ivf scale "auto" resolves to ivf, served by the fused route until
-    # the write path builds
+def test_auto_tier_at_ivf_scale_serves_ivf(monkeypatch):
+    # at ivf scale "auto" resolves to ivf, served by the fused route over
+    # the master until the write path builds
+    from modular_rag_system_tpu_torch import index as pindex
     from modular_rag_system_tpu_torch.index import DeviceIndex
 
     idx = DeviceIndex(dim=8, tier="auto", device="cpu")
     idx.count = DeviceIndex._AUTO_IVF_ROWS
-    assert idx.effective_tier() == "ivf" and idx.search_ops() == (idx.E,)
+    assert idx.effective_tier() == "ivf"
+    monkeypatch.setattr(DeviceIndex, "_AUTO_IVF_ROWS", 512)
+    rng = np.random.default_rng(6)
+    E = rng.standard_normal((600, 8)).astype(np.float32)
+    E /= np.linalg.norm(E, axis=1, keepdims=True)
+    idx = DeviceIndex(dim=8, tier="auto", ivf_rebuild_min=1 << 20, device="cpu")
+    idx.add(E)
+    exact = DeviceIndex(dim=8, tier="exact", device="cpu")
+    exact.add(E)
+    seen = []
+    stream = pindex.stream_search_core
+    monkeypatch.setattr(pindex, "stream_search_core",
+                        lambda rows, scales, *a: seen.append((rows, scales)) or
+                        stream(rows, scales, *a))
+    assert idx.effective_tier() == "ivf" and idx._ivf2 is None
+    _, rows = idx.search_device(torch.from_numpy(E[:4]), 5)
+    assert len(seen) == 1 and seen[0][0] is idx.E and seen[0][1] is None
+    np.testing.assert_array_equal(rows.numpy(), exact.search(E[:4], 5)[1])
 
 
 _IVF = {"index.tier": "ivf", "index.ivf_clusters": 8, "index.ivf_nprobe": 8,
@@ -401,7 +419,7 @@ def test_engine_ivf_parity_with_jax(tmp_path, route):
 
 def test_engine_passes_every_index_knob(tmp_path):
     from modular_rag_system_tpu.engine import _INDEX_TIER_KEYS as JAX_KEYS
-    from modular_rag_system_tpu_torch.engine import _INDEX_TIER_KEYS
+    from modular_rag_system_tpu_torch.index import _INDEX_TIER_KEYS
 
     assert _INDEX_TIER_KEYS == JAX_KEYS
     eng = _port(tmp_path, **{**_IVF, "index.ivf_iters": 4, "index.ivf_tail_frac": 0.5,
@@ -471,3 +489,73 @@ def test_store_fetches_rows_in_batches(tmp_path, monkeypatch):
         [d and (d.id, d.content, d.access_count) for d in want]
     again = port.get_by_rows(rows[:70])
     assert [d.access_count for d in again] == [1] * 70
+
+
+@pytest.mark.parametrize("tier", ["exact", "int8"])
+def test_search_deep_matches_jax_exact_topk(tier):
+    # the deep refill's exact top-k over the f32 master, whatever the tier,
+    # at k past the kernel routes' 1,024: ids equal JAX's, tie order
+    # included (quarter-step rows make exact, order-free dot products and
+    # many ties)
+    import jax.numpy as jnp
+
+    from modular_rag_system_tpu.ops.exact import exact_topk_raw as jax_exact_topk
+    from modular_rag_system_tpu_torch.index import DeviceIndex
+
+    rng = np.random.default_rng(11)
+    E = rng.integers(-4, 5, (1500, 16)).astype(np.float32) * 0.25
+    q = rng.integers(-4, 5, (3, 16)).astype(np.float32) * 0.25
+    idx = DeviceIndex(dim=16, tier=tier, device="cpu")
+    idx.add(E)
+    idx.search(q, 10)  # builds the int8 copy on the int8 tier
+    assert (idx._E_q is not None) == (tier == "int8")
+    vals, rows = idx.search_deep(q, 1200)
+    jv, jr = jax_exact_topk(jnp.asarray(E), jnp.int32(1500), jnp.asarray(q), 1200)
+    np.testing.assert_array_equal(rows, np.asarray(jr))
+    np.testing.assert_array_equal(vals, np.asarray(jv))
+    assert len(np.unique(vals[0])) < 1200  # ties were decided
+
+
+def test_query_batch_past_the_encoder_batch(tmp_path):
+    # past embedding.batch_size the encoder forwards the queries in chunks:
+    # each query's answer equals its answer alone
+    cfg = RAGConfig.load(overrides={
+        "embedding.bundled_checkpoint": "", "embedding.dim": 32, "embedding.num_layers": 1,
+        "embedding.num_heads": 2, "embedding.mlp_dim": 64, "embedding.vocab_size": 512,
+        "embedding.max_seq_len": 32, "embedding.batch_size": 4, "embedding.dtype": "float32",
+        "embedding.lexical_dim": 16, "embedding.lexical_weight": 0.5, "index.tier": "exact",
+        "retrieval.similarity_threshold": 0.0, "retrieval.time_weight": 0.0,
+        "store.storage_path": str(tmp_path), "store.snapshot_on_shutdown": False})
+    eng = create_engine(cfg, device="cpu")
+    try:
+        eng.add_documents([Document(content=t) for t in KNOWLEDGE[:40]])
+        texts = [t[:60] for t in KNOWLEDGE[40:45]]
+        assert len(texts) == eng.encoder.dense.batch_size + 1
+        batch = eng.query_batch(texts, max_results=5)
+        alone = [eng.query(t, max_results=5) for t in texts]
+        for b, a in zip(batch, alone):
+            assert [d.id for d in b.documents] == [d.id for d in a.documents]
+            np.testing.assert_allclose(b.similarities, a.similarities, rtol=0, atol=1e-5)
+            assert b.query_embedding is None and a.query_embedding is None
+    finally:
+        eng.shutdown()
+
+
+def test_query_batch_past_the_encoder_batch_parity_with_jax(tmp_path):
+    # the same 5 queries past embedding.batch_size = 4: the port forwards
+    # them in chunks (4 + 1), the JAX engine pads the batch to 8 at once;
+    # the answers agree
+    extra = {"embedding.batch_size": 4}
+    jeng = JaxEngine(JaxConfig.load(overrides={**_overrides(tmp_path / "jax"), **extra}))
+    peng = _port(tmp_path / "port", **extra)
+    try:
+        jeng.add_documents([JaxDocument(content=t) for t in KNOWLEDGE])
+        peng.add_documents([Document(content=t) for t in KNOWLEDGE])
+        queries = QUERIES[:5]
+        assert len(queries) == peng.encoder.dense.batch_size + 1
+        pres = peng.query_batch(queries, max_results=5)
+        _assert_same(jeng.query_batch(queries, max_results=5), pres)
+        assert all(r.query_embedding is None for r in pres)  # the kernel route
+    finally:
+        jeng.shutdown()
+        peng.shutdown()

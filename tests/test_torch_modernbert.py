@@ -300,7 +300,7 @@ def test_engine_adds_and_answers(tmp_path):
         for i, doc_id in enumerate(ids):
             row = eng.store.row_of(doc_id)
             assert (eng.index.E[row].float() - want[i]).abs().max().item() <= 1e-6
-        q = eng.embed_queries([TEXTS[3]])
+        q = eng.encoder.encode_device([TEXTS[3]])
         assert (q[0] - want[3]).abs().max().item() <= 1e-6
         res = eng.query(TEXTS[3], max_results=2)
         assert res.documents[0].content == TEXTS[3]

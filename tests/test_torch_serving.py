@@ -16,6 +16,7 @@ import time
 import urllib.error
 import urllib.request
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -24,9 +25,11 @@ import modular_rag_system_tpu as jpkg
 import modular_rag_system_tpu_torch as ppkg
 from modular_rag_system_tpu.batching import QueryBatcher as JBatcher
 from modular_rag_system_tpu.facade import EnhancedRAGSystem as JSystem
+from modular_rag_system_tpu.orchestration import processor as jprocessor
 from modular_rag_system_tpu.serving import RAGHTTPServer as JServer
 from modular_rag_system_tpu_torch.batching import QueryBatcher as PBatcher
 from modular_rag_system_tpu_torch.facade import EnhancedRAGSystem as PSystem
+from modular_rag_system_tpu_torch.orchestration import processor as pprocessor
 from modular_rag_system_tpu_torch.serving import RAGHTTPServer as PServer
 from torch_parity import assert_same_fields
 
@@ -72,7 +75,15 @@ def servers(tmp_path):
     psys.shutdown()
 
 
-def test_http_api_parity(servers, tmp_path):
+def test_http_api_parity(servers, tmp_path, monkeypatch):
+    # one response-cache bucket (5-minute buckets of the wall clock) for
+    # the whole test in both processors: a bucket boundary between the two
+    # servers' calls of one enhanced query would serve one of them fresh
+    # and the other from its cache
+    now = time.time()
+    for proc in (jprocessor, pprocessor):
+        monkeypatch.setattr(proc, "time",
+                            SimpleNamespace(time=lambda: now, perf_counter=time.perf_counter))
     (jsys, psys), srvs, bases = servers
     assert all(srv.batcher is not None for srv in srvs)
     calls = [

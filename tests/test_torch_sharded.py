@@ -296,9 +296,7 @@ def test_search_core_deep_k_beyond_cap_s(rng, tier):
     jidx, pidx = _pair(16, capacity=512, tier=tier, block_rows=32)
     _both(lambda i: i.add(E), jidx, pidx)
     assert pidx.cap_s == 64 and pidx._effective_tier(300) == "deep"
-    with pidx._lock:
-        vals, gids = pidx.search_core(300)(pidx.search_ops(300), pidx.count,
-                                          torch.from_numpy(q))
+    vals, gids = pidx.search_device(torch.from_numpy(q), 300)
     ref = q @ E.T
     for i in range(8):
         order = np.lexsort((np.arange(400), -ref[i]))[:300]
@@ -513,13 +511,14 @@ def test_ivf_writes_serve_tail_and_rebuild(rng):
     idx.add(E[:1000])
     assert idx.ivf_rebuilds == 1 and idx._ivf2.built == 1000
     built = idx._ivf2
-    token = idx.search_token(10)
     idx.add(E[1000:1100])
-    assert idx._ivf2 is built and idx.search_token(10) != token  # the tail grew
+    # the tail grew: the same build serves, its exact tail finds the new rows
+    assert idx._ivf2 is built and built.built == 1000 and built.version == 0
+    assert idx.ivf_stats()["tail_rows"] == 100
     np.testing.assert_array_equal(idx.search(E[1020:1022], 5)[1][:, 0], [1020, 1021])
     idx.add(E[1100:])
     assert idx.ivf_rebuilds == 2 and idx._ivf2.built == idx.count
-    assert idx.search_token(10)[6] == 1  # the new build's version
+    assert idx._ivf2.version == 1  # the new build's version
     drift = ShardedIndex(dim=32, mesh=CPU8, tier="ivf", block_rows=64, ivf_clusters=8,
                          ivf_nprobe=1, ivf_iters=4, ivf_rebuild_min=64, ivf_tail_frac=0.1,
                          ivf_fine_dtype="bf16")
@@ -545,7 +544,7 @@ def test_auto_tier_promotes_on_global_count(rng, monkeypatch):
     _same(jidx, pidx, q, 10)
     _both(lambda i: i.add(E[900:]), jidx, pidx)  # 200 rows a shard: the global count
     assert pidx.effective_tier() == "ivf" and pidx._ivf2 is not None
-    assert pidx.search_token(10)[0] == "ivf" and pidx._ivf2.fine_dtype == "bf16"
+    assert pidx._effective_tier(10) == "ivf" and pidx._ivf2.fine_dtype == "bf16"
     r = _same(jidx, pidx, q, 10)
     exact = DeviceIndex(dim=32, tier="exact", device="cpu")
     exact.add(E)
@@ -606,9 +605,10 @@ def test_shards_own_their_tensors(rng):
     idx = ShardedIndex(dim=32, mesh=["cpu"] * 4, tier="ivf", block_rows=64, ivf_clusters=4,
                        ivf_rebuild_min=64, ivf_fine_dtype="int8")
     idx.add(_unit(rng, 600, 32))
-    idx.search_ops(100)
+    q = torch.from_numpy(_unit(rng, 2, 32))
+    idx.search_device(q, 100)
     idx.tier = "int8"
-    idx.search_ops(10)
+    idx.search_device(q, 10)
     for group in (idx.E, idx._E_q, idx._scales, [p.E_c3 for p in idx._ivf2.shards],
                   [p.centroids for p in idx._ivf2.shards], [p.perm for p in idx._ivf2.shards]):
         ptrs = [t.data_ptr() for t in group]
