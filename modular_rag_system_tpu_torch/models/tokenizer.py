@@ -9,11 +9,14 @@
 
 Both produce static-shape ``(batch, max_len)`` int32 ids + masks, id for
 id the JAX package's tokenizers.  With ``use_native=True`` (the default)
-ASCII texts run through the native C++ engine (``native/text_engine.cpp``,
-bit-exact with the Python path on ASCII input); non-ASCII texts, and
-every call when the engine cannot be built, take the Python path.  The
-JAX package sends a whole batch to Python when one text is non-ASCII;
-here only that text goes (the ids are the same either way).
+every text that encodes to UTF-8 runs through the native C++ engine
+(``native/text_engine.cpp``, bit-exact with the Python path on such
+text); a text holding a lone surrogate, and every text when the engine
+cannot be built, takes the Python path, row by row in a batch.  The JAX
+package's engine takes ASCII only, and sends a whole batch to Python when
+one text is not ASCII (the ids are the same either way).  With the
+tracer on, ``encode_batch`` counts its rows ("tokenizer.rows") and those
+the native engine took ("tokenizer.native_rows").
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from modular_rag_system_tpu_torch.native import get_engine
+from modular_rag_system_tpu_torch.utils.profiling import TRACER
 
 _WORD_RE = re.compile(r"[a-z0-9]+|[^\sa-z0-9]", re.IGNORECASE)
 
@@ -55,16 +59,33 @@ def _first_regular(vocab_size: int) -> int:
     return SEP_ID + 1
 
 
+def _utf8(text: str) -> bool:
+    """Whether ``text``, and so its lowercase, encodes to UTF-8: every str
+    but one that holds a lone surrogate."""
+    if text.isascii():
+        return True
+    try:
+        text.encode("utf-8")
+    except UnicodeEncodeError:
+        return False
+    return True
+
+
 def _by_row(texts: Sequence[str], native, python) -> Tuple[np.ndarray, np.ndarray]:
-    """(ids, mask) of ``texts``: the ASCII rows through ``native``, the
-    others through ``python`` (rows tokenize independently, and the two
-    paths give the same ids on ASCII text)."""
-    rows = [i for i, t in enumerate(texts) if t.isascii()]
-    if len(rows) == len(texts):
-        return native(texts)
+    """(ids, mask) of ``texts``: the rows that encode to UTF-8 through
+    ``native`` (None: no engine), the others through ``python`` (rows
+    tokenize independently, and the two paths give the same ids on such
+    text)."""
+    takes = [native is not None and _utf8(t) for t in texts]
+    rows = [i for i, ok in enumerate(takes) if ok]
+    if TRACER.on:
+        TRACER.count("tokenizer.rows", len(texts))
+        TRACER.count("tokenizer.native_rows", len(rows))
     if not rows:
         return python(texts)
-    other = [i for i, t in enumerate(texts) if not t.isascii()]
+    if len(rows) == len(texts):
+        return native(texts)
+    other = [i for i, ok in enumerate(takes) if not ok]
     ids_a, mask_a = native([texts[i] for i in rows])
     ids_o, mask_o = python([texts[i] for i in other])
     ids = np.empty((len(texts), ids_a.shape[1]), np.int32)
@@ -104,16 +125,15 @@ class HashingTokenizer:
         return pieces
 
     def token_count(self, text: str) -> int:
-        if self._native is not None and text.isascii():
+        if self._native is not None and _utf8(text):
             return self._native.token_count(text, self.piece_len)
         return len(self.tokenize(text)) + 2  # [CLS] + [SEP]
 
     def encode_batch(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
         """Returns (ids (B, max_len) int32, mask (B, max_len) int32)."""
-        if self._native is not None and texts:
-            return _by_row(texts, lambda rows: self._native.tokenize_batch(
-                rows, self.max_len, self.vocab_size, self.piece_len), self._encode_python)
-        return self._encode_python(texts)
+        native = None if self._native is None else (lambda rows: self._native.tokenize_batch(
+            rows, self.max_len, self.vocab_size, self.piece_len))
+        return _by_row(texts, native, self._encode_python)
 
     def _encode_python(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
         B = len(texts)
@@ -139,10 +159,10 @@ def load_vocab(path: str) -> Dict[str, int]:
 class WordPieceTokenizer:
     """Greedy longest-match-first WordPiece over an explicit vocab.
 
-    The native table holds the vocab's ASCII pieces other than the
-    bracketed specials: a non-ASCII piece never matches ASCII input and
-    ``_WORD_RE`` never yields a bracketed word, so ASCII batches stay
-    bit-exact with the Python path."""
+    The native table holds every piece of the vocab (as UTF-8) but the
+    bracketed specials, which ``_WORD_RE`` never yields as a word, and a
+    piece holding a lone surrogate, which no row the engine takes can
+    match: so its rows stay bit-exact with the Python path."""
 
     name = "wordpiece"
 
@@ -160,9 +180,9 @@ class WordPieceTokenizer:
         eng = get_engine() if use_native else None
         if eng is not None:
             items = [(p, i) for p, i in vocab.items()
-                     if p and p.isascii() and not (p.startswith("[") and p.endswith("]"))]
+                     if p and _utf8(p) and not (p.startswith("[") and p.endswith("]"))]
             self._wp_native = eng.wp_create(
-                [p.encode("ascii") for p, _ in items],
+                [p.encode("utf-8") for p, _ in items],
                 np.array([i for _, i in items], dtype=np.int32),
                 self.unk, self.cls, self.sep, self.pad)
 
@@ -199,15 +219,14 @@ class WordPieceTokenizer:
         return ids
 
     def token_count(self, text: str) -> int:
-        if self._wp_native is not None and text.isascii():
+        if self._wp_native is not None and _utf8(text):
             return self._wp_native.token_count(text)
         return len(self.tokenize_ids(text)) + 2
 
     def encode_batch(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
-        if self._wp_native is not None and texts:
-            return _by_row(texts, lambda rows: self._wp_native.tokenize_batch(
-                rows, self.max_len), self._encode_python)
-        return self._encode_python(texts)
+        native = None if self._wp_native is None else (
+            lambda rows: self._wp_native.tokenize_batch(rows, self.max_len))
+        return _by_row(texts, native, self._encode_python)
 
     def _encode_python(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
         B = len(texts)

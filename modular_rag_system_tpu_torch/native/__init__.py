@@ -5,6 +5,12 @@ missing or the build or load fails; the tokenizers then take their
 pure-Python path, whose ids are the same.  A failed build is logged once,
 with the compiler's output.
 
+The engine takes any text that encodes to UTF-8: the wrappers lowercase
+it in Python (``str.lower``, Unicode's own rules) and hand the engine its
+UTF-8 bytes, which it scans code point by code point.  A text holding a
+lone surrogate cannot be encoded; the tokenizers keep such a row on
+their Python path.
+
 At first use the source is compiled (``g++ -O3 -shared -fPIC -std=c++17``)
 into ``_build/libtextengine-<hash>.so``, named by the hash of the source,
 so an edited source rebuilds.  The compiler writes to a name of its own
@@ -38,7 +44,7 @@ import numpy as np
 NATIVE_DIR = Path(__file__).resolve().parent
 SOURCE = NATIVE_DIR / "text_engine.cpp"
 BUILD_DIR = NATIVE_DIR / "_build"
-_ABI = 2
+_ABI = 3
 
 logger = logging.getLogger(__name__)
 
@@ -81,8 +87,9 @@ _INT = ctypes.c_int
 
 
 def _pack(texts: Sequence[str]) -> Tuple[bytes, np.ndarray, np.ndarray]:
-    """Lowercased ASCII texts as one blob with (offset, length) per text."""
-    lowered: List[bytes] = [t.lower().encode("ascii") for t in texts]
+    """Lowercased texts as one UTF-8 blob with (offset, length) in bytes
+    per text."""
+    lowered: List[bytes] = [t.lower().encode("utf-8") for t in texts]
     lengths = np.array([len(b) for b in lowered], dtype=np.int64)
     offsets = np.zeros(len(lowered), dtype=np.int64)
     if len(lowered) > 1:
@@ -115,7 +122,7 @@ class TextEngine:
 
     def tokenize_batch(self, texts: Sequence[str], max_len: int, vocab_size: int,
                        piece_len: int) -> Tuple[np.ndarray, np.ndarray]:
-        """``HashingTokenizer.encode_batch`` of ASCII ``texts``."""
+        """``HashingTokenizer.encode_batch`` of ``texts``."""
         blob, offsets, lengths = _pack(texts)
         ids = np.zeros((len(texts), max_len), dtype=np.int32)
         mask = np.zeros((len(texts), max_len), dtype=np.int32)
@@ -124,12 +131,12 @@ class TextEngine:
         return ids, mask
 
     def token_count(self, text: str, piece_len: int) -> int:
-        b = text.lower().encode("ascii")
+        b = text.lower().encode("utf-8")
         return int(self._lib.te_token_count(b, len(b), piece_len))
 
     def wp_create(self, pieces: Sequence[bytes], ids: np.ndarray, unk: int, cls: int,
                   sep: int, pad: int) -> "WpHandle":
-        """A native WordPiece table of ASCII ``pieces`` with their ``ids``."""
+        """A native WordPiece table of ``pieces`` (UTF-8) with their ``ids``."""
         blob = b"".join(pieces)
         lens = np.array([len(p) for p in pieces], dtype=np.int64)
         offs = np.zeros(len(pieces), dtype=np.int64)
@@ -154,7 +161,7 @@ class WpHandle:
 
     def tokenize_batch(self, texts: Sequence[str], max_len: int
                        ) -> Tuple[np.ndarray, np.ndarray]:
-        """``WordPieceTokenizer.encode_batch`` of ASCII ``texts``."""
+        """``WordPieceTokenizer.encode_batch`` of ``texts``."""
         blob, offsets, lengths = _pack(texts)
         ids = np.zeros((len(texts), max_len), dtype=np.int32)
         mask = np.zeros((len(texts), max_len), dtype=np.int32)
@@ -163,7 +170,7 @@ class WpHandle:
         return ids, mask
 
     def token_count(self, text: str) -> int:
-        b = text.lower().encode("ascii")
+        b = text.lower().encode("utf-8")
         return int(self._lib.te_wp_token_count(self._h, b, len(b)))
 
 
