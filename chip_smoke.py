@@ -111,6 +111,16 @@ Phases (any failure exits non-zero and prints no result line):
    padding) and timed there, the full mode in both its designs (the
    Hopper design the wrapper picks at that L, and the tile template),
    and both designs at L = 256 to 2,048 (B x H = 96): the crossover.
+   7c: Moonlight-16B-A3B at its published widths and depth (27 MLA
+   layers, 64 sigmoid-routed experts 6 a token and 2 shared; seeded BF16
+   weights written tensor by tensor) through ``embedding.hf_checkpoint``
+   over 1,048,576 filler rows at 2,048: ``add_documents`` of 16 sections
+   launches ``mea_attention_causal`` once a layer and forward and no
+   other kernel; the causal mode held against its plain version at the
+   first layer's inputs (16 x L, 16 heads, 192 / 128, bf16) and timed;
+   an engine query and a ``query_batch`` against a brute-force top-k over
+   the f32 master; ``rescan`` and ``fused_topk`` at d = 2,048 against
+   their plain versions on the index's rows.
 8. multihost: two processes on the card, one gloo group of 2
    (``parallel/multihost.py``): ``mh_check`` with CUDA tensors (its four
    markers in both ranks), then two ranks of this script
@@ -3177,6 +3187,207 @@ def longdoc_phase(work, kernels, know, passages, spec, device="cuda",
 
 
 
+
+# ---------------------------------------------------------------------------
+# phase 7c: Moonlight-16B-A3B (DeepSeek-V3) on long sections: the causal mode
+# of mea_attention, the expert layer, a 2,048-wide index
+def moonlight_config():
+    """The benchmark's Moonlight-16B-A3B ``config.json`` (the catalog's, with
+    ``rope_interleave``)."""
+    return json.loads((ROOT / "portbench" / "configs" / "moonlight-16b-a3b.json")
+                      .read_text())["hf_config"]
+
+
+# pieces joined into each of the 16 sections: ~180 to ~4,800 tokens, the
+# spread of the benchmark's moonlight-ingest-4k cell
+MOE_PIECES = tuple(16 + i * 241 // 16 for i in range(16))
+
+
+def time_causal(q, k, v, pad, spec, what):
+    """The causal mode at the given inputs: held against its plain version,
+    then timed beside it and one ``scaled_dot_product_attention`` call
+    (causal, the key mask).  Bound: one sweep, 2 (d_qk + d_v) operations a
+    live pair (n (n + 1) / 2 a document and head), q, k, v and the output
+    once each."""
+    import torch
+    import torch.nn.functional as F
+
+    from modular_rag_system_tpu_torch.ops import flash_attention as FA
+
+    B_, L, H, dqk = q.shape
+    dv = v.shape[3]
+    err = _check_mea(FA.mea_attention(q, k, v, pad, causal=True),
+                     FA.mea_attention_reference(q, k, v, pad, causal=True),
+                     f"mea_attention causal {what}")
+    ms = cuda_ms(lambda: FA.mea_attention(q, k, v, pad, causal=True), reps=10)
+    queued = queued_ms(lambda: FA.mea_attention(q, k, v, pad, causal=True), reps=10)
+    plain = cuda_ms(lambda: FA.mea_attention_reference(q, k, v, pad, causal=True), reps=3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pos = torch.arange(L, device=q.device)
+    mask = (pad > 0)[:, None, None, :] & (pos[None, :] <= pos[:, None])
+    try:
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=10)
+    except RuntimeError as exc:  # no backend for q, k wider than v with a mask
+        lib = float("nan")
+        log(f"scaled_dot_product_attention at {dqk}/{dv}: {exc}")
+    del mask
+    n = pad.sum(1).tolist()
+    pairs = H * sum(m * (m + 1) // 2 for m in n)
+    rows = H * sum(n)
+    b_ms, b_by = bound(rows * (2 * dqk + 2 * dv) * 2, 2 * (dqk + dv) * pairs, spec[2], spec)
+    log(f"time mea_attention causal {what} B={B_} L={L} H={H} dqk={dqk} dv={dv}: {ms:.4f} ms "
+        f"(queued {queued:.4f} ms; plain {plain:.4f} ms, library {lib:.4f} ms "
+        f"(scaled_dot_product_attention, causal with the key mask), bound {b_ms:.4f} ms by "
+        f"{b_by} (one sweep over the live pairs)); max |err| vs plain {err:.2e}")
+    return {"ms": ms, "queued_ms": queued, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": b_ms, "bound_by": b_by}, err
+
+
+def moe_phase(work, kernels, know, passages, spec, device="cuda", config=None,
+              pieces=MOE_PIECES, fill_rows=1_048_576):
+    """Phase 7c: ``create_engine`` over a Moonlight-16B-A3B checkpoint at its
+    published widths and depth (27 layers of MLA, 64 sigmoid-routed experts
+    6 a token and 2 shared in layers 1-26; the benchmark's seeded BF16
+    weights, written tensor by tensor) served at 8,192 positions, as the
+    benchmark's ``moonlight-ingest-4k`` cell runs it, filled to
+    ``fill_rows`` 2,048-wide rows: ``add_documents`` of 16 sections
+    launches ``mea_attention_causal`` once a layer and forward and no
+    other kernel; the causal mode held against its plain version at the
+    first layer's own inputs of that batch (16 x L, 16 heads, 192 / 128,
+    bf16, ragged) and timed there; one engine query and one
+    ``query_batch`` against a brute-force top-k over the f32 master;
+    ``rescan`` (the int8 route's second pass) and ``fused_topk`` (the
+    first 8,192 rows) at d = 2,048 against their plain versions on the
+    index's own rows.  Returns {"mea_attention_causal": (timing, max
+    |error|, launches), "rescan_2048": max |error|, ...}."""
+    import numpy as np
+    import torch
+
+    from modular_rag_system_tpu_torch import RAGConfig, create_engine
+    from modular_rag_system_tpu_torch.models import deepseek_v3 as DS
+    from modular_rag_system_tpu_torch.ops import binmax_topk as B
+    from modular_rag_system_tpu_torch.ops import fused_topk as FT
+    from modular_rag_system_tpu_torch.types import Document
+    from portbench import common, engines
+
+    cuda = device != "cpu"
+    config = config or moonlight_config()
+    L = config["max_position_embeddings"]
+    t0 = time.perf_counter()
+    ckpt = common.traffic("ingest_moe").write_checkpoint(
+        work / "moonlight", {"hf_config": config}, 0, device)
+    eng = create_engine(RAGConfig.load(overrides={
+        "embedding.hf_checkpoint": str(ckpt), "embedding.dim": config["hidden_size"],
+        "embedding.lexical_dim": 0, "embedding.max_seq_len": L,
+        "embedding.attention_impl": "flash", "embedding.dtype": "bfloat16",
+        "index.tier": "auto", "store.storage_path": str(work / "moonlight_store")}),
+        device=device)
+    (ckpt / "model.safetensors").unlink()
+    enc = getattr(eng.encoder, "dense", eng.encoder)
+    blocks = enc.module.blocks
+    n_layers = len(blocks)
+    log(f"moonlight engine: {type(enc.module).__name__}, {n_layers} layers, "
+        f"max_seq_len {enc.max_seq_len}, built with its checkpoint in "
+        f"{time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 1e9 if cuda else 0:.2f} GB")
+    if not (isinstance(enc.module, DS.DeepseekV3Module) and enc.params is None
+            and n_layers == config["num_hidden_layers"]):
+        raise AssertionError("the moonlight engine is not the checkpoint's DeepSeek-V3 encoder")
+    engines.fill(eng, 0, fill_rows)
+    pool = list(passages) + list(know)
+    r = np.random.default_rng(8)
+    docs = ["\n\n".join(pool[i] for i in r.choice(len(pool), c, replace=False))
+            for c in pieces]
+    lengths = enc.tokenizer.encode_batch(docs)[1].sum(1).tolist()
+    forwards = [0]
+    forward_tokens = enc.forward_tokens
+
+    def counted(ids, mask):
+        forwards[0] += 1
+        return forward_tokens(ids, mask)
+
+    enc.forward_tokens = counted
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng.add_documents([Document(content=t, source="sections") for t in docs])
+    if cuda:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    enc.forward_tokens = forward_tokens
+    log(f"moonlight engine ingest: {len(docs)} sections of {lengths} tokens in {dt:.2f} s "
+        f"(first call), {forwards[0]} forwards; launches {counts}")
+    want = {"mea_attention_causal": n_layers * forwards[0]}
+    if cuda and (not forwards[0] or {k: n for k, n in counts.items() if n} != want):
+        raise AssertionError(f"moonlight ingest launched {counts}, expected {want}")
+    hit = eng.query(docs[3], max_results=1, similarity_threshold=0.0).documents
+    if not hit or hit[0].content != docs[3]:
+        raise AssertionError("a section is not its own nearest row")
+    # one query_batch against a brute-force top-k over the f32 master
+    texts = docs[:8] + [know[i] for i in range(8)]
+    batch = eng.query_batch(texts, max_results=5, similarity_threshold=0.0,
+                            time_weight=0.0)
+    got_first = [res.documents[0].content if res.documents else None for res in batch]
+    if got_first[:len(docs[:8])] != docs[:8]:
+        raise AssertionError("query_batch: a section is not its own first answer")
+    q = enc.encode_device(texts)
+    idx = eng.index
+    # the engine's route against the exact top-k over the f32 master
+    recall = check_against_exact(eng, q, 10, 1e-3, "moonlight 2,048-wide index, Q=16")
+    out = {"recall10": recall}
+
+    # rescan and fused_topk at d = 2,048 on the index's own rows
+    E_q, sc, E = idx._operands("int8")
+    count, cap = idx.count, E.shape[0]
+    bw = B.auto_bin_width(cap)
+    kernels.reset_launches()
+    v1, i1 = B.twopass_topk_int8_master_raw(E_q, sc, E, count, q, 10, bw, kernel_rescan=True)
+    if cuda and kernels.launches["rescan"] == 0:
+        raise AssertionError("the int8 route at d = 2,048 launched no rescan kernel")
+    kb = min(10 + 1 + B._MARGIN_BINS + B._INT8_MIXED_EXTRA_BINS, cap // bw)
+    bins = torch.topk(B.binmax_int8_call(E_q, sc, *B.quantize_queries(q), bw), kb,
+                      dim=1).indices.to(torch.int32) if cuda else None
+    if cuda:
+        rv, ri = B.rescan_call(E, bins, count, q, 10, bw)
+        pv, pi = B.rescan_reference(E, bins, count, q, 10, bw)
+        out["rescan_2048"] = (rv - pv).abs().max().item()
+        sub = E[:8192].contiguous()
+        fv, fi = FT.fused_topk_raw(sub, 8192, q, 10)
+        gv, gi = FT.fused_topk_reference(sub, 8192, q, 10)
+        out["fused_topk_2048"] = (fv - gv).abs().max().item()
+        for name, (a, b) in (("rescan_2048", (ri, pi)), ("fused_topk_2048", (fi, gi))):
+            same = (a == b).float().mean().item()
+            log(f"{name}: max |err| vs plain {out[name]:.2e}, ids equal {same:.4f}")
+            if out[name] > 1e-5 or same < 0.98:
+                raise AssertionError(f"{name} differs from its plain version")
+
+    # the causal mode at the first layer's inputs of the batch
+    captured = {}
+    mea = DS.mea_attention
+
+    def capture(q_, k_, v_, pad, causal=False):
+        captured.setdefault("first", (q_.clone(), k_.clone(), v_.clone(), pad.clone()))
+        return mea(q_, k_, v_, pad, causal=causal)
+
+    DS.mea_attention = capture
+    try:
+        enc.encode_device(docs)
+    finally:
+        DS.mea_attention = mea
+    qc, kc, vc, pad = captured["first"]
+    if cuda:
+        timing, err = time_causal(qc, kc, vc, pad, spec, "at Moonlight's first layer "
+                                  "(the long-section batch)")
+    else:
+        timing, err = {}, 0.0
+    out["mea_attention_causal"] = (timing, err, want["mea_attention_causal"])
+    eng.shutdown()
+    del eng, enc, captured, qc, kc, vc, pad, E_q, sc, E
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
 # ---------------------------------------------------------------------------
 # phase 8: two processes on the card, one gloo group (parallel/multihost.py)
 MH_RANKS = 2
@@ -3859,6 +4070,10 @@ def smoke(work: Path) -> int:
     errs["mea_attention"] = max(errs["mea_attention"], longdoc["mea_attention"][1])
     tp = phase("7b (ModernBERT, long documents)", tp)
 
+    # ---- phase 7c: Moonlight-16B-A3B on long sections, the causal mode
+    moe = moe_phase(work, kernels, know, passages, spec)
+    tp = phase("7c (Moonlight-16B-A3B, long sections)", tp)
+
     # ---- phase 8: two processes on the card, one gloo group
     gc.collect()
     torch.cuda.empty_cache()
@@ -3906,6 +4121,13 @@ def smoke(work: Path) -> int:
                 "source": f"modular_rag_system_tpu_torch/kernels/"
                           f"{kernels.KERNELS['mea_attention_window']}.cu",
                 "replaces": None, "launches": n, "max_abs_err": err, **timing})
+    timing, err, n = moe["mea_attention_causal"]
+    out.append({"name": "mea_attention_causal", "route": "cuda",
+                "source": f"modular_rag_system_tpu_torch/kernels/"
+                          f"{kernels.KERNELS['mea_attention_causal']}.cu",
+                "replaces": None, "launches": n, "max_abs_err": err, **timing,
+                "rescan_2048_err": moe["rescan_2048"],
+                "fused_topk_2048_err": moe["fused_topk_2048"], "recall10_2048": moe["recall10"]})
     for kname, n in trained["update_launches"].items():
         out.append({"name": kname, "route": "cuda",
                     "source": f"modular_rag_system_tpu_torch/kernels/{kernels.KERNELS[kname]}.cu",

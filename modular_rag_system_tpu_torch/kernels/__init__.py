@@ -2,8 +2,9 @@
 
 Each ``*.cu`` file here holds a kernel's plain C entry point (``fused_topk.cu``
 holds two: ``fused_topk`` and ``fused_topk_int8``, one kernel template
-over three row types; ``mea_attention.cu`` two, the full and the
-sliding-window mode: ``mea_attention`` and ``mea_attention_window``;
+over three row types; ``mea_attention.cu`` three, the full, the
+sliding-window and the causal mode: ``mea_attention``,
+``mea_attention_window`` and ``mea_attention_causal``;
 ``clip_adamw.cu`` two, the trainer's update in two launches:
 ``clip_adamw_norm`` and ``clip_adamw_apply``); the ``*.cuh``
 headers hold device code that several of them share.  A kernel's first
@@ -44,6 +45,7 @@ KERNELS = {"binmax_int8": "binmax_int8", "fused_topk_int8": "fused_topk",
            "binmax": "binmax", "fused_topk": "fused_topk", "fine_scores": "fine_scores",
            "fine_topk": "fine_topk", "fine_binmax": "fine_binmax", "rescan": "rescan",
            "mea_attention": "mea_attention", "mea_attention_window": "mea_attention",
+           "mea_attention_causal": "mea_attention",
            "clip_adamw_norm": "clip_adamw",
            "clip_adamw_apply": "clip_adamw"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
@@ -90,6 +92,8 @@ _ARGTYPES = {
     "mea_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P],
     # q, k, v, pad, is_bf16, B, L, H, dh, scale, window, out, stream
     "mea_attention_window": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P],
+    # q, k, v, pad, B, L, H, dqk, dv, scale, out, stream
+    "mea_attention_causal": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
     # g, n, split, grid, partials, stream
     "clip_adamw_norm": [_P, _I, _I, _I, _P, _P],
     # p, g, mu, nu, n, partials, grid, split_sum, norm_out, 1 / bc1, 1 / bc2,

@@ -431,7 +431,7 @@ int dispatch(int cfg, const void* E, const float* sc, const void* q, int Q, int 
 // <= cap.  The launch plan (ops/fused_topk.py fused_topk_plan): cfg 0 (8
 // query columns, 6 ring stages), 1 (8, 2) or 2 (32, 6), QB
 // queries a CTA, S splits of R rows (R a multiple of 128 and of the bin
-// width); ws (Q, S, k) int64 when S > 1.  d % 8 == 0, d <= 1024,
+// width); ws (Q, S, k) int64 when S > 1.  d % 8 == 0, d <= 2048,
 // 1 <= k <= 8192, S k <= 16384, bin_width dividing 128 or a multiple of
 // it (checked by the Python wrapper).  Slots with no candidate hold
 // (-inf, INT32_MAX).  Returns the first failing launch's cudaError_t.

@@ -100,6 +100,19 @@
 // mode is the kernels' WIN template flag, so the profiler's kernel names
 // tell the two modes apart; with WIN false every band test folds away and
 // the full mode is compiled as before.
+//
+// Causal mode (entry mea_attention_causal, DeepSeek-V3's MLA layers; bf16
+// only): query i sees only the keys j <= i, and q and k may be wider than
+// v (192 and 128): the tile template's third mode, with v's width and row
+// stride its own.  A key past the row is no key of it; a padded key in
+// range scores -1e9; a row with no live key in its range, and a padded
+// query row, are zeros.  A CTA sweeps only the key tiles at or below the
+// diagonal of its last query row, takes its longest query tiles first
+// (the grid's x reversed), and a CTA whose query rows are all padding
+// writes zeros and loads nothing.  Its kernel is mea_causal_kernel, so
+// the profiler's names tell it from the other two modes; the full and
+// window modes run the same body through mea_bf16_kernel, bit for bit as
+// before (the dv = dh paths fold to the old code).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -218,16 +231,19 @@ __device__ __forceinline__ float exact_score(const uint16_t* qrow, const uint16_
     return __fmul_rn(acc, scale);  // rounded, never fused into a later subtraction
 }
 
-// DHP: dh rounded up to a multiple of 16; BKV: keys per tile; WPP: warps
-// per (batch row, head) pair, each 16 query rows, NW / WPP pairs per CTA
-template <int DHP, int BKV, int WPP>
+// DHP: dh (of q and k) rounded up to a multiple of 16; DVP: v's dh so
+// rounded (DHP but in the causal mode); BKV: keys per tile; WPP: warps per
+// (batch row, head) pair, each 16 query rows, NW / WPP pairs per CTA
+template <int DHP, int BKV, int WPP, int DVP = DHP>
 struct Tiles {
     static constexpr int PPC = NW / WPP;
     static constexpr int LDK = DHP + 8;  // bf16 values per staged key row
-    static constexpr int KV = BKV * LDK;  // bf16 values of one k or v tile
+    static constexpr int LDV = DVP + 8;  // ... and value row
+    static constexpr int KV = BKV * LDK;  // bf16 values of one k tile
+    static constexpr int VT = BKV * LDV;  // ... and v tile
     // one ring slot: per pair a k tile, a v tile and BKV live flags (which
     // become the keys' score bounds)
-    static constexpr int SLOT = PPC * (2 * KV * 2 + BKV * 4);
+    static constexpr int SLOT = PPC * ((KV + VT) * 2 + BKV * 4);
     // per warp: its 16 q rows, its rows' maxima, and the list of scores to
     // recompute (at most BKV / 2 a lane)
     static constexpr int NP = BKV / 2;
@@ -235,49 +251,89 @@ struct Tiles {
     static constexpr int SMEM = 2 * SLOT + NW * WARP;
 };
 
-template <int DHP, int BKV, int WPP, bool WIN>
-__global__ void __launch_bounds__(NTB)
-mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                const uint16_t* __restrict__ v, const float* __restrict__ pad,
-                uint16_t* __restrict__ out, int BH, int L, int H, int dh, float scale, int w) {
-    using T = Tiles<DHP, BKV, WPP>;
+// MODE 0: the full mode, 1: the window mode (band |i - j| <= w), 2: the
+// causal mode (keys j <= i, v's dh dv, a padded query row is zeros).  The
+// full and window modes run it through mea_bf16_kernel with DVP = DHP and
+// dv = dh, the causal mode through mea_causal_kernel.
+template <int DHP, int DVP, int BKV, int WPP, int MODE>
+__device__ __forceinline__ void
+mea_bf16_body(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+              const uint16_t* __restrict__ v, const float* __restrict__ pad,
+              uint16_t* __restrict__ out, int BH, int L, int H, int dh, int dv, float scale,
+              int w) {
+    constexpr bool WIN = MODE == 1, CAUSAL = MODE == 2;
+    using T = Tiles<DHP, BKV, WPP, DVP>;
     constexpr int NI = BKV / 8;   // score n-tiles (8 keys each)
     constexpr int KD = DHP / 16;  // k-steps of q k^T
-    constexpr int ND = DHP / 8;   // output n-tiles (8 columns each)
-    constexpr int CPR = DHP / 8;  // 16-byte chunks of a staged row
+    constexpr int ND = DVP / 8;   // output n-tiles (8 columns each)
+    constexpr int CPR = DHP / 8;  // 16-byte chunks of a staged key row
+    constexpr int CPV = DVP / 8;  // ... and value row
     extern __shared__ __align__(16) unsigned char sm[];
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;
     const int pair0 = blockIdx.y * T::PPC;
-    const size_t rstride = (size_t)H * dh;  // values between positions
+    const size_t rstride = (size_t)H * dh;  // values between positions of q, k
+    const size_t vstride = (size_t)H * dv;  // ... of v and out
+    // the causal mode takes its longest query tiles first
+    const int bx = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
 
     // this warp's pair and query rows
     const int pp = warp / WPP;
     const int pair = pair0 + pp;
-    const int q0 = (blockIdx.x * WPP + warp % WPP) * 16;
-    const bool active = pair < BH && q0 < L;
+    const int q0 = (bx * WPP + warp % WPP) * 16;
+    bool active = pair < BH && q0 < L;
 
     auto kt_ptr = [&](int slot, int p) {
-        return reinterpret_cast<uint16_t*>(sm + slot * T::SLOT) + (size_t)p * 2 * T::KV;
+        return reinterpret_cast<uint16_t*>(sm + slot * T::SLOT) + (size_t)p * (T::KV + T::VT);
     };
     auto live_ptr = [&](int slot, int p) {
-        return reinterpret_cast<float*>(sm + slot * T::SLOT + T::PPC * 2 * T::KV * 2) +
+        return reinterpret_cast<float*>(sm + slot * T::SLOT + T::PPC * (T::KV + T::VT) * 2) +
                p * BKV;
     };
-    auto base_of = [&](int pr) {  // value (b, 0, h, 0) of pair pr
+    auto base_of = [&](int pr) {  // value (b, 0, h, 0) of pair pr in q, k
         return ((size_t)(pr / H) * L * H + pr % H) * dh;
     };
+    auto vbase_of = [&](int pr) {  // ... in v, out
+        return ((size_t)(pr / H) * L * H + pr % H) * dv;
+    };
+    // the causal mode: zeros in this warp's rows (no live query among them)
+    auto zero_rows = [&]() {
+        if (pair >= BH || q0 >= L) return;
+        const size_t vb = vbase_of(pair);
+        for (int i = lane; i < 16 * (dv / 2); i += 32) {
+            const int row = q0 + i / (dv / 2), c = (i % (dv / 2)) * 2;
+            if (row < L) *reinterpret_cast<uint32_t*>(out + vb + (size_t)row * vstride + c) = 0u;
+        }
+    };
+
+    // the causal mode's live query rows g and g + 8 of this warp; a CTA
+    // whose query rows are all padding writes zeros and loads nothing
+    bool qlive[2] = {true, true};
+    if (CAUSAL) {
+        const int row = q0 + (lane & 15);
+        const bool lv = active && row < L && pad[(size_t)(pair / H) * L + row] > 0.5f;
+        const unsigned bal = __ballot_sync(0xffffffffu, lv);
+        qlive[0] = (bal >> g) & 1u;
+        qlive[1] = (bal >> (g + 8)) & 1u;
+        active = bal != 0u;
+        if (!__syncthreads_or(active)) {
+            zero_rows();
+            return;
+        }
+    }
 
     // the key tiles kt0 .. kt0 + nt - 1 this CTA sweeps: all of them, or
-    // those that meet the band of its query rows
+    // those that meet the band of its query rows, or those at or below
+    // the diagonal of its last query row
     int kt0 = 0, nt = (L + BKV - 1) / BKV;
     if (WIN) {
-        const int qlo = blockIdx.x * WPP * 16;
+        const int qlo = bx * WPP * 16;
         const int qhi = min(qlo + WPP * 16, L) - 1;
         kt0 = max(qlo - w, 0) / BKV;
         nt = min(qhi + w, L - 1) / BKV - kt0 + 1;
     }
+    if (CAUSAL) nt = (min((bx + 1) * WPP * 16, L) - 1) / BKV + 1;
     // one key tile: the scores stay in registers between the sweeps
     const int first2 = nt == 1 ? 0 : nt;
     const int steps = first2 + nt;
@@ -293,8 +349,17 @@ mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
             const size_t off = ok ? base_of(pr) + (size_t)j * rstride + c * 8 : 0;
             uint16_t* Ks = kt_ptr(slot, p);
             cp_async16(Ks + r * T::LDK + c * 8, k + off, ok);
-            if (with_v) cp_async16(Ks + T::KV + r * T::LDK + c * 8, v + off, ok);
+            if (!CAUSAL && with_v) cp_async16(Ks + T::KV + r * T::LDK + c * 8, v + off, ok);
         }
+        // the causal mode's v: its own width and row stride
+        if (CAUSAL && with_v)
+            for (int i = tid; i < T::PPC * BKV * CPV; i += NTB) {
+                const int p = i / (BKV * CPV), r = (i / CPV) % BKV, c = i % CPV;
+                const int j = k0 + r, pr = pair0 + p;
+                const bool ok = pr < BH && j < L && c * 8 < dv;
+                const size_t off = ok ? vbase_of(pr) + (size_t)j * vstride + c * 8 : 0;
+                cp_async16(kt_ptr(slot, p) + T::KV + r * T::LDV + c * 8, v + off, ok);
+            }
         for (int i = tid; i < T::PPC * BKV; i += NTB) {
             const int p = i / BKV, r = i % BKV, j = k0 + r, pr = pair0 + p;
             const bool ok = pr < BH && j < L;
@@ -344,7 +409,7 @@ mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         qn[r] += __shfl_xor_sync(0xffffffffu, qn[r], 1);
         qn[r] += __shfl_xor_sync(0xffffffffu, qn[r], 2);
         qn[r] = sqrtf(qn[r]);
-        rowok[r] = active && q0 + g + 8 * r < L;
+        rowok[r] = active && q0 + g + 8 * r < L && qlive[r];
     }
     // |tensor-core score - sequential f32 score| <= cb |q| |k|: dh roundings
     // of at most 2^-24 |q| |k| each in the sequential sum (Cauchy-Schwarz
@@ -429,9 +494,12 @@ mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
             const float* kb = live_ptr(slot, pp);
             const int mat = lane >> 3, r8 = lane & 7;
             // key col's bound factor for row g + 8 r: -2 (no key of the
-            // row) outside the band
+            // row) outside the band, or past the row in the causal mode
             auto kcode = [&](int r, int col) {
-                return WIN && abs(q0 + g + 8 * r - k0 - col) > w ? -2.0f : kb[col];
+                return (WIN && abs(q0 + g + 8 * r - k0 - col) > w) ||
+                               (CAUSAL && k0 + col > q0 + g + 8 * r)
+                           ? -2.0f
+                           : kb[col];
             };
             // raw scores q k^T over DHP, k fragments by ldmatrix (key rows)
 #pragma unroll
@@ -557,7 +625,7 @@ mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 #pragma unroll
                     for (int dp = 0; dp < ND / 2; ++dp) {
                         uint32_t b[4];
-                        ldmatrix_x4_trans(b, Vs + (kc * 16 + (mat & 1) * 8 + r8) * T::LDK +
+                        ldmatrix_x4_trans(b, Vs + (kc * 16 + (mat & 1) * 8 + r8) * T::LDV +
                                                  dp * 16 + (mat >> 1) * 8);
                         mma_bf16(oacc[2 * dp], pa, b[0], b[1]);
                         mma_bf16(oacc[2 * dp + 1], pa, b[2], b[3]);
@@ -569,33 +637,78 @@ mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     }
     cp_async_wait<0>();
 
-    if (!active) return;
+    if (!active) {
+        if (CAUSAL) zero_rows();
+        return;
+    }
     const float extra = (float)(padded_length(L) - L);
     float denom[2];
-    bool dead[2];  // window mode: no live key in the row's band
+    // window and causal modes: no live key in the row's range; causal: a
+    // padded query row
+    bool dead[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
         lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
-        dead[r] = WIN && m[r] == MASKED;
-        if (!WIN && m[r] == MASKED) lsum[r] += extra;  // all keys padding
+        dead[r] = (MODE != 0 && m[r] == MASKED) || !qlive[r];
+        if (MODE == 0 && m[r] == MASKED) lsum[r] += extra;  // all keys padding
         denom[r] = fmaxf(lsum[r], 1e-30f);
     }
-    const size_t base = base_of(pair);
+    const size_t base = vbase_of(pair);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int row = q0 + g + 8 * r;
         if (row >= L) continue;
-        uint16_t* o = out + base + (size_t)row * rstride;
+        uint16_t* o = out + base + (size_t)row * vstride;
 #pragma unroll
         for (int n = 0; n < ND; ++n) {
             const int c = n * 8 + 2 * t;
-            if (c < dh)
+            if (c < dv)
                 *reinterpret_cast<uint32_t*>(o + c) =
                     dead[r] ? 0u
                             : pack_bf16(oacc[n][2 * r] / denom[r], oacc[n][2 * r + 1] / denom[r]);
         }
     }
+}
+
+// the full and window modes' kernel (the profiler names the modes by its
+// last template argument)
+template <int DHP, int BKV, int WPP, bool WIN>
+__global__ void __launch_bounds__(NTB)
+mea_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                const uint16_t* __restrict__ v, const float* __restrict__ pad,
+                uint16_t* __restrict__ out, int BH, int L, int H, int dh, float scale, int w) {
+    mea_bf16_body<DHP, DHP, BKV, WPP, WIN ? 1 : 0>(q, k, v, pad, out, BH, L, H, dh, dh, scale,
+                                                  w);
+}
+
+// the causal mode's kernel: q, k at dh (DQP padded), v and out at dv
+template <int DQP, int DVP, int BKV, int WPP>
+__global__ void __launch_bounds__(NTB)
+mea_causal_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                  const uint16_t* __restrict__ v, const float* __restrict__ pad,
+                  uint16_t* __restrict__ out, int BH, int L, int H, int dh, int dv,
+                  float scale) {
+    mea_bf16_body<DQP, DVP, BKV, WPP, 2>(q, k, v, pad, out, BH, L, H, dh, dv, scale, 0);
+}
+
+// 32-key tiles: at q, k 192 and v 128 a CTA then takes 76 KB of shared
+// memory and two fit an SM (64-key tiles took 128 KB, one a SM: 32.1 ms
+// against 21.3 at the long-section cell's shapes on an H100 80GB HBM3)
+template <int DQP, int DVP>
+int launch_causal(const void* q, const void* k, const void* v, const void* pad, void* out,
+                  int B, int L, int H, int dh, int dv, float scale, cudaStream_t stream) {
+    using T = Tiles<DQP, 32, 4, DVP>;
+    auto kern = mea_causal_kernel<DQP, DVP, 32, 4>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const int BH = B * H;
+    const dim3 grid(((L + 15) / 16 + 3) / 4, BH);
+    kern<<<grid, NTB, T::SMEM, stream>>>((const uint16_t*)q, (const uint16_t*)k,
+                                         (const uint16_t*)v, (const float*)pad, (uint16_t*)out,
+                                         BH, L, H, dh, dv, scale);
+    return (int)cudaGetLastError();
 }
 
 template <int DHP, int BKV, int WPP, bool WIN>
@@ -1543,6 +1656,22 @@ extern "C" int mea_attention(const void* q, const void* k, const void* v, const 
         return hopper::attend(q, k, v, pad, work, out, B, L, H, scale, (cudaStream_t)stream);
     }
     return attend<false>(q, k, v, pad, is_bf16, B, L, H, dh, scale, 0, out, stream);
+}
+
+// The causal mode (keys j <= i; a padded query row, and a row with no live
+// key in its range, are zeros): q, k (B, L, H, dh), v, out (B, L, H, dv),
+// bf16; dh, dv % 8 == 0, dh <= 192, dv <= 128, scale = 1 / sqrt(dh).  Two
+// tile widths only: DeepSeek-V3's 192 / 128 (narrower widths pad to it)
+// and 64 / 64 for narrow heads.
+extern "C" int mea_attention_causal(const void* q, const void* k, const void* v,
+                                    const void* pad, int B, int L, int H, int dh, int dv,
+                                    float scale, void* out, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (dh <= 64 && dv <= 64)
+        return launch_causal<64, 64>(q, k, v, pad, out, B, L, H, dh, dv, scale, s);
+    if (dh <= 192 && dv <= 128)
+        return launch_causal<192, 128>(q, k, v, pad, out, B, L, H, dh, dv, scale, s);
+    return (int)cudaErrorInvalidValue;
 }
 
 // The same with the band |i - j| <= window (window >= 0): the window mode.

@@ -311,7 +311,7 @@ int select_keys(const void* ws, int Q, int n, int k, int warp_sel, void* vals, v
 // bin_width) uint64 keys.  stages: 1 the score launch, 2 the select
 // launch, 3 both; warp_sel: the select launch by warp selection (k <= 32)
 // or by a sort.  out_vals (Q, k) f32, out_ids (Q, k) int32.  d % 8 == 0,
-// d <= 1024, bin_width % 16 == 0, bin_width <= 64, 1 <= kb bin_width <=
+// d <= 2048, bin_width % 16 == 0, bin_width <= 64, 1 <= kb bin_width <=
 // 16384, k >= 1 (checked by the Python wrapper).  Returns the first launch
 // error as a cudaError_t.
 extern "C" int rescan(const void* E, int is_bf16, const void* q_bf16, const void* keys,

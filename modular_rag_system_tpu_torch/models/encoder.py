@@ -38,7 +38,13 @@ keeps the f32 weights as ``params``; without a state dict it draws them
 with ``random_params`` (flax's default initialisers in distribution).
 Its ``model_type`` names the module it serves: ``"bert"`` this file's
 ``SentenceEncoderModule``, ``"modernbert"`` ``models/modernbert.py``'s
-``ModernBertModule`` (``layout`` holds that module's further keys).
+``ModernBertModule``, ``"deepseek_v3"`` ``models/deepseek_v3.py``'s
+``DeepseekV3Module`` (``layout`` holds that module's further keys).  Each
+module names its pooling (``models/pooling.py``): the masked mean, or
+for DeepSeek-V3 the last live token.  A state dict given as a function
+(``hf_loader``'s streamed checkpoints) fills the serving module in
+place, one tensor at a time, in the module's own dtype: such an encoder
+keeps no f32 copy (``params`` is None) and cannot be trained.
 """
 
 from __future__ import annotations
@@ -51,7 +57,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from modular_rag_system_tpu_torch.models.deepseek_v3 import DeepseekV3Module
 from modular_rag_system_tpu_torch.models.modernbert import ModernBertModule
+from modular_rag_system_tpu_torch.models.pooling import pool
 from modular_rag_system_tpu_torch.models.tokenizer import HashingTokenizer
 from modular_rag_system_tpu_torch.ops.flash_attention import mea_attention
 from modular_rag_system_tpu_torch.utils.device import resolve_device
@@ -185,14 +193,12 @@ class SentenceEncoderModule(nn.Module):
         pad = mask.bool()
         for block in self.blocks:
             x = block(x, pad)
-        m = mask.float()[..., None]
-        pooled = (x.float() * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
-        norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
-        return pooled / torch.clamp(norm, min=1e-12)
+        return pool(x, mask)
 
 
 # the module each ``model_type`` serves
-_MODULES = {"bert": SentenceEncoderModule, "modernbert": ModernBertModule}
+_MODULES = {"bert": SentenceEncoderModule, "modernbert": ModernBertModule,
+            "deepseek_v3": DeepseekV3Module}
 
 
 def _next_pow2(n: int) -> int:
@@ -241,7 +247,9 @@ class MiniLMEncoder:
     """Host-facing wrapper: tokenize -> bucket-pad -> forward on ``device``.
 
     ``params`` holds the f32 weights (the module's state dict keys); the
-    serving ``module`` holds them cast to the compute dtype."""
+    serving ``module`` holds them cast to the compute dtype.  A
+    ``state_dict`` that is a function ``fill(module)`` loads the serving
+    module in place instead, and ``params`` is None."""
 
     def __init__(
         self,
@@ -275,9 +283,14 @@ class MiniLMEncoder:
         self._arch = dict(vocab_size=vocab_size, hidden=dim, layers=num_layers,
                          heads=num_heads, mlp_dim=mlp_dim, max_len=max_seq_len,
                          dtype=_DTYPES[dtype], attention_impl=attention_impl, **(layout or {}))
-        if state_dict is None:
-            state_dict = random_params(self.make_module(), seed)
-        self.publish(state_dict)
+        if callable(state_dict):
+            module = self.make_module()
+            state_dict(module)
+            self.params, self.module = None, module.eval()
+        else:
+            if state_dict is None:
+                state_dict = random_params(self.make_module(), seed)
+            self.publish(state_dict)
         family = "minilm" if model_type == "bert" else model_type
         self.name = f"{family}-l{num_layers}-h{dim}"
 

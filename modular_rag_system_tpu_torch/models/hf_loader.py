@@ -1,6 +1,6 @@
-"""Load a local HuggingFace BERT checkpoint (the ``all-MiniLM-L6-v2`` family)
-or ModernBERT checkpoint (``modernbert-embed-base``) into the port's
-encoder, without ``transformers``.
+"""Load a local HuggingFace BERT checkpoint (the ``all-MiniLM-L6-v2`` family),
+ModernBERT checkpoint (``modernbert-embed-base``) or DeepSeek-V3 checkpoint
+(Moonlight-16B-A3B) into the port's encoder, without ``transformers``.
 
 Nothing is downloaded: a checkpoint is read from a local directory
 (``embedding.hf_checkpoint``) or from an offline hub cache that already
@@ -56,6 +56,31 @@ It needs a ``vocab.txt`` beside it: the port has no BPE tokenizer, so the
 published ``tokenizer.json`` cannot serve it.  There is no position table
 to cut; the encoder serves up to ``min(embedding.max_seq_len,
 max_position_embeddings)`` positions.
+
+A ``config.json`` with ``model_type: "deepseek_v3"`` (Moonlight-16B-A3B)
+loads into ``models/deepseek_v3.py``'s ``DeepseekV3Module``, streamed: the
+serving module is built in the compute dtype on its device and each
+tensor of ``model.safetensors`` (BF16 as published, or F32) is read from
+its own byte range and copied into it, so neither host nor device holds
+an f32 copy of the model (names with or without ``model.``; ``lm_head``
+is not read)::
+
+  embed_tokens                                    -> tok_embed
+  layers.N.input_layernorm                        -> blocks.N.attn_norm
+  layers.N.self_attn.{q_proj,kv_a_proj_with_mqa,
+                      kv_a_layernorm,kv_b_proj,o_proj}
+                                                  -> blocks.N.attn.{q_proj,kv_a,kv_norm,kv_b,o_proj}
+  layers.N.post_attention_layernorm               -> blocks.N.mlp_norm
+  layers.N.mlp.{gate,up}_proj, down_proj (dense) -> blocks.N.mlp.w13 halves, w2
+  layers.N.mlp.gate.weight, .e_score_correction_bias
+                                                  -> blocks.N.mlp.gate, .bias
+  layers.N.mlp.experts.E.{gate,up,down}_proj      -> blocks.N.mlp.w13[E] halves, w2[E]
+  layers.N.mlp.shared_experts.{gate,up,down}_proj -> blocks.N.mlp.shared.w13 halves, w2
+  norm                                            -> final_norm
+
+The loader refuses a configuration the module does not compute: a query
+LoRA, RoPE scaling, grouped routing, softmax scoring, unnormalised
+weights, biased attention, another activation.
 """
 
 from __future__ import annotations
@@ -65,7 +90,7 @@ import logging
 import os
 import struct
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,37 +104,48 @@ logger = logging.getLogger(__name__)
 _SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
 
 
+def iter_safetensors(path, names=None) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(name, CPU tensor in the file's dtype) of each tensor of a
+    ``.safetensors`` file (only ``names`` when given), in the header's
+    order, each read from its own byte range: at most one tensor is held
+    at a time.  Raises ``ValueError`` on a malformed file or a dtype other
+    than F32, F16 or BF16 among the tensors read."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as fh:
+        head = fh.read(8)
+        if len(head) < 8:
+            raise ValueError(f"{path}: too short for a safetensors header")
+        (n,) = struct.unpack("<Q", head)
+        if 8 + n > size:
+            raise ValueError(f"{path}: header length {n} past the end of the file")
+        header = json.loads(fh.read(n))
+        header.pop("__metadata__", None)
+        base = 8 + n
+        for name, info in header.items():
+            if names is not None and name not in names:
+                continue
+            dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+            if dtype is None:
+                raise ValueError(f"{path}: tensor {name} has unsupported dtype {info['dtype']}")
+            begin, end = info["data_offsets"]
+            shape = tuple(info["shape"])
+            count = int(np.prod(shape, dtype=np.int64))
+            if end - begin != count * dtype.itemsize or base + end > size:
+                raise ValueError(f"{path}: tensor {name} byte range {begin}..{end} does not "
+                                 f"hold {shape} {info['dtype']}")
+            # the range's own bytes: aligned, writable, owned by the tensor
+            buf = bytearray(end - begin)
+            fh.seek(base + begin)
+            fh.readinto(buf)
+            t = (torch.frombuffer(buf, dtype=dtype, count=count) if count
+                 else torch.empty(0, dtype=dtype))
+            yield name, t.reshape(shape)
+
+
 def read_safetensors(path, names=None) -> Dict[str, torch.Tensor]:
     """The tensors of a ``.safetensors`` file as f32 CPU tensors (only
-    ``names`` when given).  Raises ``ValueError`` on a malformed file or a
-    dtype other than F32, F16 or BF16 among the tensors read."""
-    data = Path(path).read_bytes()
-    if len(data) < 8:
-        raise ValueError(f"{path}: too short for a safetensors header")
-    (n,) = struct.unpack("<Q", data[:8])
-    if 8 + n > len(data):
-        raise ValueError(f"{path}: header length {n} past the end of the file")
-    header = json.loads(data[8:8 + n])
-    header.pop("__metadata__", None)
-    base = 8 + n
-    out = {}
-    for name, info in header.items():
-        if names is not None and name not in names:
-            continue
-        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
-        if dtype is None:
-            raise ValueError(f"{path}: tensor {name} has unsupported dtype {info['dtype']}")
-        begin, end = info["data_offsets"]
-        shape = tuple(info["shape"])
-        count = int(np.prod(shape, dtype=np.int64))
-        if end - begin != count * dtype.itemsize or base + end > len(data):
-            raise ValueError(f"{path}: tensor {name} byte range {begin}..{end} does not "
-                             f"hold {shape} {info['dtype']}")
-        # a copy of the range: aligned, writable, owned by the tensor
-        buf = bytearray(data[base + begin:base + end])
-        t = torch.frombuffer(buf, dtype=dtype, count=count) if count else torch.empty(0, dtype=dtype)
-        out[name] = t.reshape(shape).float()
-    return out
+    ``names`` when given); raises as ``iter_safetensors`` does."""
+    return {name: t.float() for name, t in iter_safetensors(path, names)}
 
 
 def write_safetensors(path, tensors: Dict[str, torch.Tensor]) -> None:
@@ -329,15 +365,137 @@ def load_modernbert_params(src: Path, cfg: dict
     return {k: v.contiguous() for k, v in sd.items()}, vocab, arch
 
 
+def _deepseek_v3_layout(cfg: dict, src: Path) -> dict:
+    """``DeepseekV3Module``'s keys beyond the BERT ones, from a DeepSeek-V3
+    ``config.json``; raises on what the module does not compute."""
+    refuse = {"q_lora_rank": cfg.get("q_lora_rank") is not None,
+              "rope_scaling": cfg.get("rope_scaling") is not None,
+              "n_group": (cfg.get("n_group") or 1) != 1,
+              "topk_group": (cfg.get("topk_group") or 1) != 1,
+              "scoring_func": cfg.get("scoring_func", "sigmoid") != "sigmoid",
+              "topk_method": cfg.get("topk_method", "noaux_tc") != "noaux_tc",
+              "norm_topk_prob": not cfg.get("norm_topk_prob", True),
+              "attention_bias": bool(cfg.get("attention_bias", False)),
+              "hidden_act": cfg.get("hidden_act", "silu") != "silu",
+              "moe_layer_freq": cfg.get("moe_layer_freq", 1) != 1,
+              "n_shared_experts": (cfg.get("n_shared_experts") or 0) < 1}
+    bad = [k for k, no in refuse.items() if no]
+    if bad:
+        raise ValueError(f"{src}: the port's DeepSeek-V3 layers do not compute "
+                         + ", ".join(f"{k}={cfg.get(k)!r}" for k in bad))
+    return {"nope": int(cfg["qk_nope_head_dim"]), "rope": int(cfg["qk_rope_head_dim"]),
+            "dv": int(cfg["v_head_dim"]), "kv_rank": int(cfg["kv_lora_rank"]),
+            "moe_dim": int(cfg["moe_intermediate_size"]),
+            "experts": int(cfg["n_routed_experts"]), "top_k": int(cfg["num_experts_per_tok"]),
+            "shared": int(cfg["n_shared_experts"]),
+            "first_dense": int(cfg.get("first_k_dense_replace", 0)),
+            "scaling": float(cfg.get("routed_scaling_factor", 1.0)),
+            "theta": float(cfg.get("rope_theta", 10000.0)),
+            "eps": float(cfg.get("rms_norm_eps", 1e-6)),
+            "interleave": bool(cfg.get("rope_interleave", True))}
+
+
+_DSV3_ATTN = {"input_layernorm": "attn_norm", "post_attention_layernorm": "mlp_norm",
+              "self_attn.q_proj": "attn.q_proj", "self_attn.kv_a_proj_with_mqa": "attn.kv_a",
+              "self_attn.kv_a_layernorm": "attn.kv_norm", "self_attn.kv_b_proj": "attn.kv_b",
+              "self_attn.o_proj": "attn.o_proj", "mlp.gate": "mlp.gate"}
+
+
+def _deepseek_v3_target(module, name: str) -> Optional[torch.Tensor]:
+    """The tensor of ``module`` that the checkpoint tensor ``name`` (no
+    ``model.`` prefix) fills, or None for a name it does not compute."""
+    parts = name.split(".")
+    if name == "embed_tokens.weight":
+        return module.tok_embed.weight
+    if name == "norm.weight":
+        return module.final_norm.weight
+    if parts[0] != "layers" or not parts[1].isdigit() or int(parts[1]) >= len(module.blocks):
+        return None
+    block, rest = module.blocks[int(parts[1])], ".".join(parts[2:])
+    if rest == "mlp.gate.e_score_correction_bias":
+        return block.mlp.bias
+    stem = rest.removesuffix(".weight")
+    if stem in _DSV3_ATTN and rest.endswith(".weight"):
+        try:
+            return block.get_parameter(_DSV3_ATTN[stem] + ("" if stem == "mlp.gate" else ".weight"))
+        except AttributeError:  # a router in a dense layer
+            return None
+    # SwiGLUs: gate and up are the halves of w13, down is w2
+    half = {"gate_proj.weight": 0, "up_proj.weight": 1}
+    mlp, leaf = block.mlp, parts[-2] + "." + parts[-1]
+    if rest.startswith("mlp.experts."):
+        if len(parts) != 7 or not parts[4].isdigit() or int(parts[4]) >= mlp.w13.shape[0]:
+            return None
+        w13, w2 = mlp.w13[int(parts[4])], mlp.w2[int(parts[4])]
+    elif rest.startswith("mlp.shared_experts."):
+        w13, w2 = mlp.shared.w13, mlp.shared.w2
+    elif len(parts) == 5 and parts[2] == "mlp" and hasattr(mlp, "w13") and mlp.w13.dim() == 2:
+        w13, w2 = mlp.w13, mlp.w2
+    else:
+        return None
+    if leaf == "down_proj.weight":
+        return w2
+    if leaf in half:
+        return w13.chunk(2, dim=0)[half[leaf]]
+    return None
+
+
+def load_deepseek_v3(src: Path, cfg: dict) -> Tuple[Callable, Dict[str, int], dict]:
+    """(``fill(module)``, vocab, arch) of the DeepSeek-V3 checkpoint in
+    ``src`` whose ``config.json`` is ``cfg``.  ``fill`` copies each tensor
+    of ``model.safetensors`` into its place in a ``DeepseekV3Module`` (in
+    the module's dtype, on its device) and raises on a tensor of another
+    shape, a tensor the module does not compute, or a weight missing."""
+    arch = {"num_layers": cfg["num_hidden_layers"], "hidden": cfg["hidden_size"],
+            "heads": cfg["num_attention_heads"], "mlp_dim": cfg["intermediate_size"],
+            "vocab_size": cfg["vocab_size"], "max_len": cfg["max_position_embeddings"],
+            "model_type": "deepseek_v3", "layout": _deepseek_v3_layout(cfg, src)}
+    if not (src / "vocab.txt").is_file():
+        raise FileNotFoundError(f"{src} has no vocab.txt: the port serves DeepSeek-V3 with a "
+                                "WordPiece vocab only (it has no BPE tokenizer)")
+    if not (src / "model.safetensors").is_file():
+        raise FileNotFoundError(f"{src} has no model.safetensors")
+    vocab = load_vocab(str(src / "vocab.txt"))
+    if max(vocab.values()) >= arch["vocab_size"]:
+        raise ValueError(f"{src}: vocab.txt has {max(vocab.values()) + 1} pieces, the "
+                         f"embedding table {arch['vocab_size']} rows")
+
+    def fill(module) -> None:
+        want = sum(t.numel() for t in module.state_dict().values())
+        got = 0
+        with torch.no_grad():
+            for name, t in iter_safetensors(src / "model.safetensors"):
+                name = name.removeprefix("model.")
+                if name.startswith("lm_head."):
+                    continue
+                dst = _deepseek_v3_target(module, name)
+                if dst is None:
+                    raise ValueError(f"{src}: tensor {name} is not computed by the port's "
+                                     "DeepSeek-V3 module")
+                if tuple(t.shape) != tuple(dst.shape):
+                    raise ValueError(f"{src}: tensor {name} is {tuple(t.shape)}, the module's "
+                                     f"{tuple(dst.shape)}")
+                dst.copy_(t)
+                got += t.numel()
+        if got != want:
+            raise KeyError(f"{src}: the checkpoint fills {got} of the module's {want} values")
+
+    return fill, vocab, arch
+
+
 def load_checkpoint(model_name: str = DEFAULT_MODEL, local_dir: Optional[str] = None
                     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, int], dict]:
-    """(state dict, vocab, arch) of a BERT or ModernBERT checkpoint, as its
-    ``config.json``'s ``model_type`` names it; ``arch["model_type"]`` is
-    ``"bert"`` or ``"modernbert"``."""
+    """(state dict, vocab, arch) of a BERT, ModernBERT or DeepSeek-V3
+    checkpoint, as its ``config.json``'s ``model_type`` names it;
+    ``arch["model_type"]`` is ``"bert"``, ``"modernbert"`` or
+    ``"deepseek_v3"`` (whose state dict is a ``fill(module)`` function:
+    ``load_deepseek_v3``)."""
     src = resolve_checkpoint(local_dir or model_name)
     cfg = json.loads((src / "config.json").read_text())
     if cfg.get("model_type") == "modernbert":
         return load_modernbert_params(src, cfg)
+    if cfg.get("model_type") == "deepseek_v3":
+        return load_deepseek_v3(src, cfg)
     sd, vocab, arch = load_minilm_params(local_dir=str(src))
     return sd, vocab, dict(arch, model_type="bert")
 

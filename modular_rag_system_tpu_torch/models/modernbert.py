@@ -60,6 +60,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from modular_rag_system_tpu_torch.models.pooling import pool
 from modular_rag_system_tpu_torch.ops.flash_attention import (
     mea_attention,
     mea_attention_reference,
@@ -203,8 +204,4 @@ class ModernBertModule(nn.Module):
         pad = mask.bool()
         for block in self.blocks:
             x = block(x, pad, ropes[block.is_global])
-        x = self.final_norm(x)
-        m = mask.float()[..., None]
-        pooled = (x * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
-        norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
-        return pooled / torch.clamp(norm, min=1e-12)
+        return pool(self.final_norm(x), mask)

@@ -246,6 +246,9 @@ def _rescore(q_r: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 # candidates (kb * bin_width) one CTA of the rescan kernel sorts
 _RESCAN_MAX_CANDIDATES = 16384
+# the widest row: the score launch walks d in passes of k16 steps that fit
+# its shared-memory budget (one or two passes at d = 768, eight at 2,048)
+_RESCAN_MAX_D = 2048
 # pairs a window of the rescan kernel's score launch (a run is at most
 # its tensor-core tile's 8 columns), and the largest k its select launch
 # takes by warp selection
@@ -326,9 +329,9 @@ def rescan_call(E, bins, count: int, q, k: int, bin_width: int):
     Q, kb = bins.shape
     if E.dtype not in (torch.float32, torch.bfloat16) or not E.is_contiguous():
         raise ValueError("E must be a contiguous float32 or bfloat16 tensor")
-    if (d % 8 or d > 1024 or cap % bin_width or bin_width % 16 or bin_width > 64 or k < 1
+    if (d % 8 or d > _RESCAN_MAX_D or cap % bin_width or bin_width % 16 or bin_width > 64 or k < 1
             or E.data_ptr() % 16):
-        raise ValueError(f"rescan needs d % 8 == 0, d <= 1024, cap % bin_width == 0, "
+        raise ValueError(f"rescan needs d % 8 == 0, d <= {_RESCAN_MAX_D}, cap % bin_width == 0, "
                          f"bin_width a multiple of 16 up to 64, k >= 1 and E 16-byte "
                          f"aligned; got d={d}, cap={cap}, bin_width={bin_width}, k={k}")
     if not 1 <= kb * bin_width <= _RESCAN_MAX_CANDIDATES:

@@ -21,6 +21,16 @@ versions here add Lp - L to the row sum of such a row (its maximum is
 the masked -1e9), which gives the same value; the pooling mask drops
 such rows either way.
 
+``causal=True`` is the causal mode (DeepSeek-V3's layers): query i sees
+only the live keys j <= i.  q and k may be wider than v (192 and 128 in
+DeepSeek-V3's MLA): the scale is 1 / sqrt(q's width) and the output has
+v's width.  A padded key in the range scores -1e9 as above; a row whose
+range holds no live key, and a padded query row, are all zeros (nothing
+reads them: a last-token pooling takes the last live row).  Its kernel
+entry is ``mea_attention_causal`` (bf16): it loads and scores only the
+key tiles at or below a query tile's diagonal, and skips a tile of query
+rows that are all padding.
+
 ``window=w`` is the sliding-window mode (ModernBERT's local layers): query
 i sees only the keys j with |i - j| <= w.  A key outside the band is no
 key of the row (it adds nothing to its maximum or its sum), a padded key
@@ -50,6 +60,8 @@ _NEG = -1e9  # the finite masked score (not -inf: see the module docstring)
 # f32 bytes of one chunk of the plain version's (c, H, L, L) scores
 _REF_CHUNK_BYTES = 1 << 30
 _MAX_DH = 128
+# the causal mode's widths: q and k up to 192, v up to 128
+_MAX_DQK_CAUSAL = 192
 # query rows a block of the window mode's plain version
 _WINDOW_QB = 256
 # the full mode's Hopper design from this L on (bf16, dh 64): where it
@@ -98,10 +110,37 @@ def _window_reference(q, k, v, pad_mask, window: int):
     return out
 
 
-def mea_attention_reference(q, k, v, pad_mask, window: Optional[int] = None):
+def _causal_reference(q, k, v, pad_mask):
+    """The causal mode's plain version, _WINDOW_QB query rows at a time
+    against the keys at or before their last row."""
+    B, L, H, dqk = q.shape
+    scale = 1.0 / (dqk ** 0.5)
+    out = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    live = pad_mask.to(torch.float32) > 0.5
+    pos = torch.arange(L, device=q.device)
+    qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))  # (B, H, L, d)
+    for q0 in range(0, L, _WINDOW_QB):
+        q1 = min(q0 + _WINDOW_QB, L)
+        s = (qf[:, :, q0:q1] @ kf[:, :, :q1].transpose(2, 3)) * scale
+        s = torch.where(live[:, None, None, :q1], s, _NEG)
+        s = torch.where(pos[None, :q1] <= pos[q0:q1, None], s, float("-inf"))
+        m = s.amax(dim=3, keepdim=True)
+        e = torch.exp(s - m)
+        o = e.to(v.dtype).float() @ vf[:, :, :q1]
+        o = o / torch.clamp(e.sum(dim=3, keepdim=True), min=1e-30)
+        # no live key in the range, or a padded query row: zeros
+        o = torch.where((m == _NEG) | ~live[:, None, q0:q1, None], 0.0, o)
+        out[:, q0:q1] = o.permute(0, 2, 1, 3).to(q.dtype)
+    return out
+
+
+def mea_attention_reference(q, k, v, pad_mask, window: Optional[int] = None,
+                            causal: bool = False):
     """Plain PyTorch version of ``mea_attention``, a few batch rows at a
-    time so the (c, H, L, L) f32 scores stay bounded (the window mode: a
-    block of query rows at a time)."""
+    time so the (c, H, L, L) f32 scores stay bounded (the window and
+    causal modes: a block of query rows at a time)."""
+    if causal:
+        return _causal_reference(q, k, v, pad_mask)
     if window is not None:
         return _window_reference(q, k, v, pad_mask, window)
     B, L, H, dh = q.shape
@@ -131,17 +170,22 @@ def full_design(L: int, dh: int, dtype: torch.dtype) -> int:
     return int(dtype == torch.bfloat16 and dh == _LONG_DH and L >= LONG_FROM)
 
 
-def mea_attention(q, k, v, pad_mask, window: Optional[int] = None):
+def mea_attention(q, k, v, pad_mask, window: Optional[int] = None, causal: bool = False):
     """softmax(q k^T / sqrt(dh)) v with key padding, no (L, L) tensor in
     device memory.  ``q``/``k``/``v``: (B, L, H, dh) bf16 or f32;
     ``pad_mask``: (B, L), 1 = live; ``window``: None (every key) or the
-    band's half width w >= 0 (keys with |i - j| <= w).  Returns (B, L, H,
-    dh) in q's dtype.
+    band's half width w >= 0 (keys with |i - j| <= w); ``causal``: keys j
+    <= i only, and then v may be narrower than q and k (bf16 on the card).
+    Returns (B, L, H, v's dh) in q's dtype.
 
     On a CUDA device this launches the hand-written kernel; on the CPU
     it runs the plain version."""
     if window is not None and (int(window) != window or window < 0):
         raise ValueError(f"mea_attention: window must be a whole number >= 0, got {window!r}")
+    if causal and window is not None:
+        raise ValueError("mea_attention: the causal mode has no window")
+    if causal:
+        return _causal(q, k, v, pad_mask)
     if q.device.type == "cpu":
         return mea_attention_reference(q, k, v, pad_mask, window)
     B, L, H, dh = q.shape
@@ -156,6 +200,34 @@ def mea_attention(q, k, v, pad_mask, window: Optional[int] = None):
     if window is None:
         return _launch(q, k, v, pad_mask, full_design(L, dh, q.dtype))
     return _launch(q, k, v, pad_mask, None, min(int(window), L))
+
+
+def _causal(q, k, v, pad_mask):
+    """The causal mode: checked, then the kernel's entry on the card."""
+    B, L, H, dqk = q.shape
+    dv = v.shape[3]
+    if k.shape != q.shape or v.shape[:3] != q.shape[:3] or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("mea_attention: q and k must share one shape, v its first three "
+                         "axes, and all three one dtype")
+    if q.device.type == "cpu":
+        return mea_attention_reference(q, k, v, pad_mask, causal=True)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"mea_attention's causal mode takes bf16 tensors, got {q.dtype}")
+    if (dqk % 8 or dv % 8 or dqk > _MAX_DQK_CAUSAL or dv > _MAX_DH or B * H > 65535
+            or tuple(pad_mask.shape) != (B, L)):
+        raise ValueError(f"mea_attention's causal mode needs widths % 8 == 0, q and k <= "
+                         f"{_MAX_DQK_CAUSAL}, v <= {_MAX_DH}, B * H <= 65535 and a (B, L) "
+                         f"mask; got q {tuple(q.shape)}, v {tuple(v.shape)}, mask "
+                         f"{tuple(pad_mask.shape)}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    pad = pad_mask.to(torch.float32).contiguous()
+    out = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    if B == 0 or L == 0:
+        return out
+    kernels.launch("mea_attention_causal", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   pad.data_ptr(), B, L, H, dqk, dv, 1.0 / (dqk ** 0.5), out.data_ptr(),
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    return out
 
 
 def _launch(q, k, v, pad_mask, design: Optional[int], window: int = 0):

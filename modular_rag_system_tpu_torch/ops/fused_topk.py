@@ -100,6 +100,9 @@ _FUSED_CHUNK = 128       # rows a CTA scores at a time
 _FUSED_BK = 32           # depth of a k-step
 _FUSED_TARGET_CTAS = 132  # one CTA per SM of an H100
 _FUSED_MERGE_KEYS = 16384  # S x k keys of one query's merge
+# the widest row: the kernel walks d in 32-deep k-steps and holds a query
+# tile of d values (the plan narrows the tile where it does not fit)
+_FUSED_MAX_D = 2048
 
 
 def fused_topk_keys(k: int):
@@ -165,8 +168,8 @@ def fused_topk_plan(Q: int, k: int, count: int, d: int, row_bytes: int,
 
 def _check_kernel_args(what: str, cap: int, d: int, dmul: int, k: int, bw: int) -> None:
     """Raise on shapes the fused_topk kernel does not take."""
-    if d % dmul or d > 1024 or cap % bw:
-        raise ValueError(f"{what} needs d % {dmul} == 0, d <= 1024 and cap % "
+    if d % dmul or d > _FUSED_MAX_D or cap % bw:
+        raise ValueError(f"{what} needs d % {dmul} == 0, d <= {_FUSED_MAX_D} and cap % "
                          f"bin_width == 0; got d={d}, cap={cap}, bin_width={bw}")
     if not 1 <= k <= _KERNEL_MAX_K:
         raise ValueError(f"{what} kernel supports 1 <= k <= {_KERNEL_MAX_K}; got k={k}")

@@ -8,8 +8,9 @@ metrics (cache-hit ratio 0.75 / 0.85 — ``embedding_pipeline.py:695-698``,
   mean, p50, p99); the tracer keeps its per-name windows in one,
 * ``TRACER`` — the process's one ``Tracer``: spans and counters at the
   layer boundaries of the write path (``RAGEngine.add_documents``), the
-  trainer step (``ContrastiveTrainer.step``) and ModernBERT's two kinds
-  of attention layer (``models/modernbert.py``).  Off by default
+  trainer step (``ContrastiveTrainer.step``), ModernBERT's two kinds
+  of attention layer (``models/modernbert.py``) and DeepSeek-V3's causal
+  attention, router and experts (``models/deepseek_v3.py``).  Off by default
   (``TRACER.enable()`` / ``TRACER.disable()``); ``TRACER.stats()``
   summarises what it recorded,
 * ``device_trace`` — a context manager around ``torch.profiler`` that
@@ -70,6 +71,7 @@ TIMELINE_SPANS = frozenset({
     "trainer.tokenize", "trainer.forward", "trainer.backward", "trainer.update",
     "trainer.readback",
     "encoder.tokenize", "encoder.forward", "encoder.attn_global", "encoder.attn_local",
+    "encoder.attn_causal", "encoder.moe_route", "encoder.moe_counts", "encoder.moe_experts",
     "store.lookup", "store.rows", "store.write", "store.commit",
     "index.add",
 })

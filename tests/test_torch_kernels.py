@@ -16,7 +16,8 @@ cores), so scores agree within 1e-5 and ids agree except at near-ties
 bf16, so a last-bit difference in f32 can move an output by one bf16
 step: |d| <= 2^-7 |ref| + 1e-5 there, 1e-5 in f32; its window mode
 holds the same bounds, and a row with no live key in its band is zeros
-in both versions.  ``clip_adamw`` rounds every operation as the plain
+in both versions; so does its causal mode (bf16, q and k wider than v),
+whose padded query rows are zeros too.  ``clip_adamw`` rounds every operation as the plain
 version does, but sums the squares in another order, so the norm agrees
 within 1e-6 relative, and so does every updated value (relative to
 itself, with 1e-6 of the buffer's largest as the floor where a first
@@ -607,3 +608,194 @@ def test_trainer_update_launches_two_kernels(cuda_device):
     assert len(names) <= 3, names
     assert sum("clip_adamw_norm_kernel" in x for x in names) == 1, names
     assert sum("clip_adamw_apply_kernel" in x for x in names) == 1, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,dqk,dv", [
+    # one key tile, one and a bit, a CTA's 64 query rows and one; q and k
+    # wider than v (DeepSeek-V3's 192 / 128), and the other tile widths
+    (3, 1, 2, 192, 128), (3, 40, 2, 192, 128), (2, 65, 3, 192, 128), (3, 130, 2, 24, 16),
+    (2, 200, 2, 64, 64), (2, 300, 2, 128, 64), (2, 257, 2, 160, 128), (3, 2048, 2, 192, 128),
+    # the long-document cell's shape: 16 documents at 4,096 positions, 16
+    # heads, ragged lengths
+    (16, 4096, 16, 192, 128)])
+def test_mea_attention_causal_matches_plain(cuda_device, B, L, H, dqk, dv):
+    from modular_rag_system_tpu_torch import kernels
+
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    q, k = (torch.randn((B, L, H, dqk), generator=g, device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn((B, L, H, dv), generator=g, device=cuda_device).to(torch.bfloat16)
+    lengths = torch.randint(1, L + 1, (B, 1), generator=g, device=cuda_device)
+    pad = (torch.arange(L, device=cuda_device) < lengths).to(torch.int32)
+    pad[0] = 1
+    if B > 2:
+        pad[1, : L // 3] = 0  # leading padding: rows with no live key in their range
+        pad[-1] = 0  # an all-padding batch row
+    before = kernels.launches["mea_attention_causal"]
+    out = pfa.mea_attention(q, k, v, pad, causal=True)
+    torch.cuda.synchronize()
+    assert kernels.launches["mea_attention_causal"] == before + 1
+    ref = pfa.mea_attention_reference(q, k, v, pad, causal=True)
+    assert out.shape == (B, L, H, dv) and out.dtype == torch.bfloat16
+    assert torch.isfinite(out).all()
+    d = (out.float() - ref.float()).abs()
+    assert (d <= 2.0**-7 * ref.float().abs() + 1e-5).all(), d.max().item()
+    # padded query rows, and rows with no live key at or before them, are
+    # zeros in both
+    live = pad.bool()
+    dead = ~live | (live.cumsum(1) == 0)
+    assert (out[dead] == 0).all() and (ref[dead] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("cap,count,Q,k,bw,crafted", [
+    (8192, 8000, 1, 10, None, False), (8192, 8000, 16, 10, None, False),
+    (8192, 7001, 256, 100, None, False), (8192, 3001, 17, 16, None, True),
+    (8192, 5000, 9, 20, 128, True)])
+def test_fused_topk_kernel_wide_rows(cuda_device, dtype, cap, count, Q, k, bw, crafted):
+    # a 2,048-wide index (DeepSeek-V3's hidden size), ties included; int8:
+    # the int8 tier's rows under 8,192 of capacity (its entry fused_topk_int8)
+    d = 2048
+    E = _float_rows(18, cap, count, cuda_device, torch.float32, crafted, d=d)
+    q = (torch.randint(-1, 2, (Q, d), device=cuda_device).float() if crafted
+         else _queries(19, Q, cuda_device, d=d))
+    if dtype == torch.int8:
+        E_q, sc = quantize_rows(E)
+        v1, i1 = pf.fused_topk_int8_raw(E_q, sc.reshape(-1), count, q, k, bw)
+        v2, i2 = pf.fused_topk_int8_reference(E_q, sc.reshape(-1), count, q, k, bw)
+    else:
+        E = E.to(dtype)
+        v1, i1 = pf.fused_topk_raw(E, count, q, k, bw)
+        v2, i2 = pf.fused_topk_reference(E, count, q, k, bw)
+    _assert_topk_close(v1, i1, v2, i2, crafted)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap,count,k,kb,bw,crafted,Q", [
+    (16384, 16001, 10, 13, 32, False, 1), (16384, 16001, 100, 103, 64, False, 16),
+    (16384, 15001, 16, 19, 32, True, 16), (65536, 65000, 10, 14, 32, False, 256)])
+def test_rescan_kernel_wide_rows(cuda_device, dtype, cap, count, k, kb, bw, crafted, Q):
+    d = 2048
+    E = _float_rows(20, cap, count, cuda_device, dtype, crafted, d=d)
+    q = (torch.randint(-1, 2, (Q, d), device=cuda_device).float() if crafted
+         else _queries(21, Q, cuda_device, d=d))
+    rng = np.random.default_rng(22)
+    bins = np.stack([rng.permutation(cap // bw)[:kb] for _ in range(Q)]).astype(np.int32)
+    bins[:, 0] = np.where((bins[:, 1:] == count // bw).any(axis=1), bins[:, 0], count // bw)
+    bins = torch.from_numpy(bins).to(cuda_device)
+    v1, i1 = pb.rescan_call(E, bins, count, q, k, bw)
+    v2, i2 = pb.rescan_reference(E, bins, count, q, k, bw)
+    _assert_topk_close(v1, i1, v2, i2, crafted)
+    assert (i1[~torch.isfinite(v1)] == -1).all()
+
+
+
+# sha256 (first 16 hex digits) of the full and window modes' output bits
+# at these inputs, as the kernels computed them before the causal mode
+# joined the template (an H100 80GB HBM3; equal to the earlier build's, case by
+# case); the tile template and the Hopper design must keep them
+MEA_BITS = {
+    "full-float32-3x40x3x32-wNone-s14": "957262ce2122f407",
+    "full-float32-2x128x12x32-wNone-s14": "b4e2b48858f2b5a9",
+    "full-float32-2x600x2x64-wNone-s14": "b4efa70222193c46",
+    "full-float32-1x70x2x128-wNone-s14": "1d6abf49c16ab4a7",
+    "full-float32-2x33x4x8-wNone-s14": "ba5d435bab473bb0",
+    "full-float32-2x1x3x32-wNone-s14": "7cf31fe79f2423ae",
+    "full-float32-3x32x4x32-wNone-s14": "837bcb5df0ebfd7c",
+    "full-float32-2x64x3x32-wNone-s14": "52befec30a04f19e",
+    "full-float32-2x65x3x64-wNone-s14": "ce9c167c46ef678d",
+    "full-float32-2x2048x4x32-wNone-s14": "e07e86e716c0f55d",
+    "full-float32-2x100x3x40-wNone-s14": "7e994c9b5e537597",
+    "full-float32-5x16x3x8-wNone-s14": "525bbcdecf7daae7",
+    "full-float32-2x20x3x128-wNone-s14": "879487d7911502d9",
+    "full-float32-256x32x12x32-wNone-s14": "a23d22db5f5a7168",
+    "full-bfloat16-3x40x3x32-wNone-s14": "8429dbe5f08b3776",
+    "full-bfloat16-2x128x12x32-wNone-s14": "3c00479d2c3b3685",
+    "full-bfloat16-2x600x2x64-wNone-s14": "924f9f4f50cfba47",
+    "full-bfloat16-1x70x2x128-wNone-s14": "de80218c2c7a9d44",
+    "full-bfloat16-2x33x4x8-wNone-s14": "b1126cc2b2b1f2ef",
+    "full-bfloat16-2x1x3x32-wNone-s14": "de86d13e11e141f1",
+    "full-bfloat16-3x32x4x32-wNone-s14": "38444ae9ce527d41",
+    "full-bfloat16-2x64x3x32-wNone-s14": "7540c8c59aff8aa8",
+    "full-bfloat16-2x65x3x64-wNone-s14": "97500d4fb382d88d",
+    "full-bfloat16-2x2048x4x32-wNone-s14": "0e5c97aaf59c88a3",
+    "full-bfloat16-2x100x3x40-wNone-s14": "78a0e792280c9339",
+    "full-bfloat16-5x16x3x8-wNone-s14": "d496d5c4427452b0",
+    "full-bfloat16-2x20x3x128-wNone-s14": "ce08b063f28c0e0b",
+    "full-bfloat16-256x32x12x32-wNone-s14": "05fc466905575da6",
+    "full-bfloat16-2x511x3x64-wNone-s16": "2872bbdd77ec3301",
+    "full-bfloat16-2x512x3x64-wNone-s16": "1b4599dfb54bdd5b",
+    "full-bfloat16-3x4097x2x64-wNone-s16": "20580c4f482be967",
+    "full-bfloat16-2x8192x2x64-wNone-s16": "d73a58cd9679d063",
+    "full-bfloat16-2x2048x2x64-wNone-s16": "ff190cbd3151bcd9",
+    "full-bfloat16-5x3000x2x64-wNone-s16": "5da17736eb6f01dc",
+    "full-bfloat16-8x8192x12x64-wNone-s16": "24e3d7a01bccbdd4",
+    "window-float32-3x20x2x32-w4-s15": "c627204632f2f36a",
+    "window-float32-3x64x2x32-w4-s15": "44b6a800af98a914",
+    "window-float32-3x200x2x32-w4-s15": "f13269c3bfe5975c",
+    "window-float32-3x2048x2x32-w4-s15": "290bb7c00b1e1e61",
+    "window-float32-3x8192x2x32-w4-s15": "3a5618989a56d233",
+    "window-float32-3x20x2x32-w64-s15": "c4fa6d69ea8219b1",
+    "window-float32-3x64x2x32-w64-s15": "9785f24547a101b0",
+    "window-float32-3x200x2x32-w64-s15": "8370453742948d4b",
+    "window-float32-3x2048x2x32-w64-s15": "e861c8f0b1b625f9",
+    "window-float32-3x8192x2x32-w64-s15": "25b28777020275a9",
+    "window-float32-3x20x2x64-w4-s15": "b475e0a78a92129b",
+    "window-float32-3x64x2x64-w4-s15": "4a3abbdba5706f77",
+    "window-float32-3x200x2x64-w4-s15": "a6801b67965d5908",
+    "window-float32-3x2048x2x64-w4-s15": "d3227e13ac545b1d",
+    "window-float32-3x8192x2x64-w4-s15": "8be8e9a9b348e98b",
+    "window-float32-3x20x2x64-w64-s15": "32d4b559374cd6ee",
+    "window-float32-3x64x2x64-w64-s15": "f483c102b481ec0e",
+    "window-float32-3x200x2x64-w64-s15": "6c0b0f88fcafdcd6",
+    "window-float32-3x2048x2x64-w64-s15": "d9c3f7fbc4223ef0",
+    "window-float32-3x8192x2x64-w64-s15": "aa67dd584d70946c",
+    "window-bfloat16-3x20x2x32-w4-s15": "0173152c3005791a",
+    "window-bfloat16-3x64x2x32-w4-s15": "c0d9dac00a6b6e71",
+    "window-bfloat16-3x200x2x32-w4-s15": "a4f3f50778d94952",
+    "window-bfloat16-3x2048x2x32-w4-s15": "81d6e70ff8ca100a",
+    "window-bfloat16-3x8192x2x32-w4-s15": "54fe143cd9fc1b57",
+    "window-bfloat16-3x20x2x32-w64-s15": "6c18b1173ae62015",
+    "window-bfloat16-3x64x2x32-w64-s15": "4b56cf8bf18478f4",
+    "window-bfloat16-3x200x2x32-w64-s15": "eb522a5623a0bf66",
+    "window-bfloat16-3x2048x2x32-w64-s15": "5287ff74236e28e2",
+    "window-bfloat16-3x8192x2x32-w64-s15": "2df59509edf4fa92",
+    "window-bfloat16-3x20x2x64-w4-s15": "fe108b0e94b88657",
+    "window-bfloat16-3x64x2x64-w4-s15": "79d4254b30cafba2",
+    "window-bfloat16-3x200x2x64-w4-s15": "ca1bc15db35b42ae",
+    "window-bfloat16-3x2048x2x64-w4-s15": "53721d69ed6d6704",
+    "window-bfloat16-3x8192x2x64-w4-s15": "966b0ed222d92fd4",
+    "window-bfloat16-3x20x2x64-w64-s15": "af9e210af1d502c7",
+    "window-bfloat16-3x64x2x64-w64-s15": "f6c64d44380e3788",
+    "window-bfloat16-3x200x2x64-w64-s15": "46039b07df52cfec",
+    "window-bfloat16-3x2048x2x64-w64-s15": "64b5c192ed077940",
+    "window-bfloat16-3x8192x2x64-w64-s15": "87b9b4574503d343",
+    "window-bfloat16-8x8192x12x64-w64-s15": "9bf7f5d8ce1b7b5a",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MEA_BITS))
+def test_mea_attention_full_and_window_bits_unchanged(cuda_device, case):
+    import hashlib
+
+    mode, dtype, shape, w, seed = case.split("-")
+    dtype = getattr(torch, dtype)
+    B, L, H, dh = (int(x) for x in shape.split("x"))
+    window = None if w == "wNone" else int(w[1:])
+    g = torch.Generator(device=cuda_device).manual_seed(int(seed[1:]))
+    q, k, v = (torch.randn((B, L, H, dh), generator=g, device=cuda_device).to(dtype)
+               for _ in range(3))
+    pad = torch.ones((B, L), dtype=torch.int32, device=cuda_device)
+    if B > 3:
+        lengths = torch.randint(1, L + 1, (B, 1), generator=g, device=cuda_device)
+        pad = (torch.arange(L, device=cuda_device) < lengths).to(torch.int32)
+    pad[0, L * 5 // 8:] = 0
+    if B > 1:
+        pad[-1] = 0
+    out = pfa.mea_attention(q, k, v, pad, window)
+    bits = out.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+    assert hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()[:16] == MEA_BITS[case]
