@@ -115,12 +115,19 @@ Phases (any failure exits non-zero and prints no result line):
    layers, 64 sigmoid-routed experts 6 a token and 2 shared; seeded BF16
    weights written tensor by tensor) through ``embedding.hf_checkpoint``
    over 1,048,576 filler rows at 2,048: ``add_documents`` of 16 sections
-   launches ``mea_attention_causal`` once a layer and forward and no
-   other kernel; the causal mode held against its plain version at the
-   first layer's inputs (16 x L, 16 heads, 192 / 128, bf16) and timed;
+   launches ``mea_attention_causal`` once a layer and forward,
+   ``moe_gate_up`` and ``moe_down`` once a dense SwiGLU and twice an
+   expert layer (routed and shared) and forward, and no other kernel; the
+   causal mode held against its plain version at the first layer's inputs
+   (16 x L, 16 heads, 192 / 128, bf16) and timed;
    an engine query and a ``query_batch`` against a brute-force top-k over
    the f32 master; ``rescan`` and ``fused_topk`` at d = 2,048 against
-   their plain versions on the index's rows.
+   their plain versions on the index's rows; the expert layer's grouped
+   SwiGLU kernels (``moe_gate_up``, ``moe_down``) at the first dense,
+   routed and shared calls' own inputs, held against their plain versions
+   and timed beside the library's GEMMs over the same groups, and one
+   expert layer's forward under ``torch.cuda.set_sync_debug_mode("error")``
+   (no read of a device value; two launches of each).
 8. multihost: two processes on the card, one gloo group of 2
    (``parallel/multihost.py``): ``mh_check`` with CUDA tensors (its four
    markers in both ranks), then two ranks of this script
@@ -3243,6 +3250,141 @@ def time_causal(q, k, v, pad, spec, what):
             "bound_ms": b_ms, "bound_by": b_by}, err
 
 
+def _moe_err(got, want, what):
+    """max |got - want|, held to |d| <= 2^-6 |want| + 1e-3 max |want| (one bf16
+    step of g or u moves silu(g) u by up to (1 + |g|) 2^-8 of it; the floor
+    for values near silu's zero); raises beyond it."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    if d.numel() and not bool((d <= 2.0**-6 * want.abs() + 1e-3 * want.abs().max()).all()):
+        raise AssertionError(f"{what}: max |err| {d.max().item():.3e} beyond the bound")
+    return d.max().item() if d.numel() else 0.0
+
+
+def time_grouped(x, w13, w2, offsets, dest, spec, what, cuda=True):
+    """One expert layer's SwiGLU (routed, shared or dense) through
+    ``ops/moe_grouped.py`` at the main path's own inputs: both launches held
+    against the plain version, then timed beside it and beside the library's
+    GEMMs over the same groups (a per-group loop, the grouped launches'
+    yardstick), with the bound: 2 P K 3 D operations; x, the weights and the
+    output read or written once."""
+    import torch
+    import torch.nn.functional as F
+
+    from modular_rag_system_tpu_torch.ops import moe_grouped as MG
+
+    P, K = x.shape
+    D, H = w13.shape[-2] // 2, w2.shape[-2]
+    want = MG.gate_up_reference(x, w13, offsets)
+    err = _moe_err(MG.gate_up(x, w13, offsets), want, f"moe_gate_up {what}")
+    err = max(err, _moe_err(MG.down(want, w2, offsets, dest), MG.down_reference(
+        want, w2, offsets, dest), f"moe_down {what}"))
+    groups = 1 if offsets is None else offsets.numel() - 1
+    out_d = {"rows": P, "groups": groups, "depth": K, "width": D, "max_abs_err": err}
+    if not cuda:
+        return out_d
+
+    def run():
+        MG.down(MG.gate_up(x, w13, offsets), w2, offsets, dest)
+
+    ms = cuda_ms(run, reps=10)
+    queued = queued_ms(run, reps=10)
+    plain = cuda_ms(lambda: MG.down_reference(MG.gate_up_reference(x, w13, offsets), w2,
+                                              offsets, dest), reps=3)
+    at = [0, P] if offsets is None else offsets.tolist()
+    W13 = w13[None] if offsets is None else w13
+    W2 = w2[None] if offsets is None else w2
+    ys = torch.empty((P, H), dtype=x.dtype, device=x.device)
+
+    def library():
+        for e in range(groups):
+            a, b = at[e], at[e + 1]
+            if b > a:
+                F.linear(x[a:b], W13[e])
+                torch.mm(want[a:b], W2[e].t(), out=ys[a:b])
+
+    lib = cuda_ms(library, reps=10)
+    b_ms, b_by = bound(2 * (x.numel() + w13.numel() + w2.numel() + ys.numel()),
+                       2 * P * K * 3 * D, spec[2], spec)
+    log(f"time moe_gate_up + moe_down {what}: P={P} groups={groups} K={K} D={D} H={H}: "
+        f"{ms:.4f} ms (queued {queued:.4f} ms; plain {plain:.4f} ms, library {lib:.4f} ms "
+        f"(the library's GEMMs, a loop over the {groups} groups), bound {b_ms:.4f} ms by "
+        f"{b_by}, {2 * P * K * 3 * D / ms / 1e9:.1f} TFLOP/s); max |err| vs plain {err:.2e}")
+    out_d.update(ms=ms, queued_ms=queued, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                 bound_by=b_by)
+    return out_d
+
+
+def moe_grouped_checks(enc, docs, spec, kernels, cuda):
+    """The grouped SwiGLU kernels at the cell's shapes: the first dense
+    layer's, the first expert layer's routed and shared calls, captured from
+    an ``encode_device`` of the sections, each held and timed
+    (``time_grouped``); then that expert layer's whole forward once more
+    under ``torch.cuda.set_sync_debug_mode("error")`` (no read of a device
+    value), its launches counted, and held against the same layer through the
+    plain versions."""
+    import torch
+
+    from modular_rag_system_tpu_torch.models import deepseek_v3 as DS
+    from modular_rag_system_tpu_torch.ops import moe_grouped as MG
+
+    calls = []
+    gate_up, down = MG.gate_up, MG.down
+
+    def grab_gate_up(x, w13, offsets=None):
+        if len(calls) < 3:
+            calls.append({"x": x.clone(), "w13": w13,
+                          "offsets": None if offsets is None else offsets.clone()})
+        return gate_up(x, w13, offsets)
+
+    def grab_down(act, w2, offsets=None, dest=None):
+        c = next((c for c in calls if "w2" not in c), None)
+        if c is not None:
+            c.update(w2=w2, dest=None if dest is None else dest.clone())
+        return down(act, w2, offsets, dest)
+
+    MG.gate_up, MG.down = grab_gate_up, grab_down
+    try:
+        enc.encode_device(docs)
+    finally:
+        MG.gate_up, MG.down = gate_up, down
+    with torch.inference_mode():  # the encoder's captured tensors are inference tensors
+        layer = next(b.mlp for b in enc.module.blocks if isinstance(b.mlp, DS.Experts))
+        out, h = {}, None
+        for c in calls:
+            what = ("routed" if c["offsets"] is not None else
+                    "shared" if c["w13"] is layer.shared.w13 else "dense")
+            if what == "shared":
+                h = c["x"]  # the shared experts' input: the expert layer's own
+            out[what] = time_grouped(c["x"], c["w13"], c["w2"], c["offsets"], c["dest"], spec,
+                                     f"{what} (Moonlight's first {what} SwiGLU, the long-section "
+                                     f"batch)", cuda)
+        del calls
+        if cuda:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = layer(h)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+        launched = {k: n for k, n in kernels.launches.items() if n}
+        MG.gate_up, MG.down = MG.gate_up_reference, MG.down_reference
+        try:
+            y_ref = layer(h)
+        finally:
+            MG.gate_up, MG.down = gate_up, down
+        err = _moe_err(y, y_ref, "the expert layer against its plain version")
+        want = {"moe_gate_up": 2, "moe_down": 2}
+        log(f"moonlight expert layer under set_sync_debug_mode('error'): no device read; launches "
+            f"{launched}; max |err| vs plain {err:.2e}")
+        if cuda and launched != want:
+            raise AssertionError(f"an expert layer launched {launched}, expected {want}")
+    out["layer"] = {"sync_debug": "error", "launches": launched, "max_abs_err": err}
+    return out
+
+
 def moe_phase(work, kernels, know, passages, spec, device="cuda", config=None,
               pieces=MOE_PIECES, fill_rows=1_048_576):
     """Phase 7c: ``create_engine`` over a Moonlight-16B-A3B checkpoint at its
@@ -3251,14 +3393,16 @@ def moe_phase(work, kernels, know, passages, spec, device="cuda", config=None,
     weights, written tensor by tensor) served at 8,192 positions, as the
     benchmark's ``moonlight-ingest-4k`` cell runs it, filled to
     ``fill_rows`` 2,048-wide rows: ``add_documents`` of 16 sections
-    launches ``mea_attention_causal`` once a layer and forward and no
-    other kernel; the causal mode held against its plain version at the
-    first layer's own inputs of that batch (16 x L, 16 heads, 192 / 128,
-    bf16, ragged) and timed there; one engine query and one
-    ``query_batch`` against a brute-force top-k over the f32 master;
-    ``rescan`` (the int8 route's second pass) and ``fused_topk`` (the
-    first 8,192 rows) at d = 2,048 against their plain versions on the
-    index's own rows.  Returns {"mea_attention_causal": (timing, max
+    launches ``mea_attention_causal`` once a layer and forward,
+    ``moe_gate_up`` and ``moe_down`` once a dense SwiGLU and twice an expert
+    layer and forward, and no other kernel; the causal mode held against
+    its plain version at the first layer's own inputs of that batch (16 x
+    L, 16 heads, 192 / 128, bf16, ragged) and timed there; one engine query
+    and one ``query_batch`` against a brute-force top-k over the f32
+    master; ``rescan`` (the int8 route's second pass) and ``fused_topk``
+    (the first 8,192 rows) at d = 2,048 against their plain versions on
+    the index's own rows; the grouped kernels (``moe_grouped_checks``).
+    Returns {"mea_attention_causal": (timing, max
     |error|, launches), "rescan_2048": max |error|, ...}."""
     import numpy as np
     import torch
@@ -3317,7 +3461,10 @@ def moe_phase(work, kernels, know, passages, spec, device="cuda", config=None,
     enc.forward_tokens = forward_tokens
     log(f"moonlight engine ingest: {len(docs)} sections of {lengths} tokens in {dt:.2f} s "
         f"(first call), {forwards[0]} forwards; launches {counts}")
-    want = {"mea_attention_causal": n_layers * forwards[0]}
+    dense = config["first_k_dense_replace"]
+    swiglus = (dense + 2 * (n_layers - dense)) * forwards[0]  # dense, routed and shared
+    want = {"mea_attention_causal": n_layers * forwards[0], "moe_gate_up": swiglus,
+            "moe_down": swiglus}
     if cuda and (not forwards[0] or {k: n for k, n in counts.items() if n} != want):
         raise AssertionError(f"moonlight ingest launched {counts}, expected {want}")
     hit = eng.query(docs[3], max_results=1, similarity_threshold=0.0).documents
@@ -3360,6 +3507,11 @@ def moe_phase(work, kernels, know, passages, spec, device="cuda", config=None,
             log(f"{name}: max |err| vs plain {out[name]:.2e}, ids equal {same:.4f}")
             if out[name] > 1e-5 or same < 0.98:
                 raise AssertionError(f"{name} differs from its plain version")
+
+    # the grouped SwiGLU kernels at the batch's own shapes, and one expert
+    # layer without a read of a device value
+    out["moe_grouped"] = moe_grouped_checks(enc, docs, spec, kernels, cuda)
+    out["moe_grouped"]["launches"] = {k: want[k] for k in ("moe_gate_up", "moe_down")}
 
     # the causal mode at the first layer's inputs of the batch
     captured = {}
@@ -4128,6 +4280,18 @@ def smoke(work: Path) -> int:
                 "replaces": None, "launches": n, "max_abs_err": err, **timing,
                 "rescan_2048_err": moe["rescan_2048"],
                 "fused_topk_2048_err": moe["fused_topk_2048"], "recall10_2048": moe["recall10"]})
+    # the expert layer's grouped SwiGLU GEMMs (phase 7c): each entry point's
+    # launches in the ingest, the pair's timings at the three SwiGLUs' shapes
+    grouped = moe["moe_grouped"]
+    for kname in ("moe_gate_up", "moe_down"):
+        out.append({"name": kname, "route": "cuda",
+                    "source": f"modular_rag_system_tpu_torch/kernels/{kernels.KERNELS[kname]}.cu",
+                    "replaces": None, "launches": grouped["launches"][kname],
+                    "max_abs_err": max(grouped[w]["max_abs_err"] for w in
+                                       ("routed", "shared", "dense", "layer")),
+                    **({"routed": grouped["routed"], "shared": grouped["shared"],
+                        "dense": grouped["dense"], "layer": grouped["layer"]}
+                       if kname == "moe_gate_up" else {})})
     for kname, n in trained["update_launches"].items():
         out.append({"name": kname, "route": "cuda",
                     "source": f"modular_rag_system_tpu_torch/kernels/{kernels.KERNELS[kname]}.cu",

@@ -6,8 +6,9 @@ over three row types; ``mea_attention.cu`` three, the full, the
 sliding-window and the causal mode: ``mea_attention``,
 ``mea_attention_window`` and ``mea_attention_causal``;
 ``clip_adamw.cu`` two, the trainer's update in two launches:
-``clip_adamw_norm`` and ``clip_adamw_apply``); the ``*.cuh``
-headers hold device code that several of them share.  A kernel's first
+``clip_adamw_norm`` and ``clip_adamw_apply``; ``moe_grouped.cu`` two,
+the expert layer's grouped GEMMs: ``moe_gate_up`` and ``moe_down``); the
+``*.cuh`` headers hold device code that several of them share.  A kernel's first
 use compiles the one source that holds it (``build_all`` compiles every
 source, one ``nvcc`` process each, all started together) for ``sm_90a``
 into a shared library under ``_build/`` (named by the hash of the source
@@ -47,7 +48,8 @@ KERNELS = {"binmax_int8": "binmax_int8", "fused_topk_int8": "fused_topk",
            "mea_attention": "mea_attention", "mea_attention_window": "mea_attention",
            "mea_attention_causal": "mea_attention",
            "clip_adamw_norm": "clip_adamw",
-           "clip_adamw_apply": "clip_adamw"}
+           "clip_adamw_apply": "clip_adamw",
+           "moe_gate_up": "moe_grouped", "moe_down": "moe_grouped"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 
 # dynamic shared memory one CTA may use on Hopper (227 KB); the launch
@@ -99,6 +101,10 @@ _ARGTYPES = {
     # p, g, mu, nu, n, partials, grid, split_sum, norm_out, 1 / bc1, 1 / bc2,
     # wd, -lr, clip, stream
     "clip_adamw_apply": [_P, _P, _P, _P, _I, _P, _I, _P, _P] + [_F] * 5 + [_P],
+    # x, w13, offsets, P, E, K, D, act, stream
+    "moe_gate_up": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # act, w2, offsets, dest, P, E, D, H, out, stream
+    "moe_down": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 

@@ -29,9 +29,14 @@ router, experts) runs on it, and attention scatters q, k and v into the
 (B, L) layout ``mea_attention`` takes and gathers its live rows back.  No
 padding row is routed, no expert has a capacity, no token is dropped.
 The expert layer sorts the (token, expert) pairs by expert (a stable
-sort: within an expert in token order), runs each expert's SwiGLU on its
-contiguous rows, puts each row back at its pair and sums a token's six
-rows with their weights in f32, slot by slot.
+sort: within an expert in token order), takes the experts' row offsets
+as a prefix sum on the device (nothing is read back to the host), runs
+every expert's SwiGLU on its contiguous rows in two grouped calls
+(``ops/moe_grouped.py``: the gate/up product with the SwiGLU, then the
+down product, which puts each row back at its pair) and sums a token's
+six rows with their weights in f32, slot by slot.  The dense SwiGLUs (the
+first layer's and the shared experts') take the same two calls, one
+group each.
 
 Numerics, with ``dtype`` the compute dtype (bf16 on the card):
 
@@ -54,15 +59,16 @@ Numerics, with ``dtype`` the compute dtype (bf16 on the card):
   ``attention_impl="dense"``.
 
 Tracer: spans ``encoder.attn_causal`` (the attention call),
-``encoder.moe_route`` (router, top-k, the sort and gather, the combine),
-``encoder.moe_counts`` (the experts' row counts read back to the host,
-which waits for the work queued before it) and ``encoder.moe_experts``
-(the routed and shared GEMMs); counters
-``encoder.attn_causal_pairs`` (the live causal pairs, the sum of n (n + 1)
-/ 2 over the documents, x heads), ``encoder.attn_causal_rows`` (live query
-rows x heads), ``encoder.moe_rows`` (live tokens entering an expert
-layer) and ``encoder.moe_pairs`` ((token, expert) rows the routed GEMMs
-computed), each summed over layers.
+``encoder.moe_route`` (router, top-k, the sort, gather and offsets, the
+combine) and ``encoder.moe_experts`` (the routed and shared GEMMs; no span
+waits for the device); counters ``encoder.attn_causal_pairs`` (the live
+causal pairs, the sum of n (n + 1) / 2 over the documents, x heads),
+``encoder.attn_causal_rows`` (live query rows x heads),
+``encoder.moe_rows`` (live tokens entering an expert layer),
+``encoder.moe_pairs`` ((token, expert) rows the routed GEMMs computed) and
+``encoder.moe_grouped_rows`` (rows the grouped SwiGLU calls computed: the
+routed pairs, the shared experts' and the dense layers' rows), each
+summed over layers.
 """
 
 from __future__ import annotations
@@ -74,6 +80,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from modular_rag_system_tpu_torch.models.pooling import pool
+from modular_rag_system_tpu_torch.ops import moe_grouped
 from modular_rag_system_tpu_torch.ops.flash_attention import (
     mea_attention,
     mea_attention_reference,
@@ -115,15 +122,6 @@ def route(logits: torch.Tensor, bias: torch.Tensor, top_k: int, scaling: float
     idx = torch.sort(s + bias, dim=1, descending=True, stable=True).indices[:, :top_k]
     w = s.gather(1, idx)
     return idx, w / (w.sum(dim=1, keepdim=True) + 1e-20) * scaling
-
-
-def _swiglu(x: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor, out=None) -> torch.Tensor:
-    """down(silu(gate(x)) * up(x)); ``w13`` the gate rows, then the up rows."""
-    g, u = F.linear(x, w13).chunk(2, dim=-1)
-    a = (F.silu(g.float()) * u.float()).to(x.dtype)
-    if out is None:
-        return F.linear(a, w2)
-    return torch.mm(a, w2.t(), out=out)
 
 
 class RMSNorm(nn.Module):
@@ -185,7 +183,9 @@ class Mlp(nn.Module):
         self.w2 = nn.Parameter(torch.empty(hidden, dim, dtype=param_dtype))
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return _swiglu(h, self.w13.to(h.dtype), self.w2.to(h.dtype))
+        if TRACER.on:
+            TRACER.count("encoder.moe_grouped_rows", h.shape[0])
+        return moe_grouped.down(moe_grouped.gate_up(h, self.w13), self.w2)
 
 
 class Experts(nn.Module):
@@ -212,26 +212,22 @@ class Experts(nn.Module):
             flat = idx.reshape(-1)
             order = torch.sort(flat, stable=True).indices  # pairs by expert, then token
             rows = h[order // k]
-            # not torch.bincount, which waits for the card to size its output
+            # the experts' row offsets on the device: not torch.bincount or
+            # a read of the counts, which wait for the card
             counts = torch.zeros(E, dtype=flat.dtype, device=flat.device).scatter_add_(
                 0, flat, torch.ones_like(flat))
-        with TRACER.span("encoder.moe_counts"):
-            counts = counts.tolist()
+            offsets = torch.zeros(E + 1, dtype=torch.int32, device=flat.device)
+            offsets[1:] = counts.cumsum(0)
         if TRACER.on:
             TRACER.count("encoder.moe_rows", N)
             TRACER.count("encoder.moe_pairs", N * k)
+            TRACER.count("encoder.moe_grouped_rows", N * k)
         with TRACER.span("encoder.moe_experts"):
-            ys = torch.empty_like(rows)
-            at = 0
-            for e, c in enumerate(counts):
-                if c:
-                    _swiglu(rows[at:at + c], self.w13[e].to(dt), self.w2[e].to(dt),
-                            out=ys[at:at + c])
-                at += c
+            # each pair's row lands at its (token, slot) place
+            by_pair = moe_grouped.down(moe_grouped.gate_up(rows, self.w13, offsets), self.w2,
+                                       offsets, dest=order)
             out = self.shared(h).float()
         with TRACER.span("encoder.moe_route"):
-            by_pair = torch.empty_like(ys)
-            by_pair[order] = ys
             by_pair = by_pair.view(N, k, -1)
             for j in range(k):
                 out += w[:, j:j + 1] * by_pair[:, j].float()

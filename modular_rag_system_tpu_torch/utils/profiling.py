@@ -71,7 +71,7 @@ TIMELINE_SPANS = frozenset({
     "trainer.tokenize", "trainer.forward", "trainer.backward", "trainer.update",
     "trainer.readback",
     "encoder.tokenize", "encoder.forward", "encoder.attn_global", "encoder.attn_local",
-    "encoder.attn_causal", "encoder.moe_route", "encoder.moe_counts", "encoder.moe_experts",
+    "encoder.attn_causal", "encoder.moe_route", "encoder.moe_experts",
     "store.lookup", "store.rows", "store.write", "store.commit",
     "index.add",
 })

@@ -33,6 +33,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from modular_rag_system_tpu_torch.config import RAGConfig
 from modular_rag_system_tpu_torch.models import build_encoder
@@ -43,6 +44,7 @@ from modular_rag_system_tpu_torch.models.encoder import MiniLMEncoder
 from modular_rag_system_tpu_torch.models.pooling import pool
 from modular_rag_system_tpu_torch.ops import binmax_topk as pb
 from modular_rag_system_tpu_torch.ops import fused_topk as pf
+from modular_rag_system_tpu_torch.ops import moe_grouped as mg
 from modular_rag_system_tpu_torch.ops.flash_attention import (
     mea_attention,
     mea_attention_reference,
@@ -268,7 +270,166 @@ def test_expert_layer_routes_only_live_tokens(tmp_path):
     assert totals["encoder.attn_causal"][1] == L
     assert totals["encoder.moe_experts"][1] == MOE_LAYERS
     assert totals["encoder.moe_route"][1] == 2 * MOE_LAYERS
-    assert totals["encoder.moe_counts"][1] == MOE_LAYERS
+    # the grouped SwiGLU calls' rows: each expert layer's routed pairs and
+    # its shared experts' rows, and the dense layers' rows
+    dense = CFG["first_k_dense_replace"]
+    assert counts["encoder.moe_grouped_rows"] == \
+        MOE_LAYERS * (CFG["num_experts_per_tok"] + 1) * sum(n) + dense * sum(n)
+    # nothing reads the experts' counts back to the host
+    assert "encoder.moe_counts" not in totals
+
+
+# ---------------------------------------------------------------------------
+# the grouped SwiGLU calls' plain versions against the per-expert loop
+def _loop_experts(rows, w13, w2, counts):
+    """The expert layer's SwiGLUs as one loop over the experts' counts, each
+    expert's rows through the library's GEMMs, SwiGLU in f32 between them."""
+    ys = torch.empty_like(rows)
+    at = 0
+    for e, c in enumerate(counts):
+        if c:
+            g, u = F.linear(rows[at:at + c], w13[e]).chunk(2, dim=-1)
+            a = (F.silu(g.float()) * u.float()).to(rows.dtype)
+            torch.mm(a, w2[e].t(), out=ys[at:at + c])
+        at += c
+    return ys
+
+
+def _loop_dense(x, w13, w2):
+    g, u = F.linear(x, w13).chunk(2, dim=-1)
+    return F.linear((F.silu(g.float()) * u.float()).to(x.dtype), w2)
+
+
+# counts of 6 experts: ragged (no multiple of any tile, one expert empty),
+# one expert taking every row, no row at all
+GROUPS = {"ragged": [3, 0, 129, 1, 64, 7], "one_takes_all": [0, 0, 0, 200, 0, 0],
+          "empty": [0] * 6}
+
+
+def _grouped_case(counts, dtype, K=256, D=128, H=256, seed=4):
+    g = torch.Generator().manual_seed(seed)
+    E, P = len(counts), sum(counts)
+    rows = torch.randn((P, K), generator=g).to(dtype)
+    w13 = (torch.randn((E, 2 * D, K), generator=g) * 0.1).to(dtype)
+    w2 = (torch.randn((E, H, D), generator=g) * 0.1).to(dtype)
+    offsets = torch.tensor(np.concatenate(([0], np.cumsum(counts))), dtype=torch.int32)
+    return rows, w13, w2, offsets
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(GROUPS))
+def test_grouped_swiglu_equals_the_expert_loop(dtype, case):
+    counts = GROUPS[case]
+    rows, w13, w2, offsets = _grouped_case(counts, dtype)
+    act = mg.gate_up(rows, w13, offsets)
+    assert act.shape == (sum(counts), 128) and act.dtype == dtype
+    got = mg.down(act, w2, offsets)
+    assert torch.equal(got, _loop_experts(rows, w13, w2, counts))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [0, 1, 77])
+def test_one_group_equals_the_dense_swiglu(dtype, P):
+    rows, w13, w2, _ = _grouped_case([P], dtype)
+    assert torch.equal(mg.down(mg.gate_up(rows, w13[0]), w2[0]),
+                       _loop_dense(rows, w13[0], w2[0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_down_stores_each_row_at_its_pair(dtype):
+    g = torch.Generator().manual_seed(6)
+    N, k, E = 70, 6, 8
+    flat = torch.randint(0, E, (N * k,), generator=g)
+    flat[:N] = 2  # a crowded expert; others may be empty
+    order = torch.sort(flat, stable=True).indices
+    counts = torch.bincount(flat, minlength=E).tolist()
+    rows, w13, w2, offsets = _grouped_case(counts, dtype, seed=7)
+    ys = _loop_experts(rows, w13, w2, counts)
+    want = torch.empty_like(ys)
+    want[order] = ys
+    got = mg.down(mg.gate_up(rows, w13, offsets), w2, offsets, dest=order)
+    assert torch.equal(got, want)
+
+
+def _loop_expert_layer(layer, h):
+    """The expert layer with its SwiGLUs as the per-expert loop (the counts
+    read on the host), the rows put back by their pairs."""
+    N, k = h.shape[0], layer.top_k
+    idx, w = dsv3.route(F.linear(h.float(), layer.gate.float()), layer.bias, k, layer.scaling)
+    flat = idx.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    counts = torch.bincount(flat, minlength=layer.experts).tolist()
+    ys = _loop_experts(h[order // k], layer.w13.to(h.dtype), layer.w2.to(h.dtype), counts)
+    out = _loop_dense(h, layer.shared.w13.to(h.dtype), layer.shared.w2.to(h.dtype)).float()
+    by_pair = torch.empty_like(ys)
+    by_pair[order] = ys
+    by_pair = by_pair.view(N, k, -1)
+    for j in range(k):
+        out += w[:, j:j + 1] * by_pair[:, j].float()
+    return out.to(h.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_layer_equals_the_loop(dtype):
+    g = torch.Generator().manual_seed(9)
+    layer = dsv3.Experts(32, 16, 8, 2, 1, 2.446, dtype)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.3)
+        layer.bias.copy_(torch.randn(8, generator=g) * 0.05)
+        h = torch.randn((41, 32), generator=g).to(dtype)
+        assert torch.equal(layer(h), _loop_expert_layer(layer, h))
+
+
+def test_grouped_calls_refuse_what_the_kernel_does_not_tile():
+    x = torch.zeros((8, 128), dtype=torch.bfloat16)
+    w = torch.zeros((2, 256, 128), dtype=torch.bfloat16)
+    off = torch.tensor([0, 3, 8], dtype=torch.int32)
+    mg._check("gate_up", x, w, off, 128, 256, 256)  # the kernel's shapes pass
+    with pytest.raises(ValueError, match="bf16"):
+        mg._check("gate_up", x.float(), w, off, 128, 256, 256)
+    with pytest.raises(ValueError, match="depth % 64"):
+        mg._check("gate_up", x[:, :96].contiguous(), w[..., :96].contiguous(), off, 96, 256,
+                  256)
+    with pytest.raises(ValueError, match="widths % 256"):
+        mg._check("down", x, w[:, :128].contiguous(), off, 128, 128, 256)
+    with pytest.raises(ValueError, match="weights"):
+        mg._check("gate_up", x, w[:1], off, 128, 256, 256)
+    with pytest.raises(ValueError, match="int32"):
+        mg._check("gate_up", x, w, off.long(), 128, 256, 256)
+
+
+def test_experts_roofline_reads_the_grouped_kernels_work():
+    """``moedoc.experts_roofline``: the SwiGLU GEMMs' operations from the
+    counters over the grouped kernels' device time, by their name; nothing
+    where the program has no grouped kernel or counter."""
+    from types import SimpleNamespace
+
+    from portbench import common
+
+    reader = common.layer("moedoc.experts_roofline")
+    hf = common.config("moonlight-16b-a3b")["hf_config"]
+    # one call of 34,800 live tokens: 26 expert layers, 1 dense
+    n = 34_800
+    c = {"encoder.moe_rows": 26 * n, "encoder.moe_pairs": 26 * 6 * n,
+         "encoder.moe_grouped_rows": 26 * 6 * n + 26 * n + n}
+    flops = reader.swiglu_flops(hf, c["encoder.moe_pairs"], c["encoder.moe_rows"],
+                                c["encoder.moe_grouped_rows"])
+    # routed 6 x 1,408 and shared 2 x 1,408 a token and expert layer, the
+    # dense layer's 11,264: 2 x 2,048 x 3 x that
+    assert flops == 2 * 2048 * 3 * n * (26 * (6 * 1408 + 2 * 1408) + 11264)
+    names = ("void (anonymous namespace)::moe_grouped_kernel<true>(CUtensorMap_st, "
+             "CUtensorMap_st, int const*, long long const*, unsigned short*, int, int, int, "
+             "int, int)", "void (anonymous namespace)::moe_grouped_kernel<false>(...)")
+    assert all(reader.is_grouped(x) for x in names)
+    assert not reader.is_grouped("nvjet_tst_256x160_64x4_1x2_h_bz_coopA_TNT")
+    spec = common.SPECS["H100"]
+    run = SimpleNamespace(state={"kernel_share": c}, spec=spec, config={"hf_config": hf})
+    trace = {"kernels": {names[0]: (0.1, 27), names[1]: (0.05, 27), "other": (9.0, 1)}}
+    assert reader.read(run, None, trace) == pytest.approx(100 * flops / spec["bf16"] / 0.15)
+    assert reader.read(run, None, {"kernels": {"other": (9.0, 1)}}) is None  # no such kernel
+    run.state = {"kernel_share": {k: v for k, v in c.items() if k != "encoder.moe_grouped_rows"}}
+    assert reader.read(run, None, trace) is None  # no such counter
 
 
 def test_trainer_refuses_deepseek_v3(tmp_path):

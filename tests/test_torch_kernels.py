@@ -799,3 +799,70 @@ def test_mea_attention_full_and_window_bits_unchanged(cuda_device, case):
     out = pfa.mea_attention(q, k, v, pad, window)
     bits = out.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
     assert hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()[:16] == MEA_BITS[case]
+
+
+# ``moe_grouped``: the kernel sums the bf16 products in the tensor cores'
+# order, so a last-bit difference in an f32 sum can move g or u (and then
+# silu(g) u), or a down product, across a bf16 rounding: one bf16 step of
+# g moves silu(g) u by up to (1 + |g|) 2^-8 of it, so |d| <= 2^-6 |ref| +
+# 1e-3 max |ref| (the floor for act near silu's zero).  Two launches on the
+# same inputs agree bit for bit.
+def _moe_case(counts, dev, K, D, H, seed=11):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E, P = len(counts), sum(counts)
+    rows = torch.randn((P, K), generator=g, device=dev).to(torch.bfloat16)
+    w13 = (torch.randn((E, 2 * D, K), generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
+    w2 = (torch.randn((E, H, D), generator=g, device=dev) * D ** -0.5).to(torch.bfloat16)
+    offsets = torch.tensor(np.concatenate(([0], np.cumsum(counts))), dtype=torch.int32,
+                           device=dev)
+    return rows, w13, w2, offsets
+
+
+def _assert_moe_close(got, want):
+    assert got.shape == want.shape
+    if not want.numel():
+        return
+    got, want = got.float(), want.float()
+    tol = 2.0**-6 * want.abs() + 1e-3 * want.abs().max()
+    d = (got - want).abs()
+    assert (d <= tol).all(), (d - tol).max().item()
+
+
+MOE_COUNTS = {"ragged": [3, 0, 129, 1, 64, 7], "one_takes_all": [0, 0, 0, 700, 0, 0],
+              "empty": [0] * 6,
+              "routed64": np.random.default_rng(12).multinomial(6 * 700, [1 / 64] * 64).tolist()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,D,H", [(256, 128, 256), (2048, 1408, 2048)])
+@pytest.mark.parametrize("case", sorted(MOE_COUNTS))
+def test_moe_grouped_kernels_match_plain(cuda_device, case, K, D, H):
+    from modular_rag_system_tpu_torch import kernels
+    from modular_rag_system_tpu_torch.ops import moe_grouped as pmg
+
+    counts = MOE_COUNTS[case]
+    rows, w13, w2, offsets = _moe_case(counts, cuda_device, K, D, H)
+    P = rows.shape[0]
+    kernels.reset_launches()
+    act = pmg.gate_up(rows, w13, offsets)
+    want_act = pmg.gate_up_reference(rows, w13, offsets)
+    _assert_moe_close(act, want_act)
+    order = torch.randperm(P, device=cuda_device)
+    out = pmg.down(want_act, w2, offsets, dest=order)
+    _assert_moe_close(out, pmg.down_reference(want_act, w2, offsets, dest=order))
+    assert kernels.launches["moe_gate_up"] == kernels.launches["moe_down"] == (1 if P else 0)
+    again = pmg.down(pmg.gate_up(rows, w13, offsets), w2, offsets, dest=order)
+    assert torch.equal(again, pmg.down(act, w2, offsets, dest=order))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,K,D,H", [(1, 2048, 2816, 2048), (300, 2048, 2816, 2048),
+                                     (257, 2048, 11264, 2048), (130, 256, 128, 512)])
+def test_moe_grouped_one_group_matches_plain(cuda_device, P, K, D, H):
+    from modular_rag_system_tpu_torch.ops import moe_grouped as pmg
+
+    rows, w13, w2, _ = _moe_case([P], cuda_device, K, D, H, seed=13)
+    act = pmg.gate_up(rows, w13[0])
+    want_act = pmg.gate_up_reference(rows, w13[0])
+    _assert_moe_close(act, want_act)
+    _assert_moe_close(pmg.down(want_act, w2[0]), pmg.down_reference(want_act, w2[0]))
